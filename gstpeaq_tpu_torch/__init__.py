@@ -1,0 +1,23 @@
+"""gstpeaq_tpu_torch — PEAQ (ITU-R BS.1387-1) in PyTorch with hand-written
+CUDA kernels for Hopper.
+
+The port of the JAX package `gstpeaq_tpu`, which stays the reference.  So
+far it computes the basic version for one pair:
+`gstpeaq_tpu_torch.api.peaq(ref, test, device="cuda")`.  The kernels are
+built from `csrc/` with nvcc at first use.  The framework-free modules of
+the JAX package (constants, earparams, utils.testsignals, utils.numpy_ref)
+are imported as they are; JAX itself is never imported.
+"""
+
+__version__ = "0.1.0"
+
+from gstpeaq_tpu.constants import DEFAULT_SETTINGS, Settings  # noqa: F401
+
+
+def peaq(*args, **kwargs):
+    """See gstpeaq_tpu_torch.api.peaq."""
+    from . import api
+    return api.peaq(*args, **kwargs)
+
+
+__all__ = ["Settings", "DEFAULT_SETTINGS", "__version__", "peaq"]

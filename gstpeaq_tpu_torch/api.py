@@ -1,0 +1,128 @@
+"""Public API: peaq(ref, test) -> ODG, DI and MOVs for one 48 kHz pair.
+
+The host pads each pair to its own frame count (the GstAdapter drain and
+flush semantics, src/gstpeaq.c:596-611,715-745) and hands the [CH, T]
+signals to a BasicPipeline on the device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from gstpeaq_tpu import constants as C
+
+from .models.basic import BasicPipeline
+from .ops import framing
+
+# precision tiers -> working dtype; TF32 is off in both.  "accurate" is
+# an alias of "float32" until ROADMAP item A12 measures the tiers.  The
+# default is float64: it reproduces the pinned ODGs, and on an H100 it
+# costs what float32 costs (PERF.md section 5).
+DTYPES = {"float32": torch.float32, "accurate": torch.float32,
+          "float64": torch.float64}
+DEFAULT_DTYPE = "float64"
+
+
+@dataclasses.dataclass
+class PeaqResult:
+    odg: float
+    di: float
+    movs: dict[str, float]
+    total_snr_db: float | None = None
+
+
+@contextlib.contextmanager
+def full_precision_matmuls():
+    """Turn TF32 off for float32 matrix products and convolutions, and
+    restore the previous settings on exit: no product runs at reduced
+    precision without being asked to."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def resolve_device(device) -> torch.device:
+    """None means CUDA, which must be present; only an explicit "cpu" runs
+    on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run the port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@functools.lru_cache(maxsize=8)
+def pipeline(band_count: int, playback_level: float, settings: C.Settings,
+             dtype: str, device: torch.device) -> BasicPipeline:
+    """The basic pipeline of precision tier `dtype` with its constants on
+    `device`, built once per configuration."""
+    return BasicPipeline(band_count, playback_level, settings, DTYPES[dtype],
+                         device)
+
+
+def _as_2d_f32(x) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float32)
+    if x.ndim == 1:
+        x = x[:, None]
+    if x.ndim != 2:
+        raise ValueError("signals must be [samples] or [samples, channels]")
+    return x
+
+
+def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
+         settings: C.Settings = C.DEFAULT_SETTINGS, dtype: str | None = None,
+         return_snr: bool = False, band_count: int | None = None,
+         device=None) -> PeaqResult:
+    """Compute basic PEAQ ODG/DI for one 48 kHz pair.
+
+    ref/test: arrays [samples] or [samples, channels].  band_count: the
+    FFT ear's critical-band count, 55..109 (default 109).  dtype: a
+    precision tier of DTYPES, "float64" by default.  device: a torch
+    device; None means "cuda" and raises when CUDA is absent.
+    """
+    if advanced:
+        raise NotImplementedError(
+            "advanced PEAQ is not ported yet (ROADMAP.md item A9)")
+    ref = _as_2d_f32(ref)
+    test = _as_2d_f32(test)
+    if ref.shape[1] != test.shape[1]:
+        raise ValueError("ref/test channel counts differ")
+    dtype = dtype or DEFAULT_DTYPE
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+    band_count = C.BASIC_BAND_COUNT if band_count is None else band_count
+    if not 55 <= band_count <= 109:
+        raise ValueError("band_count must be in 55..109")
+    dev = resolve_device(device)
+
+    n_fft = framing.num_frames(ref.shape[0], test.shape[0], C.FFT_FRAMESIZE,
+                               C.FFT_STEPSIZE)
+    signals = [
+        torch.from_numpy(np.ascontiguousarray(framing.pad_signal(
+            sig, n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE).T)).to(dev)
+        for sig in (ref, test)]
+    pipe = pipeline(band_count, float(playback_level), settings, dtype, dev)
+    with full_precision_matmuls(), torch.inference_mode():
+        out = pipe(*signals)
+        values = torch.cat([
+            torch.stack([out.odg, out.di, out.total_signal_energy,
+                         out.total_noise_energy]).to(torch.float64),
+            out.movs.to(torch.float64)]).cpu().numpy()
+    odg, di, signal_energy, noise_energy = values[:4]
+    snr = (float(10 * np.log10(signal_energy / noise_energy))
+           if return_snr else None)
+    movs = dict(zip(C.MOV_BASIC_NAMES, map(float, values[4:])))
+    return PeaqResult(odg=float(odg), di=float(di), movs=movs,
+                      total_snr_db=snr)

@@ -1,0 +1,157 @@
+"""Basic-version PEAQ pipeline (FFT ear model, 11 MOVs) for one pair.
+
+`BasicPipeline.forward` maps a padded 48 kHz signal pair [CH, T] to ODG, DI
+and the MOVs in three stages:
+
+  A  the stateless ear model over all frames and channels (rDFT, grouping,
+     spreading: kernel K3);
+  B  the recurrences over frames: time smearing (K1), the level adapter's
+     stage-1 and the modulation smoothers (K2), the level adapter's
+     num/den and pattern-correction smoothers (K1 twice);
+  C  per-frame MOV terms, masked accumulation and the cognitive model.
+
+The orchestration follows src/gstpeaq.c:849-921: the frame >= 24 gates, the
+loudness-reached +3 delay, the data-boundary masks (accum.py), binaural
+ADB/MFPD and the trailing zero-padded flush frame (padded on the host).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from gstpeaq_tpu import constants as C
+from gstpeaq_tpu import earparams as EP
+
+from ..ops import fft_ear as FE
+from ..ops import framing
+from . import accum
+from . import level_adapt as LA
+from . import movs as MOVS
+from . import nn as NN
+
+
+class BasicOutputs(NamedTuple):
+    odg: torch.Tensor
+    di: torch.Tensor
+    movs: torch.Tensor          # [11] in MOV_BASIC_NAMES order
+    total_signal_energy: torch.Tensor
+    total_noise_energy: torch.Tensor
+
+
+class BasicPipeline(nn.Module):
+    """The basic model's constants (ear model, band average, EHS window,
+    cognitive network) as buffers in `dtype` on `device`, and the pipeline
+    as its forward."""
+
+    def __init__(self, band_count: int = C.BASIC_BAND_COUNT,
+                 playback_level: float = 92.0,
+                 settings: C.Settings = C.DEFAULT_SETTINGS,
+                 dtype=torch.float64, device="cpu"):
+        super().__init__()
+        self.settings = settings
+        self.consts = FE.build_consts(
+            EP.fft_ear_params(band_count, playback_level), dtype, device)
+        self.register_buffer("avg_matrix", torch.as_tensor(
+            LA.sliding_average_matrix(band_count), dtype=dtype,
+            device=device))
+        self.register_buffer("ehs_window", torch.as_tensor(
+            EP.ehs_correlation_window(settings.center_ehs_correlation_window),
+            dtype=dtype, device=device))
+        self.cognitive = NN.CognitiveModel.standard(False, dtype, device)
+
+    def forward(self, ref_sig: torch.Tensor,
+                test_sig: torch.Tensor) -> BasicOutputs:
+        """ref/test_sig: [CH, T] float (or PCM16) with T = (F + 1) * 1024,
+        zero-padded on the host past the pair's own flush frame."""
+        k = self.consts
+        settings = self.settings
+        dtype = k.hann.dtype
+        ref_sig = framing.dequantize(ref_sig)
+        test_sig = framing.dequantize(test_sig)
+        n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
+        above = framing.above_threshold_signal(
+            ref_sig.to(dtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
+        _, active, committed = accum.activity(above)
+        ref_blocks = framing.blocks_hop(ref_sig, n_frames)   # [CH, F+1, 1024]
+        test_blocks = framing.blocks_hop(test_sig, n_frames)
+
+        # ---- stage A: stateless ear model on both signals ----
+        power, unsmeared, thresh, delta_p = FE.stateless_pair_hop(
+            k, ref_blocks, test_blocks)
+        ref_p, test_p = power[0], power[1]
+
+        # ---- stage B: recurrences over frames, in [2, CH, Z, F] ----
+        uns_t = unsmeared.transpose(-1, -2).contiguous()
+        exc = FE.time_smear(k, uns_t, axis=-1)
+        ref_e, test_e = exc[0], exc[1]                     # [CH, Z, F]
+        adapted_ref, adapted_test, mod2, avg_loud2 = LA.level_adapt_fused_mod(
+            k.adapt_a, self.avg_matrix, exc, uns_t, C.FFT_STEPSIZE)
+        mod_ref, mod_test = mod2[0], mod2[1]
+
+        # loudness gate; src/gstpeaq.c:841-845,880-886
+        loud2 = FE.loudness(k, exc, axis=-2)               # [2, CH, F]
+        loud_ok = torch.any((loud2[0] > 0.1) & (loud2[1] > 0.1), dim=-2)
+        f_idx = torch.arange(n_frames, device=loud_ok.device)
+        loud_frame = torch.argmax(loud_ok.to(torch.int32))  # first reached
+        nl_gate = ((f_idx >= 24) & torch.any(loud_ok)
+                   & (f_idx - 3 >= loud_frame))
+        md_gate = f_idx >= 24
+
+        # ---- stage C: per-frame MOV terms, then [CH, F] -> [F, CH] ----
+        def fm(x):
+            return x.transpose(-1, -2)
+
+        md1, md2, temp_wt = (fm(x) for x in MOVS.modulation_difference(
+            k.internal_noise, mod_ref, mod_test, avg_loud2[0],
+            rms_mode=False, lev_wt=100.0))
+        nl = fm(MOVS.noise_loudness(
+            k.internal_noise, 1.5, 0.15, 0.5, 0.0, mod_ref, mod_test,
+            adapted_ref, adapted_test))
+        bw_ref, bw_test, bw_valid = (
+            fm(x) for x in MOVS.bandwidth(ref_p, test_p))
+        hi = k.group_bin_hi
+        nmr_mean, disturbed = (fm(x) for x in MOVS.nmr(
+            k.group_matrix[:hi], k.masking_difference, ref_p[..., :hi],
+            test_p[..., :hi], fm(ref_e), delta_p))
+        p_bin, steps_bin = MOVS.prob_detect(
+            ref_e, test_e, settings.use_floor_for_steps_above_threshold)
+        ehs_val, ehs_valid = MOVS.ehs(
+            ref_p, test_p, thresh[0], thresh[1], settings, self.ehs_window,
+            delta_p, k.ehs_zero)
+        ehs_val = fm(ehs_val)
+
+        # ---- accumulate (channel means where multichannel) ----
+        cm = committed[:, None]
+        gm = md_gate[:, None]
+        one = torch.ones_like(md1)
+        mov = {
+            "BandwidthRefB": torch.mean(
+                accum.avg(bw_ref, one, cm & bw_valid)),
+            "BandwidthTestB": torch.mean(
+                accum.avg(bw_test, one, cm & bw_valid)),
+            "TotalNMRB": torch.mean(accum.avg_log(nmr_mean, one, cm)),
+            "WinModDiff1B": torch.mean(accum.avg_window(
+                md1, active[:, None] & gm, cm)),
+            "ADBB": accum.adb(steps_bin, committed & (p_bin > 0.5)),
+            "EHSB": torch.mean(
+                accum.avg(ehs_val, one, cm & ehs_valid[:, None])),
+            "AvgModDiff1B": torch.mean(accum.avg(md1, temp_wt, cm & gm)),
+            "AvgModDiff2B": torch.mean(accum.avg(md2, temp_wt, cm & gm)),
+            "RmsNoiseLoudB": torch.mean(
+                accum.rms(nl, one, cm & nl_gate[:, None])),
+            "MFPDB": accum.filtered_max(p_bin, active, committed),
+            "RelDistFramesB": torch.mean(accum.avg(disturbed, one, cm)),
+        }
+        mov_vec = torch.stack([mov[name] for name in C.MOV_BASIC_NAMES])
+        di = self.cognitive(mov_vec, settings.clamp_movs)
+
+        # totalsnr bookkeeping; src/gstpeaq.c:913-918: the first half of
+        # frame f is hop block f
+        rhalf = ref_blocks[..., :-1, :].to(dtype)
+        nhalf = rhalf - test_blocks[..., :-1, :].to(dtype)
+        return BasicOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
+                            total_signal_energy=torch.sum(rhalf ** 2),
+                            total_noise_energy=torch.sum(nhalf ** 2))

@@ -1,0 +1,82 @@
+"""FFT-ear frequency spreading: CUDA kernel K3 and its plain PyTorch version.
+
+K3 `spread_fft` (csrc/spread_fft.cu) replaces the Pallas TPU kernel
+gstpeaq_tpu/ops/pallas_spread_fft.py::spread_fft and keeps its layout:
+[..., F, Z], bands last, one contiguous row per frame.  What it computes:
+src/fftearmodel.c:636-676.
+
+The wrapper takes the plain version only for a tensor on the CPU.  For a
+CUDA tensor it launches the kernel or raises; there is no fallback.  It
+counts its launches in `spread_fft_launches`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+MAX_BANDS = 128          # one thread per band in the kernel's block
+spread_fft_launches = 0
+
+
+def spread_fft_plain(pitch_power: torch.Tensor, a_uc: torch.Tensor,
+                     g_il: torch.Tensor, lower_matrix: torch.Tensor,
+                     spread_norm: torch.Tensor, dz02: float,
+                     block: int = 16) -> torch.Tensor:
+    """Level-dependent spreading in the exp form of the JAX reference
+    (gstpeaq_tpu/ops/fft_ear.py::spread):
+        W[i, j] = aUCEe[i]^(j-i)  for j > i   (level-dependent upper slope)
+        W[i, j] = lower[i, j]     for j <= i  (constant lower slope)
+    E2[j] = sum_i Ene[i] * W[i, j]; out = E2^2.5 / norm.  The upper part is
+    formed in blocks of `block` destination bands.
+
+    pitch_power: [..., Z] (> 0); a_uc/g_il/spread_norm: [Z]; lower_matrix:
+    [Z, Z]; dz02 = 0.2 * delta_z in the working type."""
+    z = pitch_power.shape[-1]
+    dtype, device = pitch_power.dtype, pitch_power.device
+    a_uce = a_uc * pitch_power ** dz02
+    n_up = z - torch.arange(z, dtype=dtype, device=device)
+    g_iu = (1.0 - a_uce ** n_up) / (1.0 - a_uce)
+    ene = (pitch_power / (g_il + g_iu - 1.0)) ** 0.4
+    log_a = (0.4 * torch.log(a_uce))[..., None]           # [..., Z, 1]
+    e2 = ene @ lower_matrix
+    i_idx = torch.arange(z, dtype=dtype, device=device)[:, None]
+    chunks = []
+    for jb in range(0, z, block):
+        j = torch.arange(jb, min(jb + block, z), dtype=dtype, device=device)
+        expo = j - i_idx                                  # [Z, <=block]
+        w = torch.where(expo > 0, torch.exp(expo * log_a), 0.0)
+        chunks.append(torch.sum(ene[..., None] * w, dim=-2))
+    e2 = e2 + torch.cat(chunks, dim=-1)
+    return (e2 * e2) * torch.sqrt(e2) / spread_norm
+
+
+def spread_fft(pitch_power: torch.Tensor, a_uc: torch.Tensor,
+               g_il: torch.Tensor, lower_matrix: torch.Tensor,
+               spread_norm: torch.Tensor, dz02: float) -> torch.Tensor:
+    """K3: see spread_fft_plain.  pitch_power: contiguous [..., F, Z] with
+    Z <= 128.  Returns the unsmeared excitation, same shape and dtype."""
+    global spread_fft_launches
+    if pitch_power.device.type == "cpu":
+        return spread_fft_plain(pitch_power, a_uc, g_il, lower_matrix,
+                                spread_norm, dz02)
+    z = pitch_power.shape[-1]
+    if (not 1 <= z <= MAX_BANDS or a_uc.shape != (z,)
+            or g_il.shape != (z,) or spread_norm.shape != (z,)
+            or lower_matrix.shape != (z, z)):
+        raise ValueError(f"spread_fft: pitch_power {tuple(pitch_power.shape)} "
+                         f"and its [Z] / [Z, Z] constants do not match "
+                         f"(Z <= {MAX_BANDS})")
+    _build.require("spread_fft", pitch_power, pitch_power=pitch_power,
+                   a_uc=a_uc, g_il=g_il, lower_matrix=lower_matrix,
+                   spread_norm=spread_norm)
+    out = torch.empty_like(pitch_power)
+    if pitch_power.numel() == 0:
+        return out
+    _build.launch("spread_fft", pitch_power, pitch_power.data_ptr(),
+                  a_uc.data_ptr(), g_il.data_ptr(), lower_matrix.data_ptr(),
+                  spread_norm.data_ptr(), float(dz02), out.data_ptr(),
+                  pitch_power.numel() // z, z)
+    spread_fft_launches += 1
+    return out

@@ -1,0 +1,175 @@
+"""FFT-based ear model of the basic version (src/fftearmodel.c:432-515).
+
+The stateless part (Hann window, real FFT, playback level, outer/middle-ear
+weighting, critical-band grouping, internal noise, frequency spreading) runs
+over all frames and channels at once; the spreading is kernel K3 on the
+card.  The one stateful part, time-domain smearing, is a banded recurrence
+over frames: kernel K1.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from gstpeaq_tpu import constants as C
+from gstpeaq_tpu import earparams as EP
+
+from . import cuda_spread_fft
+from . import iir
+
+# the tensors of FFTEarConsts, in the JAX package's field names
+CONST_FIELDS = (
+    "hann", "level_factor", "group_matrix", "internal_noise", "a_uc",
+    "g_il", "lower_matrix", "spread_norm", "delta_z", "ear_a", "adapt_a",
+    "masking_difference", "threshold", "excitation_threshold",
+    "loudness_factor", "ehs_zero")
+
+_NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class FFTEarConsts(nn.Module):
+    """Constants of the FFT ear model as buffers (CONST_FIELDS), in the
+    working dtype but ehs_zero, which is bool.
+
+    group_matrix [1025, Z] carries the outer/middle-ear weight folded into
+    its rows, so the weighted spectrum never forms; ehs_zero [512] marks
+    the bins whose weight is 0 (the DC bin), which EHS must zero because it
+    is fed plain power where the reference fed it weighted power (see
+    gstpeaq_tpu/ops/fft_ear.py, FFTEarConsts.ehs_zero).  group_bin_hi is
+    the last bin the grouping reads, plus one; dz02 = 0.2 * delta_z,
+    rounded in the working dtype."""
+
+    def __init__(self, tensors: dict[str, torch.Tensor], group_bin_hi: int):
+        super().__init__()
+        for name in CONST_FIELDS:
+            self.register_buffer(name, tensors[name])
+        self.band_count = int(self.internal_noise.shape[0])
+        self.group_bin_hi = int(group_bin_hi)
+        np_dtype = _NUMPY_DTYPE[self.internal_noise.dtype]
+        self.dz02 = float(np_dtype(0.2) * np_dtype(self.delta_z.item()))
+
+
+def build_consts(params: EP.FFTEarParams, dtype=torch.float64,
+                 device="cpu") -> FFTEarConsts:
+    """The constants the basic path reads, from EP.fft_ear_params, in
+    `dtype` on `device`.  This is gstpeaq_tpu/ops/fft_ear.py::build_consts
+    without the TPU's DFT-GEMM and Cooley-Tukey tables."""
+    z = params.band_count
+    idx = np.arange(z)
+    expo = idx[None, :] - idx[:, None]  # [i, j] -> j - i
+    aLe = params.lower_spreading_exponentiated
+    lower = np.where(expo <= 0, aLe ** np.maximum(-expo, 0), 0.0)
+    group_bin_hi = int(np.nonzero(
+        params.group_matrix.any(axis=1))[0].max() + 1)
+    om_weight = params.outer_middle_ear_weight
+    values = {
+        "hann": params.hann_window,
+        "level_factor": params.level_factor,
+        "group_matrix": params.group_matrix * om_weight[:, None],
+        "internal_noise": params.internal_noise,
+        "a_uc": params.a_uc,
+        "g_il": params.g_il,
+        "lower_matrix": lower,
+        "spread_norm": params.spreading_normalization,
+        "delta_z": params.delta_z,
+        "ear_a": params.ear_time_constants,
+        "adapt_a": params.adapt_time_constants,
+        "masking_difference": params.masking_difference,
+        "threshold": params.threshold,
+        "excitation_threshold": params.excitation_threshold,
+        "loudness_factor": params.loudness_factor,
+    }
+    tensors = {name: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                     device=device)
+               for name, v in values.items()}
+    tensors["ehs_zero"] = torch.as_tensor(
+        om_weight[:2 * C.MAXLAG] == 0.0, device=device)
+    return FFTEarConsts(tensors, group_bin_hi)
+
+
+def group_into_bands(k: FFTEarConsts, spectrum: torch.Tensor) -> torch.Tensor:
+    """Critical-band grouping with the 1e-12 floor;
+    src/fftearmodel.c:603-620.  spectrum: the POWER spectrum [..., bins]
+    -> [..., Z] (the ear weight is folded into k.group_matrix)."""
+    return torch.clamp_min(spectrum @ k.group_matrix, 1e-12)
+
+
+def spread(k: FFTEarConsts, pitch_power: torch.Tensor) -> torch.Tensor:
+    """Level-dependent frequency spreading, src/fftearmodel.c:636-676, on
+    [..., F, Z] (bands last): kernel K3."""
+    return cuda_spread_fft.spread_fft(
+        pitch_power.contiguous(), k.a_uc, k.g_il, k.lower_matrix,
+        k.spread_norm, k.dz02)
+
+
+def _spectrum_hop(k: FFTEarConsts, blocks: torch.Tensor):
+    """Real and imaginary parts of the Hann-windowed rDFT of the frames
+    built from hop blocks [..., F + 1, 1024]: [..., F, 1025] each."""
+    frames = torch.cat([blocks[..., :-1, :], blocks[..., 1:, :]], dim=-1)
+    spec = torch.fft.rfft(frames * k.hann, dim=-1)
+    return spec.real, spec.imag
+
+
+def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
+                       test_blocks: torch.Tensor):
+    """The stateless ear model for a ref/test PAIR of hop blocks
+    [..., CH, F + 1, 1024].
+
+    The transform runs on (ref, ref - test): the input difference is exact,
+    so the difference spectrum's error scales with the distortion and not
+    with the signal.  The test spectrum reconstructs as T = R - D, and the
+    NMR power difference is the cross term
+        pr - pt = level * (Dre * Sre + Dim * Sim),   S = R + T
+    (gstpeaq_tpu/ops/fft_ear.py:484-493, :537-544).
+
+    Returns (power [2, ..., CH, F, 1025], unsmeared [2, ..., CH, F, Z],
+    energy_threshold [2, ..., CH, F] bool, delta_power [..., CH, F, hi])
+    with hi = k.group_bin_hi.
+    """
+    hi = k.group_bin_hi
+    ref = ref_blocks.to(k.hann.dtype)
+    test = test_blocks.to(k.hann.dtype)
+    r_re, r_im = _spectrum_hop(k, ref)
+    d_re, d_im = _spectrum_hop(k, ref - test)
+    t_re, t_im = r_re - d_re, r_im - d_im
+    power = (torch.stack([r_re ** 2 + r_im ** 2, t_re ** 2 + t_im ** 2])
+             * k.level_factor)
+    delta_power = ((d_re[..., :hi] * (r_re[..., :hi] + t_re[..., :hi])
+                    + d_im[..., :hi] * (r_im[..., :hi] + t_im[..., :hi]))
+                   * k.level_factor)
+    band_power = group_into_bands(k, power)
+    unsmeared = spread(k, band_power + k.internal_noise)
+    energy = torch.sum(torch.stack([ref, test])[..., 1:, :] ** 2, dim=-1)
+    threshold_reached = energy >= C.EHS_ENERGY_THRESHOLD
+    return power, unsmeared, threshold_reached, delta_power
+
+
+def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor,
+               axis: int = 0) -> torch.Tensor:
+    """Time-domain smearing E = max(filtered, unsmeared);
+    src/fftearmodel.c:496-504.  With axis = -1 the input is the [..., Z, F]
+    layout (bands second to last); otherwise the band axis is last."""
+    transposed = axis in (-1, unsmeared.dim() - 1)
+    one_minus_a = 1.0 - k.ear_a
+    drive = (one_minus_a[:, None] if transposed else one_minus_a) * unsmeared
+    filtered = iir.linear_recurrence_banded(k.ear_a, drive, axis=axis)
+    return torch.maximum(filtered, unsmeared)
+
+
+def loudness(k: FFTEarConsts, excitation: torch.Tensor,
+             axis: int = -1) -> torch.Tensor:
+    """Overall loudness per frame; src/earmodel.c:890-907.  Reduces the band
+    axis `axis`: -1, or -2 in the [..., Z, F] layout."""
+    if axis in (-1, excitation.dim() - 1):
+        lf, th, et = k.loudness_factor, k.threshold, k.excitation_threshold
+    elif axis in (-2, excitation.dim() - 2):
+        lf = k.loudness_factor[:, None]
+        th = k.threshold[:, None]
+        et = k.excitation_threshold[:, None]
+    else:
+        raise ValueError("loudness: band axis must be -1 or -2")
+    val = lf * ((1.0 - th + th * excitation / et) ** 0.23 - 1.0)
+    return (torch.sum(torch.clamp_min(val, 0.0), dim=axis)
+            * (24.0 / k.band_count))

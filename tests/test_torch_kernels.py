@@ -1,0 +1,211 @@
+"""The port's kernels K1-K3 against the JAX package, on the CPU.
+
+On a CPU tensor each kernel wrapper of gstpeaq_tpu_torch runs its plain
+PyTorch version.  Here that version is held against the Pallas kernel it
+stands for, run in interpret mode, in float32 (max|d|/max|ref| < 1e-5, and
+elementwise < 1e-4 for the spreading: the bars of test_pallas_kernels.py),
+and against the JAX XLA path in float64 (< 1e-12: the two differ only in
+summation order).  The CUDA kernels themselves are held against the plain
+versions on the card by chip_smoke.py.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gstpeaq_tpu import earparams as EP
+from gstpeaq_tpu.models import level_adapt as JLA
+from gstpeaq_tpu.ops import fft_ear as JFE
+from gstpeaq_tpu.ops import iir as JIIR
+from gstpeaq_tpu.ops import pallas_iir
+from gstpeaq_tpu.ops import pallas_spread_fft
+from gstpeaq_tpu_torch.models import level_adapt as LA
+from gstpeaq_tpu_torch.ops import _build
+from gstpeaq_tpu_torch.ops import cuda_iir
+from gstpeaq_tpu_torch.ops import cuda_spread_fft
+from gstpeaq_tpu_torch.ops import fft_ear as FE
+from gstpeaq_tpu_torch.ops import iir
+
+SCALE = 48000 / 1024
+
+
+def rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def tt(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def smoothing_coeffs(rng, z, dtype):
+    return np.exp(-rng.uniform(0.01, 0.5, z)).astype(dtype)
+
+
+@pytest.mark.parametrize("f", [1, 37, 300])
+@pytest.mark.parametrize("with_y0", [False, True])
+def test_recurrence_plain_matches_pallas(f, with_y0):
+    rng = np.random.default_rng(f)
+    z = 109
+    a = smoothing_coeffs(rng, z, np.float32)
+    b = rng.standard_normal((2, 2, z, f)).astype(np.float32)
+    y0 = (rng.standard_normal((2, 2, z)).astype(np.float32)
+          if with_y0 else None)
+    want = pallas_iir.recurrence_banded(
+        jnp.asarray(a), jnp.asarray(b),
+        y0=None if y0 is None else jnp.asarray(y0), interpret=True)
+    got = cuda_iir.recurrence_banded(tt(a), tt(b), tt(y0))
+    assert got.dtype == torch.float32
+    assert rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("with_y0", [False, True])
+def test_recurrence_plain_matches_xla_f64(with_y0):
+    """Both layouts of the dispatcher: [..., Z, F] with axis=-1 and
+    [F, ..., Z] with axis=0."""
+    rng = np.random.default_rng(3)
+    z, f = 55, 200
+    a = smoothing_coeffs(rng, z, np.float64)
+    b = rng.standard_normal((3, z, f))
+    y0 = rng.standard_normal((3, z)) if with_y0 else None
+    recurrence = jax.jit(JIIR.linear_recurrence_banded,
+                         static_argnames=("axis", "block"))
+    want = recurrence(jnp.asarray(a), jnp.asarray(b), axis=-1,
+                      y0=None if y0 is None else jnp.asarray(y0))
+    got = iir.linear_recurrence_banded(tt(a), tt(b), axis=-1, y0=tt(y0))
+    assert got.dtype == torch.float64
+    assert rel(got, want) < 1e-12
+    bt = np.ascontiguousarray(np.moveaxis(b, -1, 0))      # [F, 3, Z]
+    want = recurrence(jnp.asarray(a), jnp.asarray(bt), axis=0,
+                      y0=None if y0 is None else jnp.asarray(y0))
+    got = iir.linear_recurrence_banded(tt(a), tt(bt), axis=0, y0=tt(y0))
+    assert rel(got, want) < 1e-12
+
+
+def test_fused_mod_plain_matches_pallas():
+    rng = np.random.default_rng(5)
+    z, f = 109, 150
+    a = smoothing_coeffs(rng, z, np.float32)
+    exc2 = rng.uniform(0.01, 10.0, (2, 2, z, f)).astype(np.float32)
+    uns2 = rng.uniform(0.01, 10.0, (2, 2, z, f)).astype(np.float32)
+    want = pallas_iir.fused_mod_smoothers(
+        jnp.asarray(a), jnp.asarray(exc2), jnp.asarray(uns2), SCALE,
+        interpret=True)
+    got = cuda_iir.fused_mod_smoothers(tt(a), tt(exc2), tt(uns2), SCALE)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert rel(g, w) < 1e-5
+
+
+def test_fused_mod_plain_matches_xla_f64(monkeypatch):
+    """level_adapt_fused_mod: K2's three outputs (exc_filt through the
+    adapted excitations) and the two K1 calls of adapt_stage2, against the
+    JAX XLA form."""
+    monkeypatch.setattr(JIIR, "USE_PALLAS", False)
+    rng = np.random.default_rng(9)
+    z, f = 109, 120
+    a = smoothing_coeffs(rng, z, np.float64)
+    exc2 = rng.uniform(0.01, 10.0, (2, 2, z, f))
+    uns2 = rng.uniform(0.01, 10.0, (2, 2, z, f))
+    avg = LA.sliding_average_matrix(z)
+    np.testing.assert_array_equal(avg, JLA.sliding_average_matrix(z))
+    want = jax.jit(JLA.level_adapt_fused_mod, static_argnames="step_size")(
+        jnp.asarray(a), jnp.asarray(avg), jnp.asarray(exc2),
+        jnp.asarray(uns2), step_size=1024)
+    got = LA.level_adapt_fused_mod(tt(a), tt(avg), tt(exc2), tt(uns2), 1024)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        assert rel(g, w) < 1e-12
+
+
+@pytest.mark.parametrize("band_count", [109, 55])
+def test_spread_plain_matches_pallas(band_count):
+    rng = np.random.default_rng(band_count)
+    params = EP.fft_ear_params(band_count)
+    jk = JFE.build_consts(params, dtype=jnp.float32)
+    k = FE.build_consts(params, torch.float32)
+    pp = rng.uniform(1e-6, 1e4, (2, 2, 37, band_count)).astype(np.float32)
+    want = np.asarray(pallas_spread_fft.spread_fft(
+        jnp.asarray(pp), jk.a_uc_log, jk.g_il, jk.lower_matrix,
+        jk.spread_norm, 0.2 * float(np.asarray(jk.delta_z)),
+        interpret=True))
+    got = FE.spread(k, tt(pp))
+    assert got.dtype == torch.float32
+    assert rel(got, want) < 1e-5
+    assert (np.abs(got.numpy() - want) / np.abs(want)).max() < 1e-4
+
+
+@pytest.mark.parametrize("band_count", [109, 55])
+def test_spread_plain_matches_xla_f64(band_count):
+    rng = np.random.default_rng(band_count + 1)
+    params = EP.fft_ear_params(band_count)
+    jk = JFE.build_consts(params, dtype=jnp.float64)
+    k = FE.build_consts(params, torch.float64)
+    pp = 10.0 ** rng.uniform(-3, 9, (2, 2, 40, band_count))
+    want = np.asarray(jax.jit(JFE.spread)(jk, jnp.asarray(pp)))
+    got = cuda_spread_fft.spread_fft_plain(
+        tt(pp), k.a_uc, k.g_il, k.lower_matrix, k.spread_norm, k.dz02)
+    assert got.dtype == torch.float64
+    assert rel(got, want) < 1e-12
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """A CPU tensor runs the plain version and launches nothing."""
+    monkeypatch.setattr(cuda_iir, "recurrence_banded_launches", 0)
+    monkeypatch.setattr(cuda_iir, "fused_mod_smoothers_launches", 0)
+    monkeypatch.setattr(cuda_spread_fft, "spread_fft_launches", 0)
+    rng = np.random.default_rng(2)
+    a = tt(smoothing_coeffs(rng, 55, np.float64))
+    b = tt(rng.uniform(0.1, 1.0, (2, 55, 8)))
+    np.testing.assert_array_equal(
+        cuda_iir.recurrence_banded(a, b),
+        cuda_iir.recurrence_banded_plain(a, b))
+    for g, w in zip(cuda_iir.fused_mod_smoothers(a, b, b, SCALE),
+                    cuda_iir.fused_mod_smoothers_plain(a, b, b, SCALE)):
+        np.testing.assert_array_equal(g, w)
+    k = FE.build_consts(EP.fft_ear_params(55), torch.float64)
+    consts = (k.a_uc, k.g_il, k.lower_matrix, k.spread_norm, k.dz02)
+    p = b.transpose(-1, -2).contiguous()
+    np.testing.assert_array_equal(
+        cuda_spread_fft.spread_fft(p, *consts),
+        cuda_spread_fft.spread_fft_plain(p, *consts))
+    assert (cuda_iir.recurrence_banded_launches,
+            cuda_iir.fused_mod_smoothers_launches,
+            cuda_spread_fft.spread_fft_launches) == (0, 0, 0)
+
+
+def test_other_devices_raise_without_fallback():
+    """A tensor on neither the CPU nor a CUDA card is refused before any
+    build."""
+    a = torch.ones(4, device="meta")
+    b = torch.ones(2, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_iir.recurrence_banded(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_iir.fused_mod_smoothers(a, b, b, SCALE)
+    z = torch.ones(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_spread_fft.spread_fft(b.transpose(-1, -2).contiguous(), z, z,
+                                   torch.ones(4, 4, device="meta"), z, 0.1)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_build_is_keyed_by_the_sources():
+    """The library's name hashes every .cu source and the flags; the flags
+    target sm_90a and never fast math."""
+    names = {p.name for p in _build.sources()}
+    assert names == {"recurrence.cu", "spread_fft.cu"}
+    assert _build.library_path().name.startswith("libpeaq_kernels_")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast" in flag for flag in _build.NVCC_FLAGS)
+    assert os.path.relpath(_build.BUILD_DIR, _build.PACKAGE) == "_build"
