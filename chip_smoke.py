@@ -4,25 +4,36 @@ and check it.  Run from the repository root:
 
     python3 chip_smoke.py        # needs one CUDA card, nvcc, no JAX
 
-Phases, each on its own lines:
+Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
-  2 build     nvcc builds the kernels K1-K3 from gstpeaq_tpu_torch/csrc
+  2 build     nvcc builds the kernels K1-K3 and D1-D3 from
+              gstpeaq_tpu_torch/csrc, one process per source, and ptxas
+              reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and edge shapes, in float32 and float64
-  4 float64   the main path: the pinned ODGs 0.171 / -2.007 / -2.007 (stereo
-              upmix), and a 10 s stereo pair against the NumPy spec
+              the main paths' shapes and edge shapes, in float32 and float64,
+              and the float32 DC cascade's own rounding against float64
+  4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
+              (stereo upmix), and a 10 s stereo pair against the NumPy spec
               (gstpeaq_tpu.utils.numpy_ref, framework-free)
-  5 float32   the float32 tier on the same pairs, and the cause of its
+  4b float64  the advanced path: the same 10 s pair against the NumPy spec
+  5 float32   the basic float32 tier on the same pairs, and the cause of its
               identical-sine ODG: the float32 rDFT's rounding floor
-  6 counters  one float32 peaq() call of a 10 s stereo pair goes through
-              every kernel
-  7 times     CUDA-event medians of each kernel and its plain version, and
-              peaq() wall time per 10 s stereo pair per tier
-  8 profile   torch.profiler over five peaq() calls per tier: device time
-              per call, its share of the wall time, and time by kernel
+  5b float32  the advanced float32 tier against the card's float64
+  6 counters  one float32 basic and one float32 advanced peaq() of the 10 s
+              pair, each with the counts set to 0 just before it: the
+              advanced call goes through all six kernels
+  7 times     CUDA-event medians of each kernel and its plain version and of
+              the FB ear's FIR bank, and peaq() wall time per 10 s stereo
+              pair per mode and tier
+  8 profile   torch.profiler over five peaq() calls per mode and tier:
+              device time per call, its share of the wall time, and time by
+              kernel
 
-The line before the last is one JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.  Any
+Two lines before the last is one JSON object with each kernel's error,
+times and launches: `launches_by_path` holds phase 6's count per path
+(basic, advanced; 0 where a path does not launch the kernel), `launches`
+their sum.  The line before the last is the card's name and power limit;
+the last line is {"ok": true, "device": {...}}.  Any
 failed check exits non-zero without that last line.  Without CUDA the
 script exits non-zero at once and prints no result.  No JAX is imported.
 """
@@ -41,8 +52,11 @@ import torch
 
 from gstpeaq_tpu_torch import api
 from gstpeaq_tpu_torch.ops import _build
+from gstpeaq_tpu_torch.ops import cuda_dc
+from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
+from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu import constants as C
 from gstpeaq_tpu import earparams as EP
@@ -50,7 +64,9 @@ from gstpeaq_tpu.utils import numpy_ref
 from gstpeaq_tpu.utils import testsignals as TS
 
 MAIN = (2, 2, 109, 468)      # [sig, CH, Z, F] of a 10 s stereo pair
+FB_MAIN = (2, 2, 40, 15000)  # [sig, CH, Z, I] of its FB ear
 TIERS = ("float64", "float32")
+MODES = ("basic", "advanced")
 KERNELS = {
     "recurrence_banded": dict(
         route="cuda", source="gstpeaq_tpu_torch/csrc/recurrence.cu",
@@ -61,7 +77,36 @@ KERNELS = {
     "spread_fft": dict(
         route="cuda", source="gstpeaq_tpu_torch/csrc/spread_fft.cu",
         replaces="gstpeaq_tpu/ops/pallas_spread_fft.py:106"),
+    "slope_state": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/fb_spread.cu",
+        replaces="gstpeaq_tpu/ops/pallas_fb.py:234"),
+    "spread_fb": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/fb_spread.cu",
+        replaces="gstpeaq_tpu/ops/pallas_fb.py:123, "
+                 "gstpeaq_tpu/ops/pallas_fb.py:311"),
+    "dc_chain": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/dc_chain.cu",
+        replaces="gstpeaq_tpu/ops/pallas_dc.py:237"),
 }
+COUNTERS = {
+    "recurrence_banded": (cuda_iir, "recurrence_banded_launches"),
+    "fused_mod_smoothers": (cuda_iir, "fused_mod_smoothers_launches"),
+    "spread_fft": (cuda_spread_fft, "spread_fft_launches"),
+    "slope_state": (cuda_fb, "slope_state_launches"),
+    "spread_fb": (cuda_fb, "spread_fb_launches"),
+    "dc_chain": (cuda_dc, "dc_chain_launches"),
+}
+# max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
+# carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
+# each near-unit pole lifts: test_pallas_kernels.py holds K7 against the
+# XLA chain at 2e-3 for it, and on an H100 the kernel read 6.2e-4 against
+# its plain version on the pair's own rows and 1.2e-3 on the T=49152 noise
+# case.  Phase 3 also prints that rounding's own size, the float32
+# kernel against the float64 plain version on the same rows.  So float32
+# is held at 2e-3.  float64's rounding rises the same way (2.6e-12 read on
+# the noise case), so it is held at 1e-10.
+BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
+DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
 
 
 def check(ok: bool, what: str) -> None:
@@ -114,11 +159,102 @@ def phase_build() -> None:
     print("phase 2 build", flush=True)
     path, seconds = _build.build()
     _build.library()
-    print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {path.name} in "
-          f"{seconds:.1f} s")
+    print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source: "
+          f"{path.name} in {seconds:.1f} s")
+    # ptxas: each kernel's registers and spills, per working type
+    entry, spills = None, ""
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = next((f"{name} {'double' if f'{name}_kernelId' in line
+                                     else 'float'}"
+                          for name in KERNELS if f"{name}_kernelI" in line),
+                         None)
+        elif entry and "spill" in line:
+            spills = line.strip()
+        elif entry and "Used" in line:
+            print(f"  {entry}: {line.split(':', 1)[1].strip()}; {spills}")
+            entry = None
 
 
-def kernel_cases(dtype, rng):
+def fb_rows(pair10, k) -> torch.Tensor:
+    """The 10 s pair's FB-path input [2(ref, test), CH, 480000] on the card
+    in k's dtype."""
+    return torch.stack([
+        torch.as_tensor(np.ascontiguousarray(sig.T), device="cuda")
+        for sig in pair10]).to(k.internal_noise.dtype)
+
+
+def dc_out(out) -> torch.Tensor:
+    """dc_chain's (hp2, state) as one flat tensor."""
+    return torch.cat([out[0].reshape(-1), torch.cat(out[1], -1).reshape(-1)])
+
+
+def fb_cases(dtype, rng, pair10, t):
+    """D1-D3 cases: the main path's shapes on the 10 s pair's own FB
+    signals (hp2 and fb from the plain DC stage and the FIR bank), and
+    edges with silent instants, carried states and both slope
+    conventions."""
+    cases = []
+    k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+    c1 = 24.0 + 230.0 / k.fc
+    x = fb_rows(pair10, k)
+    hp2, _ = cuda_dc.dc_chain_plain(x, k.level)
+    re, im = FB.filter_bank(k, hp2)                     # FB_MAIN
+    check(re.shape == FB_MAIN, f"FB shape {tuple(re.shape)}")
+    cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a)
+    swap = 1.0 - k.slope_a
+    y0 = t(rng.uniform(0.0, 0.5, FB_MAIN[:-1]))
+    for case, a, y in (("main", k.slope_a, None), ("main y0 swap", swap, y0)):
+        cases.append(("slope_state", case,
+                      lambda a=a, y=y: cuda_fb.slope_state(re, im, c1, a, y),
+                      lambda a=a, y=y: cuda_fb.slope_state_plain(
+                          re, im, c1, a, y)))
+    cases.append(("spread_fb", "main",
+                  lambda: cuda_fb.spread_fb(re, im, cu, k.lower_matrix),
+                  lambda: cuda_fb.spread_fb_plain(re, im, cu,
+                                                  k.lower_matrix)))
+    for n in (37, 1):
+        er = rng.standard_normal((2, 40, n)) * 100.0
+        ei = rng.standard_normal((2, 40, n)) * 100.0
+        er[..., 0] = ei[..., 0] = 0.0                  # a silent instant
+        er, ei = t(er), t(ei)
+        ecu = t(rng.uniform(0.2, 0.9, (2, 40, n)))
+        ey0 = t(rng.uniform(0.0, 0.5, (2, 40)))
+        for a, y in ((k.slope_a, None), (swap, ey0)):
+            cases.append(("slope_state", f"I={n} a={a:.4f} "
+                          f"y0={y is not None}",
+                          lambda a=a, y=y, er=er, ei=ei:
+                          cuda_fb.slope_state(er, ei, c1, a, y),
+                          lambda a=a, y=y, er=er, ei=ei:
+                          cuda_fb.slope_state_plain(er, ei, c1, a, y)))
+        cases.append(("spread_fb", f"I={n}",
+                      lambda er=er, ei=ei, ecu=ecu:
+                      cuda_fb.spread_fb(er, ei, ecu, k.lower_matrix),
+                      lambda er=er, ei=ei, ecu=ecu:
+                      cuda_fb.spread_fb_plain(er, ei, ecu, k.lower_matrix)))
+    x4 = x.reshape(4, -1)
+    state = tuple(t(rng.standard_normal((4, 2))) for _ in range(4))
+    noise = t(rng.standard_normal((2, 49152)) * 2500.0)
+    for case, xx, lf, st in (("main", x4, k.level, None),
+                             ("main state", x4, k.level, state),
+                             ("noise T=49152", noise, 0.0357, None)):
+        cases.append(("dc_chain", case,
+                      lambda xx=xx, lf=lf, st=st:
+                      dc_out(cuda_dc.dc_chain(xx, lf, st)),
+                      lambda xx=xx, lf=lf, st=st:
+                      dc_out(cuda_dc.dc_chain_plain(xx, lf, st))))
+    for n in (1000, 1):
+        xe = t(rng.standard_normal((2, n)) * 2500.0)
+        for st in (None, tuple(s[:2] for s in state)):
+            cases.append(("dc_chain", f"T={n} state={st is not None}",
+                          lambda xe=xe, st=st:
+                          dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
+                          lambda xe=xe, st=st:
+                          dc_out(cuda_dc.dc_chain_plain(xe, 0.0357, st))))
+    return cases
+
+
+def kernel_cases(dtype, rng, pair10):
     """(kernel, case, cuda fn, plain fn) at main-path and edge shapes;
     each fn returns a tensor or a tuple of tensors."""
     dev = "cuda"
@@ -155,21 +291,24 @@ def kernel_cases(dtype, rng):
                       lambda p=p, c=consts: cuda_spread_fft.spread_fft(p, *c),
                       lambda p=p, c=consts:
                       cuda_spread_fft.spread_fft_plain(p, *c)))
-    return cases
+    return cases + fb_cases(dtype, rng, pair10, t)
 
 
-def phase_kernels(rng) -> dict:
+def phase_kernels(rng, pair10) -> dict:
     """Each kernel against its plain version; returns the main-shape
     float32 numbers per kernel."""
     print("phase 3 kernels against their plain versions", flush=True)
     main = {}
-    for dtype, bar in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        for name, case, kern, plain in kernel_cases(dtype, rng):
+    for dtype in (torch.float32, torch.float64):
+        for name, case, kern, plain in kernel_cases(dtype, rng, pair10):
+            bar = (DC_BARS if name == "dc_chain" else BARS)[dtype]
             got = stacked(kern())
             torch.cuda.synchronize()
             want = stacked(plain())
             err = (got - want).abs().max().item()
-            rel = err / want.abs().max().item()
+            # an all-zero reference (a silent edge case) is held absolutely
+            rel = err / max(want.abs().max().item(),
+                            torch.finfo(dtype).tiny)
             line = f"  {name} {case} {dtype}: max|d|/max|ref| {rel:.3e}"
             ok = torch.isfinite(got).all().item() and rel < bar
             if name == "spread_fft" and dtype == torch.float32:
@@ -181,7 +320,25 @@ def phase_kernels(rng) -> dict:
                       "version")
             if dtype == torch.float32 and case in ("F=468", "main", "Z=109"):
                 main[name] = dict(max_abs_err=err, kernel=kern, plain=plain)
+    dc_float32_rounding(rng, pair10)
     return main
+
+
+def dc_float32_rounding(rng, pair10) -> None:
+    """The float32 DC cascade's own rounding, which D3's float32 bar
+    allows for: the float32 kernel against the float64 plain version on
+    the pair's FB rows and on white noise, max|d| / max|hp2|."""
+    k = FB.build_consts(EP.fb_ear_params(), torch.float64, "cuda")
+    rows = {"main": (fb_rows(pair10, k).reshape(4, -1), k.level),
+            "noise T=49152": (torch.as_tensor(
+                rng.standard_normal((2, 49152)) * 2500.0, device="cuda"),
+                0.0357)}
+    for case, (x64, lf) in rows.items():
+        got, _ = cuda_dc.dc_chain(x64.float(), float(np.float32(lf)))
+        want, _ = cuda_dc.dc_chain_plain(x64, lf)
+        rel = (got.double() - want).abs().max() / want.abs().max()
+        print(f"  dc_chain {case} float32 kernel against float64 plain: "
+              f"max|d|/max|hp2| {rel.item():.3e}", flush=True)
 
 
 def ten_second_pair() -> tuple[np.ndarray, np.ndarray]:
@@ -277,99 +434,183 @@ def phase_float32(pair10, odg64: float) -> None:
     check(abs(ten - odg64) <= 2e-3, f"float32 10 s pair ODG {ten}")
 
 
+def phase_adv_float64(pair10):
+    """The advanced path in float64 on the 10 s pair against the NumPy
+    spec, each MOV within 1e-6 (1 + |w|) and the ODG within 1e-6."""
+    print("phase 4b advanced path, float64", flush=True)
+    start = time.perf_counter()
+    want = numpy_ref.peaq_advanced(*pair10)
+    spec_s = time.perf_counter() - start
+    got = api.peaq(*pair10, advanced=True, dtype="float64")
+    worst = max(abs(got.movs[n] - float(want.movs[n]))
+                / (1 + abs(float(want.movs[n])))
+                for n in C.MOV_ADVANCED_NAMES)
+    print(f"  10 s stereo pair: ODG {got.odg:.9f}, NumPy spec "
+          f"{want.odg:.9f} ({spec_s:.1f} s); MOVs within {worst:.2e} "
+          f"(1 + |w|)")
+    check(abs(got.odg - want.odg) <= 1e-6, "advanced float64 10 s pair ODG")
+    for name in C.MOV_ADVANCED_NAMES:
+        w, g = float(want.movs[name]), got.movs[name]
+        check(abs(g - w) <= 1e-6 * (1 + abs(w)),
+              f"advanced float64 10 s pair {name}: {g} against {w}")
+    return got
+
+
+def phase_adv_float32(pair10, adv64) -> None:
+    """The advanced float32 tier within 2e-3 ODG of the card's float64
+    (adv64: phase 4b's result) on the 10 s pair and on saw/triangle at
+    128 x 1024 samples; each MOV's deviation is printed."""
+    print("phase 5b advanced path, float32", flush=True)
+    n = 128 * 1024
+    saw_tri = (TS.saw(n), TS.triangle(n))
+    pairs = {"10 s pair": (pair10, adv64),
+             "saw/tri": (saw_tri, api.peaq(*saw_tri, advanced=True,
+                                           dtype="float64"))}
+    for label, (pair, f64) in pairs.items():
+        f32 = api.peaq(*pair, advanced=True, dtype="float32")
+        devs = ", ".join(f"{m} {f32.movs[m] - f64.movs[m]:+.2e}"
+                         for m in C.MOV_ADVANCED_NAMES)
+        print(f"  {label}: float32 ODG {f32.odg:.6f}, float64 "
+              f"{f64.odg:.6f}; MOVs float32 - float64: {devs}")
+        check(abs(f32.odg - f64.odg) <= 2e-3,
+              f"advanced float32 {label} ODG {f32.odg} against {f64.odg}")
+
+
 def phase_counters(pair10) -> dict:
+    """Each mode's float32 peaq() of the 10 s pair with every count set to
+    0 just before it and read just after.  Returns each kernel's counts
+    per mode (0 where a mode does not launch it)."""
     print("phase 6 launch counters", flush=True)
-    cuda_iir.recurrence_banded_launches = 0
-    cuda_iir.fused_mod_smoothers_launches = 0
-    cuda_spread_fft.spread_fft_launches = 0
-    result = api.peaq(*pair10, dtype="float32")
-    counts = {"recurrence_banded": cuda_iir.recurrence_banded_launches,
-              "fused_mod_smoothers": cuda_iir.fused_mod_smoothers_launches,
-              "spread_fft": cuda_spread_fft.spread_fft_launches}
-    print(f"  float32 peaq() of the 10 s pair: ODG {result.odg:.6f}, "
-          f"launches {counts}")
-    check(np.isfinite(result.odg), "float32 peaq() ODG is not finite")
-    for name, least in (("recurrence_banded", 3), ("fused_mod_smoothers", 1),
-                        ("spread_fft", 1)):
-        check(counts[name] >= least,
-              f"{name} launched {counts[name]} times, expected >= {least}")
+    least = {"basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
+                       "spread_fft": 1},
+             "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
+                          "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
+                          "dc_chain": 1}}
+    counts = {name: {} for name in COUNTERS}
+    for mode in MODES:
+        for module, attr in COUNTERS.values():
+            setattr(module, attr, 0)
+        result = api.peaq(*pair10, advanced=mode == "advanced",
+                          dtype="float32")
+        for name, (module, attr) in COUNTERS.items():
+            counts[name][mode] = getattr(module, attr)
+        print(f"  float32 {mode} peaq() of the 10 s pair: ODG "
+              f"{result.odg:.6f}, launches "
+              f"{ {name: n[mode] for name, n in counts.items()} }")
+        check(np.isfinite(result.odg), f"float32 {mode} ODG is not finite")
+        for name, n in least[mode].items():
+            check(counts[name][mode] >= n, f"{mode}: {name} launched "
+                  f"{counts[name][mode]} times, expected >= {n}")
     return counts
 
 
+def peaq_call(pair10, mode: str, tier: str):
+    return api.peaq(*pair10, advanced=mode == "advanced", dtype=tier)
+
+
 def phase_times(main: dict, pair10, reps: int = 30) -> dict:
-    """Kernel and plain device times (cuda_ms), then peaq() host wall time
-    per 10 s stereo pair: `reps` calls per tier, the tiers in turn, each
-    call ending in the copy of its results to the host.  Returns the
-    median wall ms per tier."""
+    """Kernel and plain device times (cuda_ms), the FB ear's FIR bank
+    (plain PyTorch, a conv1d) per tier, then peaq() host wall time per 10 s
+    stereo pair: `reps` calls per mode and tier, the tiers in turn, each
+    call ending in the copy of its results to the host.  Returns the median
+    wall ms per (mode, tier)."""
     print("phase 7 times", flush=True)
     for name, entry in main.items():
         entry["ms"] = cuda_ms(entry.pop("kernel"), calls=20)
         entry["plain_ms"] = cuda_ms(entry.pop("plain"), calls=1)
         print(f"  {name}: kernel {entry['ms']:.4f} ms, plain "
               f"{entry['plain_ms']:.4f} ms (median of 10)")
-    walls = {tier: [] for tier in TIERS}
     for tier in TIERS:
-        api.peaq(*pair10, dtype=tier)                 # warm
-    for _ in range(reps):
-        for tier in TIERS:
-            start = time.perf_counter()
-            api.peaq(*pair10, dtype=tier)
-            walls[tier].append((time.perf_counter() - start) * 1e3)
+        k = FB.build_consts(EP.fb_ear_params(), api.DTYPES[tier], "cuda")
+        hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
+        with api.full_precision_matmuls():
+            fir = cuda_ms(lambda: FB.filter_bank(k, hp2), calls=5)
+        print(f"  FIR bank (conv1d, 32 in-channels, window 47, 80 out) on "
+              f"{tuple(hp2.shape)} {tier}: {fir:.4f} ms (median of 10)")
     medians = {}
-    for tier in TIERS:
-        q1, medians[tier], q3 = statistics.quantiles(walls[tier], n=4)
-        print(f"  peaq() 10 s stereo pair, {tier}: median "
-              f"{medians[tier]:.3f} ms (quartiles {q1:.3f}..{q3:.3f}, "
-              f"{reps} calls), {1e4 / medians[tier]:.1f}x realtime")
+    for mode in MODES:
+        walls = {tier: [] for tier in TIERS}
+        for tier in TIERS:
+            peaq_call(pair10, mode, tier)              # warm
+        for _ in range(reps):
+            for tier in TIERS:
+                start = time.perf_counter()
+                peaq_call(pair10, mode, tier)
+                walls[tier].append((time.perf_counter() - start) * 1e3)
+        for tier in TIERS:
+            q1, med, q3 = statistics.quantiles(walls[tier], n=4)
+            medians[mode, tier] = med
+            print(f"  {mode} peaq() 10 s stereo pair, {tier}: median "
+                  f"{med:.3f} ms (quartiles {q1:.3f}..{q3:.3f}, {reps} "
+                  f"calls), {1e4 / med:.1f}x realtime")
     return medians
 
 
 def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
-    """Device time per peaq() call under torch.profiler, per tier: the sum
-    of the device's own rows (kernels and copies; the CPU op rows repeat
-    the time of the kernels they launch), its share of the unprofiled
-    median wall time of phase 7, and the hand kernels' part of it."""
+    """Device time per peaq() call under torch.profiler, per mode and tier:
+    the sum of the device's own rows (kernels and copies; the CPU op rows
+    repeat the time of the kernels they launch), its share of the
+    unprofiled median wall time of phase 7, and the hand kernels' part of
+    it."""
     print("phase 8 profile", flush=True)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for tier in TIERS:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                api.peaq(*pair10, dtype=tier)
-        events = prof.key_averages()
-        device = [e for e in events if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in device) / 1e3
-        hand_ms = sum(e.self_device_time_total for e in device
-                      if any(f"{name}_kernel" in e.key for name in KERNELS)
-                      ) / 1e3
-        check(device_ms > 0, "the profiler saw no device time")
-        print(f"  {tier}, {calls} calls: device {device_ms / calls:.4f} ms "
-              f"per call ({len(device)} kinds), busy "
-              f"{device_ms / calls / walls[tier]:.2%} of the unprofiled "
-              f"median {walls[tier]:.3f} ms; hand kernels "
-              f"{hand_ms / calls:.4f} ms per call "
-              f"({hand_ms / device_ms:.2%} of the device time)")
-        print(events.table(sort_by="self_device_time_total", row_limit=12))
+    for mode in MODES:
+        for tier in TIERS:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    peaq_call(pair10, mode, tier)
+            events = prof.key_averages()
+            device = [e for e in events if e.device_type == DeviceType.CUDA]
+            device_ms = sum(e.self_device_time_total for e in device) / 1e3
+            hand_ms = sum(e.self_device_time_total for e in device
+                          if any(f"{name}_kernel" in e.key
+                                 for name in KERNELS)) / 1e3
+            check(device_ms > 0, "the profiler saw no device time")
+            wall = walls[mode, tier]
+            print(f"  {mode} {tier}, {calls} calls: device "
+                  f"{device_ms / calls:.4f} ms per call ({len(device)} "
+                  f"kinds), busy {device_ms / calls / wall:.2%} of the "
+                  f"unprofiled median {wall:.3f} ms; hand kernels "
+                  f"{hand_ms / calls:.4f} ms per call "
+                  f"({hand_ms / device_ms:.2%} of the device time)")
+            print(events.table(sort_by="self_device_time_total",
+                               row_limit=12))
+
+
+def timed(phase, *args):
+    """Run one phase and print its seconds."""
+    start = time.perf_counter()
+    out = phase(*args)
+    print(f"  ({phase.__name__}: {time.perf_counter() - start:.1f} s)",
+          flush=True)
+    return out
 
 
 def main() -> None:
-    card = phase_card()
-    phase_build()
+    start = time.perf_counter()
+    card = timed(phase_card)
+    timed(phase_build)
     rng = np.random.default_rng(1)
-    main_kernels = phase_kernels(rng)
     pair10 = ten_second_pair()
-    odg64 = phase_float64(pair10)
-    phase_float32(pair10, odg64)
-    counts = phase_counters(pair10)
-    walls = phase_times(main_kernels, pair10)
-    phase_profile(pair10, walls)
+    main_kernels = timed(phase_kernels, rng, pair10)
+    odg64 = timed(phase_float64, pair10)
+    adv64 = timed(phase_adv_float64, pair10)
+    timed(phase_float32, pair10, odg64)
+    timed(phase_adv_float32, pair10, adv64)
+    counts = timed(phase_counters, pair10)
+    walls = timed(phase_times, main_kernels, pair10)
+    timed(phase_profile, pair10, walls)
     check("jax" not in sys.modules, "JAX was imported")
-    kernels = [dict(name=name, **KERNELS[name], launches=counts[name],
+    kernels = [dict(name=name, **KERNELS[name],
+                    launches=sum(counts[name].values()),
+                    launches_by_path=counts[name],
                     max_abs_err=main_kernels[name]["max_abs_err"],
                     ms=main_kernels[name]["ms"],
                     plain_ms=main_kernels[name]["plain_ms"])
                for name in KERNELS]
+    print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

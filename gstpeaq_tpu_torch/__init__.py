@@ -2,9 +2,9 @@
 CUDA kernels for Hopper.
 
 The port of the JAX package `gstpeaq_tpu`, which stays the reference.  So
-far it computes the basic version for one pair:
-`gstpeaq_tpu_torch.api.peaq(ref, test, device="cuda")`.  The kernels are
-built from `csrc/` with nvcc at first use.  The framework-free modules of
+far it computes the basic and the advanced version for one pair:
+`gstpeaq_tpu_torch.api.peaq(ref, test, advanced=False, device="cuda")`.
+The kernels are built from `csrc/` with nvcc at first use.  The framework-free modules of
 the JAX package (constants, earparams, utils.testsignals, utils.numpy_ref)
 are imported as they are; JAX itself is never imported.
 """

@@ -2,7 +2,9 @@
 
 The host pads each pair to its own frame count (the GstAdapter drain and
 flush semantics, src/gstpeaq.c:596-611,715-745) and hands the [CH, T]
-signals to a BasicPipeline on the device.
+signals to a BasicPipeline on the device, or with advanced=True an FFT copy
+and an FB copy, each padded to its own path's frame count, to an
+AdvancedPipeline.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from gstpeaq_tpu import constants as C
 
+from .models.advanced import AdvancedPipeline
 from .models.basic import BasicPipeline
 from .ops import framing
 
@@ -72,6 +75,22 @@ def pipeline(band_count: int, playback_level: float, settings: C.Settings,
                          device)
 
 
+@functools.lru_cache(maxsize=8)
+def advanced_pipeline(playback_level: float, settings: C.Settings,
+                      dtype: str, device: torch.device) -> AdvancedPipeline:
+    """The advanced pipeline of precision tier `dtype` with its constants
+    on `device`, built once per configuration."""
+    return AdvancedPipeline(playback_level, settings, DTYPES[dtype], device)
+
+
+def _padded(sig: np.ndarray, n_frames: int, frame_size: int,
+            step_size: int, dev: torch.device) -> torch.Tensor:
+    """[T, CH] -> the channel-major [CH, T'] copy padded for n_frames
+    frames, on `dev`."""
+    return torch.from_numpy(np.ascontiguousarray(framing.pad_signal(
+        sig, n_frames, frame_size, step_size).T)).to(dev)
+
+
 def _as_2d_f32(x) -> np.ndarray:
     x = np.asarray(x, dtype=np.float32)
     if x.ndim == 1:
@@ -85,16 +104,14 @@ def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
          settings: C.Settings = C.DEFAULT_SETTINGS, dtype: str | None = None,
          return_snr: bool = False, band_count: int | None = None,
          device=None) -> PeaqResult:
-    """Compute basic PEAQ ODG/DI for one 48 kHz pair.
+    """Compute PEAQ ODG/DI for one 48 kHz pair, basic or advanced.
 
     ref/test: arrays [samples] or [samples, channels].  band_count: the
-    FFT ear's critical-band count, 55..109 (default 109).  dtype: a
-    precision tier of DTYPES, "float64" by default.  device: a torch
-    device; None means "cuda" and raises when CUDA is absent.
+    FFT ear's critical-band count, 55..109 (default 109), basic mode only:
+    advanced pins 55.  dtype: a precision tier of DTYPES, "float64" by
+    default.  device: a torch device; None means "cuda" and raises when
+    CUDA is absent.
     """
-    if advanced:
-        raise NotImplementedError(
-            "advanced PEAQ is not ported yet (ROADMAP.md item A9)")
     ref = _as_2d_f32(ref)
     test = _as_2d_f32(test)
     if ref.shape[1] != test.shape[1]:
@@ -102,6 +119,9 @@ def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
     dtype = dtype or DEFAULT_DTYPE
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+    if band_count is not None and advanced:
+        raise ValueError("band_count applies to basic mode only "
+                         "(advanced pins 55)")
     band_count = C.BASIC_BAND_COUNT if band_count is None else band_count
     if not 55 <= band_count <= 109:
         raise ValueError("band_count must be in 55..109")
@@ -109,11 +129,20 @@ def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
 
     n_fft = framing.num_frames(ref.shape[0], test.shape[0], C.FFT_FRAMESIZE,
                                C.FFT_STEPSIZE)
-    signals = [
-        torch.from_numpy(np.ascontiguousarray(framing.pad_signal(
-            sig, n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE).T)).to(dev)
-        for sig in (ref, test)]
-    pipe = pipeline(band_count, float(playback_level), settings, dtype, dev)
+    signals = [_padded(sig, n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE, dev)
+               for sig in (ref, test)]
+    if advanced:
+        n_fb = framing.num_frames(ref.shape[0], test.shape[0],
+                                  C.FB_FRAMESIZE, C.FB_FRAMESIZE)
+        signals.append(torch.stack([
+            _padded(sig, n_fb, C.FB_FRAMESIZE, C.FB_FRAMESIZE, dev)
+            for sig in (ref, test)]))
+        pipe = advanced_pipeline(float(playback_level), settings, dtype, dev)
+        names = C.MOV_ADVANCED_NAMES
+    else:
+        pipe = pipeline(band_count, float(playback_level), settings, dtype,
+                        dev)
+        names = C.MOV_BASIC_NAMES
     with full_precision_matmuls(), torch.inference_mode():
         out = pipe(*signals)
         values = torch.cat([
@@ -123,6 +152,6 @@ def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
     odg, di, signal_energy, noise_energy = values[:4]
     snr = (float(10 * np.log10(signal_energy / noise_energy))
            if return_snr else None)
-    movs = dict(zip(C.MOV_BASIC_NAMES, map(float, values[4:])))
+    movs = dict(zip(names, map(float, values[4:])))
     return PeaqResult(odg=float(odg), di=float(di), movs=movs,
                       total_snr_db=snr)

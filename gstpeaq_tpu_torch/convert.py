@@ -1,6 +1,6 @@
 """Carry constants and weights across from the JAX package.
 
-Both take plain numpy arrays (`np.asarray` of each JAX leaf), so this
+Each takes plain numpy arrays (`np.asarray` of each JAX leaf), so this
 module imports no JAX.
 """
 
@@ -9,8 +9,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gstpeaq_tpu import constants as C
+
 from .models.nn import WEIGHT_NAMES, CognitiveModel
+from .ops import fb_ear as FB
 from .ops.fft_ear import CONST_FIELDS, FFTEarConsts
+
+# JAX FBEarConsts.h_phase [13, 128, 320]: phase 0's 80 channels hold the
+# lag-reversed taps behind this many leading zeros (gstpeaq_tpu/ops/
+# fb_ear.py:126-131, _KERNEL_OFF)
+_H_PHASE_OFFSET = 81
 
 
 def fft_consts_from_jax(leaves: dict[str, np.ndarray],
@@ -32,3 +40,21 @@ def cognitive_from_jax(params: dict[str, np.ndarray],
     return CognitiveModel({name: torch.tensor(np.asarray(params[name]),
                                               device=device)
                            for name in WEIGHT_NAMES})
+
+
+def fb_consts_from_jax(leaves: dict[str, np.ndarray], swap_slope=False,
+                       device="cpu") -> FB.FBEarConsts:
+    """The port's FB-ear constants from the leaves of the JAX package's
+    `FBEarConsts` (its field names; the TPU tilings h_group_kernels and
+    back_mask_gemm are not read).  The lag-order FIR taps are recovered
+    from h_phase by inverting its phase-0 layout; the dtype is the one of
+    internal_noise."""
+    h_phase = np.asarray(leaves["h_phase"])
+    n_ch = 2 * C.FB_BAND_COUNT
+    kp = h_phase[:, :, :n_ch].transpose(2, 0, 1).reshape(n_ch, -1)
+    h_rev = kp[:, _H_PHASE_OFFSET:_H_PHASE_OFFSET + FB.TAPS]
+    values = {name: np.asarray(leaves[name]) for name in FB.CONST_FIELDS
+              if name not in ("fir_weight", "back_mask_w")}
+    dtype = getattr(torch, values["internal_noise"].dtype.name)
+    return FB.consts_from_taps(h_rev[:, ::-1], values, dtype, device,
+                               swap_slope)

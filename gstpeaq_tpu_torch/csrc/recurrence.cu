@@ -19,9 +19,9 @@
 // instead of spreading one row over blocks:
 //   * one warp per row; the warp walks its row in 32-frame chunks, one
 //     frame per lane, so each chunk is one coalesced load and store;
-//   * inside a chunk a Hillis-Steele shuffle scan (5 steps) forms the
-//     chunk-local sums sum_s a^(l-s) b_s with the step factors a^(2^e),
-//     built by repeated squaring in the working type;
+//   * inside a chunk a Hillis-Steele shuffle scan (5 steps, warp_scan.cuh)
+//     forms the chunk-local sums sum_s a^(l-s) b_s with the step factors
+//     a^(2^e), built by repeated squaring in the working type;
 //   * the state entering the chunk (the carry, y0 for the first chunk) is
 //     added as a^(l+1) * carry, and lane 31's y becomes the next carry.
 // K2 builds its three drives in registers, carries loud_{t-1} across chunk
@@ -34,55 +34,22 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "warp_scan.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
+using peaq::kFull;
+using peaq::kWarp;
+using peaq::lane_powers;
+using peaq::LanePowers;
+using peaq::warp_scan;
+
 constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float pow_t(float x, float y) { return powf(x, y); }
 __device__ __forceinline__ double pow_t(double x, double y) { return pow(x, y); }
 __device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
-
-// Powers of one row's coefficient, per lane.
-template <typename T>
-struct LanePowers {
-  T carry;       // a^(lane + 1): weight of the state entering the chunk
-  T step[5];     // a^(2^e), e = 0..4: the scan's step factors
-};
-
-template <typename T>
-__device__ __forceinline__ LanePowers<T> lane_powers(T a, int lane) {
-  LanePowers<T> p;
-  T s = a;
-#pragma unroll
-  for (int e = 0; e < 5; ++e) {
-    p.step[e] = s;
-    s = s * s;
-  }
-  T acc = a;
-#pragma unroll
-  for (int e = 0; e < 5; ++e) {
-    const int off = 1 << e;
-    const T up = __shfl_up_sync(kFull, acc, off);
-    if (lane >= off) acc = acc * up;
-  }
-  p.carry = acc;
-  return p;
-}
-
-// Inclusive scan of x_l <- a x_{l-1} + x_l over the 32 lanes of a warp.
-template <typename T>
-__device__ __forceinline__ T warp_scan(T x, const LanePowers<T>& p, int lane) {
-#pragma unroll
-  for (int e = 0; e < 5; ++e) {
-    const int off = 1 << e;
-    const T up = __shfl_up_sync(kFull, x, off);
-    if (lane >= off) x = x + p.step[e] * up;
-  }
-  return x;
-}
 
 template <typename T>
 __global__ void recurrence_banded_kernel(const T* __restrict__ a,

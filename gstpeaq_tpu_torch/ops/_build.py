@@ -1,11 +1,15 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`nvcc` compiles every `gstpeaq_tpu_torch/csrc/*.cu` into one shared library
-with a plain C interface for Hopper (`sm_90a`), into the git-ignored
+`nvcc` compiles every `gstpeaq_tpu_torch/csrc/*.cu` for Hopper (`sm_90a`),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, in the git-ignored
 `gstpeaq_tpu_torch/_build/`.  The library's file name carries a hash of the
-sources and flags, so an edited source builds anew and an unchanged one is
-loaded as it is.  Each C entry launches on the stream it is given and
-returns `cudaGetLastError()`; `check` raises on anything but 0.
+sources, the headers they include (`csrc/*.cuh`) and the flags, so an edited
+source or header builds anew and an unchanged one is loaded as it is.  The
+compiler's report (`-Xptxas -v`: registers, shared memory and spills of
+each kernel) is kept beside the library as `<library>.log`.  Each C entry
+launches on the stream it is given and returns `cudaGetLastError()`;
+`check` raises on anything but 0.
 
 There is no `--use_fast_math`: it would swap `/`, `sqrtf`, `logf`, `expf`
 and `powf` for approximations, and an inexact x/x has already shifted this
@@ -31,7 +35,8 @@ PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -40,6 +45,10 @@ _F64 = ctypes.c_double
 _RECURRENCE = (_P, _P, _P, _P, _I64, _I32, _I64, _P)
 _FUSED_MOD = (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _F64, _P)
 _SPREAD = (_P, _P, _P, _P, _P, _F64, _P, _I64, _I32, _P)
+_SLOPE = (_P, _P, _P, _F64, _P, _P, _I64, _I32, _I64, _P)
+_SPREAD_FB = (_P, _P, _P, _P, _P, _I64, _I64, _P)
+_DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _I64, _I64, _F64, _F64, _F64, _F64,
+             _F64, _F64, _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,
@@ -47,12 +56,24 @@ SIGNATURES = {
     "peaq_fused_mod_smoothers_f64": _FUSED_MOD,
     "peaq_spread_fft_f32": _SPREAD,
     "peaq_spread_fft_f64": _SPREAD,
+    "peaq_slope_state_f32": _SLOPE,
+    "peaq_slope_state_f64": _SLOPE,
+    "peaq_spread_fb_f32": _SPREAD_FB,
+    "peaq_spread_fb_f64": _SPREAD_FB,
+    "peaq_dc_chain_f32": _DC_CHAIN,
+    "peaq_dc_chain_f64": _DC_CHAIN,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def sources() -> list[pathlib.Path]:
+    """The compiled sources, csrc/*.cu."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    """The headers the sources include, csrc/*.cuh."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -70,8 +91,8 @@ def nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libpeaq_kernels_{digest.hexdigest()[:16]}.so"
@@ -85,17 +106,39 @@ def build() -> tuple[pathlib.Path, float]:
         return lib, 0.0
     BUILD_DIR.mkdir(exist_ok=True)
     start = time.perf_counter()
-    # compile to a temporary name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    compiler = nvcc()
+    # build in a private directory and rename the library into place: a
+    # concurrent process never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        work = pathlib.Path(work)
+        jobs = []
+        try:
+            for src in sources():
+                cmd = [compiler, *NVCC_FLAGS, "-c", "-o",
+                       str(work / f"{src.stem}.o"), str(src)]
+                log = work / f"{src.stem}.txt"
+                with open(log, "w") as out:
+                    jobs.append((cmd, log, subprocess.Popen(
+                        cmd, stdout=out, stderr=subprocess.STDOUT)))
+        finally:
+            # every compiler started is waited for, also when one fails
+            for _, _, proc in jobs:
+                proc.wait()
+        logs = [log.read_text() for _, log, _ in jobs]
+        for (cmd, _, proc), text in zip(jobs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}"
+                                   f":\n{' '.join(cmd)}\n{text}")
+        tmp = work / lib.name
+        cmd = [compiler, *LINK_FLAGS, "-o", str(tmp),
+               *(str(work / f"{src.stem}.o") for src in sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, lib)
     return lib, time.perf_counter() - start
 
 

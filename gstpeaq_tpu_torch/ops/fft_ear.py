@@ -113,7 +113,8 @@ def _spectrum_hop(k: FFTEarConsts, blocks: torch.Tensor):
 
 
 def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
-                       test_blocks: torch.Tensor):
+                       test_blocks: torch.Tensor,
+                       spread_ref_only: bool = False):
     """The stateless ear model for a ref/test PAIR of hop blocks
     [..., CH, F + 1, 1024].
 
@@ -126,7 +127,9 @@ def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
 
     Returns (power [2, ..., CH, F, 1025], unsmeared [2, ..., CH, F, Z],
     energy_threshold [2, ..., CH, F] bool, delta_power [..., CH, F, hi])
-    with hi = k.group_bin_hi.
+    with hi = k.group_bin_hi.  With spread_ref_only (the advanced path,
+    whose NMR masks against the reference alone) only the reference is
+    grouped and spread, and unsmeared is [..., CH, F, Z].
     """
     hi = k.group_bin_hi
     ref = ref_blocks.to(k.hann.dtype)
@@ -139,7 +142,7 @@ def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
     delta_power = ((d_re[..., :hi] * (r_re[..., :hi] + t_re[..., :hi])
                     + d_im[..., :hi] * (r_im[..., :hi] + t_im[..., :hi]))
                    * k.level_factor)
-    band_power = group_into_bands(k, power)
+    band_power = group_into_bands(k, power[0] if spread_ref_only else power)
     unsmeared = spread(k, band_power + k.internal_noise)
     energy = torch.sum(torch.stack([ref, test])[..., 1:, :] ** 2, dim=-1)
     threshold_reached = energy >= C.EHS_ENERGY_THRESHOLD

@@ -3,9 +3,11 @@
 Every stateful stage of the basic model is one: time-domain smearing
 (src/fftearmodel.c:496-504), the level-adaptation and modulation smoothers
 (src/leveladapter.c:262-332, src/modpatt.c:233-250) and the MFPD filter
-(src/movaccum.c:415-422).  The banded form (one coefficient per band) runs
-kernel K1 on the card; the time-varying form is a log-depth doubling scan
-in plain tensor ops.
+(src/movaccum.c:415-422); so are the FB ear's slope filter and the stages
+of its DC-rejection cascade.  The banded form (one coefficient per band)
+runs kernel K1 on the card; the general form, real or complex, is a
+log-depth doubling scan in plain tensor ops (the plain versions of the FB
+kernels D1 and D3 use it).
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ import torch
 from . import cuda_iir
 
 
-def linear_recurrence(a: torch.Tensor, b: torch.Tensor, axis: int = 0,
+def linear_recurrence(a, b: torch.Tensor, axis: int = 0,
                       y0: torch.Tensor | None = None) -> torch.Tensor:
     """Solve y_t = a_t * y_{t-1} + b_t along `axis` with y_{-1} = y0 (or 0)
-    by log2(T) doubling steps.  `a` broadcasts against `b`; returns y with
-    b's shape."""
+    by log2(T) doubling steps.  `a` (a tensor or a Python number, real or
+    complex) broadcasts against `b`; returns y with b's shape."""
+    a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
     aa = torch.movedim(torch.broadcast_to(a, b.shape), axis, 0)
     bb = torch.movedim(b, axis, 0)
     n = bb.shape[0]

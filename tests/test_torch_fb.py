@@ -1,0 +1,342 @@
+"""The port's filter-bank ear model and its kernels D1-D3 against the JAX
+package, on the CPU.
+
+On a CPU tensor each kernel wrapper of gstpeaq_tpu_torch runs its plain
+PyTorch version.  Here that version is held against the Pallas kernels it
+stands for, run in interpret mode in float32 (D2 against K4 at
+max|d|/max|ref| < 1e-5; D1 + D2 against K5 + K6 through the whole band
+chain at < 1e-4; D3 against K7 at < 2e-3 of max|hp2|: the bars of
+test_pallas_kernels.py), and against the JAX XLA path and the NumPy spec in
+float64.  The CUDA kernels themselves are held against the plain versions
+on the card by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gstpeaq_tpu import constants as C
+from gstpeaq_tpu import earparams as EP
+from gstpeaq_tpu.ops import fb_ear as JFB
+from gstpeaq_tpu.ops import fft_ear as JFE
+from gstpeaq_tpu.ops import iir as JIIR
+from gstpeaq_tpu.ops import pallas_dc
+from gstpeaq_tpu.ops import pallas_fb
+from gstpeaq_tpu.utils import numpy_ref as R
+from gstpeaq_tpu_torch import convert
+from gstpeaq_tpu_torch.ops import cuda_dc
+from gstpeaq_tpu_torch.ops import cuda_fb
+from gstpeaq_tpu_torch.ops import fb_ear as FB
+from gstpeaq_tpu_torch.ops import fft_ear as FE
+from gstpeaq_tpu_torch.ops import iir
+
+LF = 0.0357           # the DC tests' level factor (test_pallas_kernels.py)
+jax_dc_reject = jax.jit(JFB.dc_reject, static_argnames="return_state")
+
+
+def rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def tt(x):
+    return None if x is None else torch.from_numpy(np.array(x))
+
+
+@pytest.fixture(scope="module")
+def params():
+    return EP.fb_ear_params()
+
+
+def fb_inputs(rng, shape, scale, zero_column=3):
+    """Random FB outputs (re, im) with one all-zero instant column: a
+    silent instant, level = -inf."""
+    re = rng.standard_normal(shape) * scale
+    im = rng.standard_normal(shape) * scale
+    re[..., zero_column] = 0.0
+    im[..., zero_column] = 0.0
+    return re, im
+
+
+def test_spread_plain_matches_pallas(params):
+    """D2's plain version against K4 (spread_apply) with a ragged final
+    tile (700 = 512 + 188 instants) and a silent instant."""
+    rng = np.random.default_rng(23)
+    jk = JFB.build_consts(params, dtype=jnp.float32)
+    re, im = fb_inputs(rng, (2, 40, 700), 0.1)
+    re, im = re.astype(np.float32), im.astype(np.float32)
+    cu = rng.uniform(0.2, 0.9, (2, 40, 700)).astype(np.float32)
+    want = pallas_fb.spread_apply(jnp.asarray(re), jnp.asarray(im),
+                                  jnp.asarray(cu), jk.lower_matrix,
+                                  interpret=True)
+    k = FB.build_consts(params, torch.float32)
+    got = FB.spread(k, tt(re), tt(im), tt(cu))
+    assert got.dtype == torch.float32
+    assert rel(got, want) < 1e-5
+    assert np.all(got.numpy()[..., 3] == 0.0)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_slope_and_spread_plain_match_xla_f64(params, with_state):
+    """D1 then D2 against the JAX XLA spread_t (its own slope recurrence
+    and exp-form spreading), in float64, with and without a carried cu
+    state; the last instant's cu is spread_t's returned state."""
+    rng = np.random.default_rng(7)
+    jk = JFB.build_consts(params)
+    re, im = fb_inputs(rng, (2, 40, 124), 1e3)
+    cu0 = np.abs(rng.standard_normal((2, 40))) if with_state else None
+    want, cu_last = jax.jit(JFB.spread_t, static_argnames="return_state")(
+        jk, jnp.asarray(re), jnp.asarray(im),
+        None if cu0 is None else jnp.asarray(cu0), return_state=True)
+    k = FB.build_consts(params)
+    cu = FB.slope_state(k, tt(re), tt(im), tt(cu0))
+    got = FB.spread(k, tt(re), tt(im), cu)
+    assert got.dtype == torch.float64
+    assert rel(got, want) < 1e-12
+    assert rel(cu[..., -1], cu_last) < 1e-12
+
+
+@pytest.mark.parametrize("swap_slope", [False, True])
+def test_slope_plain_matches_jax_recurrence_f64(params, swap_slope):
+    """D1's plain version against the slope state as spread_t builds it
+    (level, s, DIST^s and iir.linear_recurrence_blocked with a y0), for
+    both smoothing-coefficient conventions."""
+    rng = np.random.default_rng(11)
+    jk = JFB.build_consts(params, swap_slope=swap_slope)
+    re, im = fb_inputs(rng, (3, 40, 300), 10.0)
+    cu0 = rng.uniform(0.0, 0.5, (3, 40))
+    level = 10.0 * np.log10(re * re + im * im)
+    with np.errstate(invalid="ignore"):
+        s = np.maximum(4.0, 24.0 + 230.0 / params.fc[:, None] - 0.2 * level)
+    decay = C.SLOPE_FILTER_A if swap_slope else 1.0 - C.SLOPE_FILTER_A
+    want = JIIR.linear_recurrence_blocked(
+        decay, jnp.asarray((1.0 - decay) * C.DIST ** s), y0=jnp.asarray(cu0))
+    _, cu_last = JFB.spread_t(jk, jnp.asarray(re), jnp.asarray(im),
+                              jnp.asarray(cu0), True)
+    k = FB.build_consts(params, swap_slope=swap_slope)
+    assert k.slope_a == decay
+    got = FB.slope_state(k, tt(re), tt(im), tt(cu0))
+    assert rel(got, want) < 1e-12
+    assert rel(got[..., -1], cu_last) < 1e-12
+    assert np.all(np.isfinite(got.numpy()))
+
+
+def test_band_chain_matches_fused_pallas(params):
+    """D1 + D2 (through band_chain) against the TPU's fused path: K5's
+    slope prefixes, K1's quarter-rate recurrence and K6's spreading from
+    the raw conv outputs (FB._spread_fused_masked, interpret mode), in
+    float32 on the same hp2, at n_frames = 256 (I = 1,536, the kernels'
+    tile)."""
+    rng = np.random.default_rng(3)
+    n_frames = 256
+    x = (rng.standard_normal((2, 192 * n_frames)) * 0.2).astype(np.float32)
+    x[1] *= 0.5
+    x[:, :1000] = 0.0                       # leading silence
+    jk = JFB.build_consts(params, dtype=jnp.float32)
+    hp2 = JFB.dc_reject(jnp.asarray(x) * jk.level_factor)
+    exc_w, uns_w, _, _ = JFB._spread_fused_masked(jk, hp2, None, None,
+                                                  n_frames)
+    k = FB.build_consts(params, torch.float32)
+    exc, uns = FB.band_chain(k, tt(hp2), n_frames)
+    assert exc.dtype == uns.dtype == torch.float32
+    assert rel(exc, exc_w) < 1e-4
+    assert rel(uns, uns_w) < 1e-4
+
+
+def test_dc_chain_plain_matches_pallas():
+    """D3's plain version against K7 (dc_chain_blocked) in float32: both
+    carry ~6e-4 * max|hp2| of intrinsic float32 error against float64 (the
+    near-unit poles), so the bar is 2e-3 of max|hp2|."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((2, 49152)) * 2500.0).astype(np.float32)
+    want = np.asarray(pallas_dc.dc_chain_blocked(
+        jnp.asarray(x).reshape(2, -1, 128), LF,
+        interpret=True)).reshape(2, -1)
+    got, _ = cuda_dc.dc_chain(tt(x), float(np.float32(LF)))
+    assert got.dtype == torch.float32
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() / scale < 2e-3
+    assert abs(got.numpy().mean()) < 1e-3 * scale
+
+
+def test_dc_chain_plain_matches_xla_and_spec_f64():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 30000)) * 2500.0
+    x[:, :500] = 0.0
+    got, _ = cuda_dc.dc_chain(tt(x), LF)
+    assert got.dtype == torch.float64
+    want = np.asarray(jax_dc_reject(jnp.asarray(x * LF)))
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() / scale < 1e-10
+    spec = np.stack([R.dc_reject(row * LF) for row in x])
+    assert np.abs(got.numpy() - spec).max() / scale < 1e-10
+
+
+def test_dc_chain_state_resumes_across_packages():
+    """Two chunks with the carried state equal the one-shot run, a port
+    state resumes JAX's dc_reject, and JAX's state resumes the port, in
+    float64 to < 1e-11 of max|hp2| (and the states to < 1e-11 of their
+    max).  A chunk split, or the other package's blocked scan, reorders the
+    sums, and the poles' ~833x DC gain each lift that float64 rounding to
+    1.1e-12 .. 2.3e-12 of max|hp2| here, so 1e-12 cannot be held."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 2, 20000)) * 2500.0
+    cut = 12345
+    whole, _ = cuda_dc.dc_chain(tt(x), LF)
+    h1, st = cuda_dc.dc_chain(tt(x[..., :cut]), LF)
+    h2, _ = cuda_dc.dc_chain(tt(x[..., cut:]), LF, st)
+    scale = np.abs(whole.numpy()).max()
+    assert rel(torch.cat([h1, h2], -1), whole) < 1e-11
+    assert all(s.shape == (2, 2, 2) for s in st)
+    xs = jnp.asarray(x * LF)
+    j2 = jax_dc_reject(xs[..., cut:], tuple(jnp.asarray(s.numpy())
+                                            for s in st))
+    assert np.abs(np.asarray(j2) - h2.numpy()).max() / scale < 1e-11
+    _, jst = jax_dc_reject(xs[..., :cut], None, return_state=True)
+    p2, _ = cuda_dc.dc_chain(tt(x[..., cut:] * LF), 1.0,
+                             tuple(tt(np.asarray(s)) for s in jst))
+    assert np.abs(p2.numpy() - np.asarray(j2)).max() / scale < 1e-11
+    for s_port, s_jax in zip(st, jst):
+        assert rel(s_port, s_jax) < 1e-11
+    # a one-sample chunk keeps the two newest inputs in its tail
+    h3, st3 = cuda_dc.dc_chain(tt(x[..., cut:cut + 1]), LF, st)
+    np.testing.assert_allclose(st3[0][..., 0], st[0][..., 1])
+    np.testing.assert_allclose(st3[0][..., 1], x[..., cut] * LF)
+    assert rel(h3[..., 0], h2[..., 0]) < 1e-12
+
+
+def test_linear_recurrence_complex_matches_jax():
+    rng = np.random.default_rng(17)
+    lam = complex(0.9989, 0.0021)
+    b = rng.standard_normal((3, 5000)) + 1j * rng.standard_normal((3, 5000))
+    y0 = rng.standard_normal(3) + 1j * rng.standard_normal(3)
+    want = jax.jit(JIIR.linear_recurrence_blocked, static_argnums=0)(
+        lam, jnp.asarray(b), y0=jnp.asarray(y0))
+    got = iir.linear_recurrence(lam, tt(b), axis=-1, y0=tt(y0))
+    assert got.dtype == torch.complex128
+    assert rel(got, want) < 1e-12
+
+
+def test_filter_bank_matches_jax(params):
+    rng = np.random.default_rng(19)
+    hp2 = rng.standard_normal((2, 192 * 20))
+    want_re, want_im = JFB.filter_bank_t(JFB.build_consts(params),
+                                         jnp.asarray(hp2))
+    got_re, got_im = FB.filter_bank(FB.build_consts(params), tt(hp2))
+    assert got_re.shape == (2, 40, 120)
+    assert rel(got_re, want_re) < 1e-12
+    assert rel(got_im, want_im) < 1e-12
+
+
+@pytest.mark.parametrize("swap_slope", [False, True])
+def test_process_signal_matches_jax_and_spec(params, swap_slope):
+    """The whole FB ear model in float64, with leading silence, against JAX
+    FB.process_signal (< 1e-10) and numpy_ref.fb_process_signal (< 1e-7,
+    test_jax_pipeline.py's bar)."""
+    rng = np.random.default_rng(3)
+    n_frames = 40
+    x = (rng.standard_normal((2, 192 * n_frames)) * 0.3).astype(np.float32)
+    x[:, :2000] = 0.0
+    jk = JFB.build_consts(params, swap_slope=swap_slope)
+    want = jax.jit(JFB.process_signal, static_argnames="n_frames")(
+        jk, jnp.asarray(x, jnp.float64), n_frames=n_frames)
+    k = FB.build_consts(params, swap_slope=swap_slope)
+    got = FB.process_signal(k, tt(x), n_frames)
+    for g, w in zip(got, want):
+        assert g.shape == (2, 40, n_frames)
+        assert rel(g, w) < 1e-10
+    for c in range(2):
+        spec = R.fb_process_signal(params, x[c], swap_slope=swap_slope)
+        for g, w in zip(got, spec):
+            assert np.max(np.abs(g[c].numpy().T - w) / np.abs(w)) < 1e-7
+
+
+def test_fb_loudness_golden(params):
+    """test_jax_pipeline.py::test_fb_loudness_golden through the port: a
+    1 kHz sine at 40 dB SPL reads loudness 1.03..1.04 in its last frame."""
+    k = FB.build_consts(params)
+    scale = 10 ** ((40 - 92) / 20)
+    sig = scale * np.sin(2 * np.pi * 1000 / 48000 * np.arange(250 * 192))
+    exc, _ = FB.process_signal(k, tt(sig), 250)
+    loud = float(FE.loudness(k, exc[..., -1]))
+    assert 1.03 < loud < 1.04
+
+
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+@pytest.mark.parametrize("swap_slope", [False, True])
+def test_fb_consts_from_jax_equal_native(params, dtype, swap_slope):
+    jk = JFB.build_consts(params, dtype=dtype, swap_slope=swap_slope)
+    leaves = {f: np.asarray(getattr(jk, f)) for f in (
+        "h_phase", "back_mask", "back_mask_w", "internal_noise", "ear_a",
+        "adapt_a", "fc", "lower_matrix", "level_factor", "threshold",
+        "excitation_threshold", "loudness_factor")}
+    got = convert.fb_consts_from_jax(leaves, swap_slope)
+    want = FB.build_consts(params, getattr(torch, np.dtype(dtype).name),
+                           swap_slope=swap_slope)
+    assert got.band_count == want.band_count == jk.band_count
+    assert got.slope_a == want.slope_a and got.level == want.level
+    for name in FB.CONST_FIELDS:
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+    np.testing.assert_array_equal(got.back_mask_w.numpy(),
+                                  np.asarray(jk.back_mask_w))
+
+
+def test_fft_spread_ref_only_matches_jax():
+    """stateless_pair_hop(spread_ref_only=True) on the advanced FFT ear
+    (55 bands): the reference's unsmeared excitation alone."""
+    rng = np.random.default_rng(29)
+    params = EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT)
+    ref = rng.standard_normal((2, 9, 1024)) * 0.3
+    test = ref + 0.01 * rng.standard_normal((2, 9, 1024))
+    jk = JFE.build_consts(params, truncate_spectrum=True)
+    want = jax.jit(JFE.stateless_pair_hop, static_argnames="spread_ref_only")(
+        jk, jnp.asarray(ref), jnp.asarray(test), spread_ref_only=True)
+    got = FE.stateless_pair_hop(FE.build_consts(params), tt(ref), tt(test),
+                                spread_ref_only=True)
+    assert got[1].shape == (2, 8, C.ADVANCED_FFT_BAND_COUNT)
+    assert rel(got[1], want[1]) < 1e-9
+    full = FE.stateless_pair_hop(FE.build_consts(params), tt(ref), tt(test))
+    np.testing.assert_array_equal(full[1][0], got[1])
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch, params):
+    """A CPU tensor runs D1-D3's plain versions and launches nothing."""
+    monkeypatch.setattr(cuda_fb, "slope_state_launches", 0)
+    monkeypatch.setattr(cuda_fb, "spread_fb_launches", 0)
+    monkeypatch.setattr(cuda_dc, "dc_chain_launches", 0)
+    rng = np.random.default_rng(2)
+    k = FB.build_consts(params)
+    re, im = (tt(v) for v in fb_inputs(rng, (2, 40, 50), 1.0))
+    c1 = 24.0 + 230.0 / k.fc
+    cu = cuda_fb.slope_state(re, im, c1, k.slope_a)
+    np.testing.assert_array_equal(
+        cu, cuda_fb.slope_state_plain(re, im, c1, k.slope_a))
+    # the plain versions hand on contiguous tensors, as the kernels do
+    assert cu.is_contiguous()
+    assert cuda_dc.dc_chain_plain(tt(np.ones((2, 9))), LF)[0].is_contiguous()
+    np.testing.assert_array_equal(
+        cuda_fb.spread_fb(re, im, cu, k.lower_matrix),
+        cuda_fb.spread_fb_plain(re, im, cu, k.lower_matrix))
+    x = tt(rng.standard_normal((2, 500)))
+    np.testing.assert_array_equal(cuda_dc.dc_chain(x, LF)[0],
+                                  cuda_dc.dc_chain_plain(x, LF)[0])
+    assert (cuda_fb.slope_state_launches, cuda_fb.spread_fb_launches,
+            cuda_dc.dc_chain_launches) == (0, 0, 0)
+
+
+def test_other_devices_raise_without_fallback():
+    """A tensor on neither the CPU nor a CUDA card is refused before any
+    build."""
+    fb = torch.ones(2, 40, 8, device="meta")
+    z = torch.ones(40, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fb.slope_state(fb, fb, z, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fb.spread_fb(fb, fb, fb, torch.ones(40, 40, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_dc.dc_chain(torch.ones(2, 64, device="meta"), LF)

@@ -204,8 +204,25 @@ def test_build_is_keyed_by_the_sources():
     """The library's name hashes every .cu source and the flags; the flags
     target sm_90a and never fast math."""
     names = {p.name for p in _build.sources()}
-    assert names == {"recurrence.cu", "spread_fft.cu"}
+    assert names == {"recurrence.cu", "spread_fft.cu", "fb_spread.cu",
+                     "dc_chain.cu"}
     assert _build.library_path().name.startswith("libpeaq_kernels_")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast" in flag for flag in _build.NVCC_FLAGS)
     assert os.path.relpath(_build.BUILD_DIR, _build.PACKAGE) == "_build"
+
+
+def test_build_is_keyed_by_the_headers(monkeypatch, tmp_path):
+    """An edited csrc/*.cuh header names a new library, so a stale build is
+    never loaded; every C entry of the sources has its signature."""
+    assert {p.name for p in _build.headers()} == {"warp_scan.cuh"}
+    for src in _build.sources() + _build.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / "warp_scan.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
+    text = "".join(src.read_text() for src in _build.sources())
+    for name in _build.SIGNATURES:
+        assert f"int {name}(" in text, name

@@ -353,7 +353,10 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'gstpeaq_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 14, names\n"
+        "assert len(names) >= 19, names\n"
+        "for n in ('models.advanced', 'ops.fb_ear', 'ops.cuda_fb',\n"
+        "          'ops.cuda_dc'):\n"
+        "    assert 'gstpeaq_tpu_torch.' + n in names, n\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)

@@ -18,6 +18,8 @@ from gstpeaq_tpu import constants as C
 from gstpeaq_tpu.utils import testsignals as TS
 from gstpeaq_tpu_torch import api
 from gstpeaq_tpu_torch.models.basic import BasicPipeline
+from gstpeaq_tpu_torch.ops import cuda_dc
+from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
 
@@ -127,20 +129,27 @@ def test_stereo_duplicate_channels_match_mono():
 
 
 def test_cpu_run_launches_no_kernel(monkeypatch):
-    monkeypatch.setattr(cuda_iir, "recurrence_banded_launches", 0)
-    monkeypatch.setattr(cuda_iir, "fused_mod_smoothers_launches", 0)
-    monkeypatch.setattr(cuda_spread_fft, "spread_fft_launches", 0)
+    """A basic and an advanced run on the CPU launch none of the six
+    kernels."""
+    counters = ((cuda_iir, "recurrence_banded_launches"),
+                (cuda_iir, "fused_mod_smoothers_launches"),
+                (cuda_spread_fft, "spread_fft_launches"),
+                (cuda_fb, "slope_state_launches"),
+                (cuda_fb, "spread_fb_launches"),
+                (cuda_dc, "dc_chain_launches"))
+    for module, name in counters:
+        monkeypatch.setattr(module, name, 0)
     ref, test = noisy_pair()
     assert np.isfinite(api.peaq(ref, test, device="cpu").movs["ADBB"])
-    assert (cuda_iir.recurrence_banded_launches,
-            cuda_iir.fused_mod_smoothers_launches,
-            cuda_spread_fft.spread_fft_launches) == (0, 0, 0)
+    assert np.isfinite(api.peaq(ref, test, advanced=True,
+                                device="cpu").movs["RmsModDiffA"])
+    assert [getattr(module, name) for module, name in counters] == [0] * 6
 
 
 def test_api_argument_checks(monkeypatch):
     s = TS.sine(4096)
-    with pytest.raises(NotImplementedError, match="A9"):
-        api.peaq(s, s, advanced=True, device="cpu")
+    with pytest.raises(ValueError, match="band_count applies to basic"):
+        api.peaq(s, s, advanced=True, band_count=55, device="cpu")
     for bad in (54, 110):
         with pytest.raises(ValueError, match="band_count"):
             api.peaq(s, s, band_count=bad, device="cpu")
