@@ -10,8 +10,9 @@ Phases, each on its own lines and ending with its seconds:
               gstpeaq_tpu_torch/csrc, one process per source, and ptxas
               reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes and edge shapes, in float32 and float64,
-              and the float32 DC cascade's own rounding against float64
+              the main paths' shapes and edge shapes (D3: its tile edges),
+              in float32 and float64, the float32 DC cascade's own rounding
+              against float64, and two launches of D3 bit for bit
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
               (stereo upmix), and a 10 s stereo pair against the NumPy spec
               (gstpeaq_tpu.utils.numpy_ref, framework-free)
@@ -22,25 +23,27 @@ Phases, each on its own lines and ending with its seconds:
   6 counters  one float32 basic and one float32 advanced peaq() of the 10 s
               pair, each with the counts set to 0 just before it: the
               advanced call goes through all six kernels
-  7 times     CUDA-event medians of each kernel and its plain version and of
-              the FB ear's FIR bank, and peaq() wall time per 10 s stereo
-              pair per mode and tier
+  7 times     CUDA-event medians of each kernel and its plain version in
+              float32 and float64 and of the FB ear's FIR bank, and peaq()
+              wall time per 10 s stereo pair per mode and tier
   8 profile   torch.profiler over five peaq() calls per mode and tier:
-              device time per call, its share of the wall time, and time by
-              kernel
+              device time per call, its share of the wall time, each hand
+              kernel's share of it, and time by kernel
 
 Two lines before the last is one JSON object with each kernel's error,
-times and launches: `launches_by_path` holds phase 6's count per path
-(basic, advanced; 0 where a path does not launch the kernel), `launches`
-their sum.  The line before the last is the card's name and power limit;
-the last line is {"ok": true, "device": {...}}.  Any
-failed check exits non-zero without that last line.  Without CUDA the
+times and launches: `max_abs_err`, `ms` and `plain_ms` in float32 and the
+same with `_f64` in float64; `launches_by_path` holds phase 6's count per
+path (basic, advanced; 0 where a path does not launch the kernel),
+`launches` their sum.  The line before the last is the card's name and
+power limit; the last line is {"ok": true, "device": {...}}.  Any failed
+check exits non-zero without that last line.  Without CUDA the
 script exits non-zero at once and prints no result.  No JAX is imported.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +69,7 @@ from gstpeaq_tpu.utils import testsignals as TS
 MAIN = (2, 2, 109, 468)      # [sig, CH, Z, F] of a 10 s stereo pair
 FB_MAIN = (2, 2, 40, 15000)  # [sig, CH, Z, I] of its FB ear
 TIERS = ("float64", "float32")
+DTYPES = (torch.float32, torch.float64)
 MODES = ("basic", "advanced")
 KERNELS = {
     "recurrence_banded": dict(
@@ -118,28 +122,53 @@ def stacked(out) -> torch.Tensor:
     return torch.stack(out) if isinstance(out, tuple) else out
 
 
-def cuda_ms(fn, calls: int, rounds: int = 10) -> float:
+def sleep_cycles_per_ms() -> float:
+    """The rate of torch.cuda._sleep on this card, between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def cuda_ms(fn, calls: int, rounds: int = 10,
+            cover_host: bool = False) -> tuple[float, float]:
     """Device time of one fn() in ms between CUDA events: the median over
     `rounds` of the mean of `calls` back-to-back calls, after warm-up.
-    Each round is queued behind a ~1 ms sleep kernel, so that the host's
+    Each round is queued behind a sleep kernel of ~1 ms, so that the host's
     launch overhead is hidden wherever fn() keeps the device busier than
     the host; a host-bound fn() (the plain recurrences' frame loops) is
-    timed at its host-bound rate."""
+    timed at its host-bound rate.  With `cover_host` the sleep outlasts
+    the host's enqueue of a whole round, so that the time is the device's
+    own (D3's wrapper enqueues five launches and packs a state).  Also
+    returns the median host time to enqueue one fn()."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    host = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    round_ms = (time.perf_counter() - host) * 1e3
+    torch.cuda.synchronize()
+    sleep = 2_000_000
+    if cover_host:
+        sleep = max(sleep, int(2.0 * round_ms * sleep_cycles_per_ms()))
+    times, hosts = [], []
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+        torch.cuda._sleep(sleep)
         start.record()
+        host = time.perf_counter()
         for _ in range(calls):
             fn()
+        hosts.append((time.perf_counter() - host) * 1e3 / calls)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    return statistics.median(times), statistics.median(hosts)
 
 
 def phase_card() -> str:
@@ -161,14 +190,16 @@ def phase_build() -> None:
     _build.library()
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source: "
           f"{path.name} in {seconds:.1f} s")
-    # ptxas: each kernel's registers and spills, per working type
+    # ptxas: each kernel's registers and spills, per working type and, for
+    # D3's five launches, per step (the kernel's int template argument)
     entry, spills = None, ""
+    names = "|".join(KERNELS)
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            entry = next((f"{name} {'double' if f'{name}_kernelId' in line
-                                     else 'float'}"
-                          for name in KERNELS if f"{name}_kernelI" in line),
-                         None)
+            m = re.search(rf"({names})_kernelI([fd])(?:Li(\d+)E)?", line)
+            entry = m and " ".join(
+                [m[1], "double" if m[2] == "d" else "float"]
+                + ([f"step {m[3]}"] if m[3] else []))
         elif entry and "spill" in line:
             spills = line.strip()
         elif entry and "Used" in line:
@@ -251,6 +282,22 @@ def fb_cases(dtype, rng, pair10, t):
                           dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
                           lambda xe=xe, st=st:
                           dc_out(cuda_dc.dc_chain_plain(xe, 0.0357, st))))
+    # D3's tile edges, on three rows from a generator of their own (the
+    # other cases keep their inputs): below, at and past one tile, a last
+    # tile of one or two samples, and 33 tiles, two per lane of the fold of
+    # the earlier tiles' carries
+    erng = np.random.default_rng(3)
+    tile = cuda_dc.TILE
+    for n in (tile - 1, tile, tile + 1, 2 * tile + 1, 3 * tile + 2,
+              32 * tile + 1):
+        xe = t(erng.standard_normal((3, n)) * 2500.0)
+        for st in (None, tuple(t(erng.standard_normal((3, 2)))
+                               for _ in range(4))):
+            cases.append(("dc_chain", f"T={n} state={st is not None}",
+                          lambda xe=xe, st=st:
+                          dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
+                          lambda xe=xe, st=st:
+                          dc_out(cuda_dc.dc_chain_plain(xe, 0.0357, st))))
     return cases
 
 
@@ -296,10 +343,10 @@ def kernel_cases(dtype, rng, pair10):
 
 def phase_kernels(rng, pair10) -> dict:
     """Each kernel against its plain version; returns the main-shape
-    float32 numbers per kernel."""
+    error and the (kernel, plain) functions per kernel and dtype."""
     print("phase 3 kernels against their plain versions", flush=True)
-    main = {}
-    for dtype in (torch.float32, torch.float64):
+    main = {name: {} for name in KERNELS}
+    for dtype in DTYPES:
         for name, case, kern, plain in kernel_cases(dtype, rng, pair10):
             bar = (DC_BARS if name == "dc_chain" else BARS)[dtype]
             got = stacked(kern())
@@ -318,9 +365,11 @@ def phase_kernels(rng, pair10) -> dict:
             print(line, flush=True)
             check(ok, f"{name} {case} {dtype} disagrees with its plain "
                       "version")
-            if dtype == torch.float32 and case in ("F=468", "main", "Z=109"):
-                main[name] = dict(max_abs_err=err, kernel=kern, plain=plain)
+            if case in ("F=468", "main", "Z=109"):
+                main[name][dtype] = dict(max_abs_err=err, kernel=kern,
+                                         plain=plain)
     dc_float32_rounding(rng, pair10)
+    dc_determinism(pair10)
     return main
 
 
@@ -339,6 +388,20 @@ def dc_float32_rounding(rng, pair10) -> None:
         rel = (got.double() - want).abs().max() / want.abs().max()
         print(f"  dc_chain {case} float32 kernel against float64 plain: "
               f"max|d|/max|hp2| {rel.item():.3e}", flush=True)
+
+
+def dc_determinism(pair10) -> None:
+    """Two launches of D3 on the pair's FB rows give the same bits, hp2 and
+    state, in both dtypes: its carries are folded in one fixed order."""
+    for dtype in DTYPES:
+        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+        x4 = fb_rows(pair10, k).reshape(4, -1)
+        first, second = (dc_out(cuda_dc.dc_chain(x4, k.level))
+                         for _ in range(2))
+        same = torch.equal(first, second)
+        print(f"  dc_chain main {dtype}: two launches bit-identical: {same}",
+              flush=True)
+        check(same, f"dc_chain {dtype}: two launches differ")
 
 
 def ten_second_pair() -> tuple[np.ndarray, np.ndarray]:
@@ -515,16 +578,19 @@ def phase_times(main: dict, pair10, reps: int = 30) -> dict:
     call ending in the copy of its results to the host.  Returns the median
     wall ms per (mode, tier)."""
     print("phase 7 times", flush=True)
-    for name, entry in main.items():
-        entry["ms"] = cuda_ms(entry.pop("kernel"), calls=20)
-        entry["plain_ms"] = cuda_ms(entry.pop("plain"), calls=1)
-        print(f"  {name}: kernel {entry['ms']:.4f} ms, plain "
-              f"{entry['plain_ms']:.4f} ms (median of 10)")
+    for name, by_dtype in main.items():
+        for dtype, entry in by_dtype.items():
+            entry["ms"], host = cuda_ms(entry.pop("kernel"), calls=20,
+                                        cover_host=True)
+            entry["plain_ms"], _ = cuda_ms(entry.pop("plain"), calls=1)
+            print(f"  {name} {dtype}: kernel {entry['ms']:.4f} ms (host "
+                  f"enqueue {host:.4f} ms), plain {entry['plain_ms']:.4f} "
+                  f"ms (median of 10)")
     for tier in TIERS:
         k = FB.build_consts(EP.fb_ear_params(), api.DTYPES[tier], "cuda")
         hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
         with api.full_precision_matmuls():
-            fir = cuda_ms(lambda: FB.filter_bank(k, hp2), calls=5)
+            fir, _ = cuda_ms(lambda: FB.filter_bank(k, hp2), calls=5)
         print(f"  FIR bank (conv1d, 32 in-channels, window 47, 80 out) on "
               f"{tuple(hp2.shape)} {tier}: {fir:.4f} ms (median of 10)")
     medians = {}
@@ -550,8 +616,8 @@ def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
     """Device time per peaq() call under torch.profiler, per mode and tier:
     the sum of the device's own rows (kernels and copies; the CPU op rows
     repeat the time of the kernels they launch), its share of the
-    unprofiled median wall time of phase 7, and the hand kernels' part of
-    it."""
+    unprofiled median wall time of phase 7, each hand kernel's part of it,
+    and D3's time per launch step."""
     print("phase 8 profile", flush=True)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -564,9 +630,11 @@ def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
             events = prof.key_averages()
             device = [e for e in events if e.device_type == DeviceType.CUDA]
             device_ms = sum(e.self_device_time_total for e in device) / 1e3
-            hand_ms = sum(e.self_device_time_total for e in device
-                          if any(f"{name}_kernel" in e.key
-                                 for name in KERNELS)) / 1e3
+            # each hand kernel's rows (D3: one per launch step)
+            by_kernel = {name: sum(e.self_device_time_total for e in device
+                                   if f"{name}_kernel" in e.key) / 1e3
+                         for name in KERNELS}
+            hand_ms = sum(by_kernel.values())
             check(device_ms > 0, "the profiler saw no device time")
             wall = walls[mode, tier]
             print(f"  {mode} {tier}, {calls} calls: device "
@@ -575,6 +643,16 @@ def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
                   f"unprofiled median {wall:.3f} ms; hand kernels "
                   f"{hand_ms / calls:.4f} ms per call "
                   f"({hand_ms / device_ms:.2%} of the device time)")
+            print("    per call: " + ", ".join(
+                f"{name} {ms / calls:.4f} ms ({ms / device_ms:.2%})"
+                for name, ms in by_kernel.items() if ms > 0))
+            steps = sorted(
+                (re.sub(r".*dc_chain_kernel<\w+, *(\d+)>.*", r"\1", e.key),
+                 e.self_device_time_total / 1e3 / calls)
+                for e in device if "dc_chain_kernel" in e.key)
+            if steps:
+                print("    dc_chain per step and call: " + ", ".join(
+                    f"{step} {ms:.4f} ms" for step, ms in steps))
             print(events.table(sort_by="self_device_time_total",
                                row_limit=12))
 
@@ -603,13 +681,15 @@ def main() -> None:
     walls = timed(phase_times, main_kernels, pair10)
     timed(phase_profile, pair10, walls)
     check("jax" not in sys.modules, "JAX was imported")
-    kernels = [dict(name=name, **KERNELS[name],
-                    launches=sum(counts[name].values()),
-                    launches_by_path=counts[name],
-                    max_abs_err=main_kernels[name]["max_abs_err"],
-                    ms=main_kernels[name]["ms"],
-                    plain_ms=main_kernels[name]["plain_ms"])
-               for name in KERNELS]
+    kernels = []
+    for name in KERNELS:
+        f32, f64 = (main_kernels[name][dtype] for dtype in DTYPES)
+        kernels.append(dict(
+            name=name, **KERNELS[name], launches=sum(counts[name].values()),
+            launches_by_path=counts[name], max_abs_err=f32["max_abs_err"],
+            ms=f32["ms"], plain_ms=f32["plain_ms"],
+            max_abs_err_f64=f64["max_abs_err"], ms_f64=f64["ms"],
+            plain_ms_f64=f64["plain_ms"]))
     print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,7 +2,8 @@
 // BS.1387 / src/fbearmodel.c:291-303.
 //
 // D3  dc_chain  replaces gstpeaq_tpu/ops/pallas_dc.py::dc_chain_blocked
-//     (K7).  Per signal row of T samples, with xs = level_factor * x:
+//     (K7, its pallas_call at :237).  Per signal row of T samples, with
+//     xs = level_factor * x:
 //       v1 = xs - 2 xs_{t-1} + xs_{t-2}              (ff1)
 //       w  = rec(lp, v1),  y1 = rec(lm, w)          (HP1: real poles lp, lm)
 //       v2 = y1 - 2 y1_{t-1} + y1_{t-2}              (ff2)
@@ -12,243 +13,371 @@
 //     the single conjugate-pair recurrence are the well-conditioned forms of
 //     gstpeaq_tpu/ops/fb_ear.py::dc_reject: the poles sit at r ~ 0.9988 with
 //     ~833x DC gain each, and a partial-fraction or collapsed form amplifies
-//     the rounding by hundreds.  The state is dc_reject's tuple, packed per
-//     row as [x_{T-2}, x_{T-1}, w_{T-1}, y1_{T-1}, y1_{T-2}, y1_{T-1},
-//     Re u_{T-1}, Im u_{T-1}] in the scaled domain.
+//     the rounding by hundreds.  Each pole stays its own first-order scan.
+//     The state is dc_reject's tuple, packed per row as [x_{T-2}, x_{T-1},
+//     w_{T-1}, y1_{T-1}, y1_{T-2}, y1_{T-1}, Re u_{T-1}, Im u_{T-1}] in the
+//     scaled domain.
 //
-// What bounds it: the serial dependency of each recurrence over 480,000
-// samples per row, and with only 4 rows (ref and test, two channels) only
-// 4 blocks, so 4 of the card's 132 SMs, work.  Second, the access pattern:
-// each thread walks its own contiguous chunk, so one warp-wide load or
-// store in the six serial passes touches 32 addresses L samples apart
-// (L = 469 at 480,000 samples), about 32 sectors per request where a
-// coalesced access takes 4 (float) or 8 (double); only L1 hits on the
-// neighbouring samples of a sector can hide that.  Staging each warp's
-// chunks through shared memory with coalesced loads and stores, or a
-// lane-interleaved chunk layout, is left to a later change, as is
-// splitting a row across blocks.  Design: one block of 1024
-// threads per row; each thread owns a contiguous chunk of L = ceil(T /
-// 1024) samples, and each first-order stage is a chunked scan:
-//   1. a serial pass over the chunk from a zero state;
-//   2. a block-wide Hillis-Steele scan (shared memory, 10 steps) of the
-//      chunk end states with the factor lam^L, seeded with the carried
-//      state, giving each chunk its entry state;
-//   3. a fix-up pass adding entry * lam^(j+1), with the power walked by one
-//      multiplication per sample as a serial recurrence would.
-// The feedforwards read their two previous samples across chunk edges and
-// from the carried state.  The stages run in place in the output row and one
-// scratch row (the imaginary part of u), both allocated by the wrapper; the
-// scan factors lam^(L 2^e) are computed on the host in double.
+// What bounds it: the arithmetic is ~20 flops a sample, so the bytes and
+// the serial dependency of each recurrence.  One block per row would put
+// 4 of the card's 132 SMs to work at the main shape, and a contiguous
+// chunk per thread makes every warp access touch 32 strided sectors (3.9
+// ms at [4, 480000]).  A call at [4, 480000] moves ~7 passes over one row
+// array (x read three times, y1 written once and read twice, hp2 written)
+// through five launches: on an H100 (80GB HBM3, 700 W) 0.050 ms in double
+// and 0.037 ms in float, 2.1 and 1.5 TB/s of that traffic (64% and 43% of
+// the 3.35 TB/s peak), each launch 5-13 us; the two that write an array
+// take the longest.  So the bytes bound it in double, and in float the
+// latency of each launch's wave of short blocks as much.  Design: each row
+// is cut into tiles of kTile = 2048 samples, one block of 256 threads each
+// (940 blocks at the main shape), and each call makes five launches:
+//   0  the lp aggregates of ff1(x)
+//   1  w from its entry, then the lm aggregates of w
+//   2  w and y1 from their entries, writing y1
+//   3  the lam aggregates of ff2(y1)
+//   4  u from its entry, writing hp2 and the final state
+// where a tile's aggregate is its end state from a zero entry.  Inside a
+// block the tile is loaded coalesced into shared memory, skewed by one
+// element per 128 bytes so that a thread's run of 8 samples reads without
+// bank conflicts; each thread scans its run serially in registers, a warp
+// scan (factor a^8) and a fold of the 8 warp ends (a^256) give each run its
+// entry, and the run is scanned again from it; stores go back through
+// shared memory, coalesced.  Between tiles, one warp of each block folds the
+// carried state and its row's earlier aggregates with a^2048 in one fixed
+// order: no atomics and no look-back, so every run gives the same bits.
+// Every factor a^n is computed in double on the host (ops/cuda_dc.py::
+// scan_factors) and cast to the working type.
 //
 // Templated on float and double; no fast-math intrinsic is used.
 
 #include <cuda_runtime.h>
 
-#include <cmath>
-#include <complex>
+#include "warp_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kScanSteps = 10;  // 2^10 = kThreads
+using peaq::add;
+using peaq::Cplx;
+using peaq::kWarp;
+using peaq::mul;
+using peaq::shfl_up;
+using peaq::warp_scan;
 
-template <typename T>
-struct Cplx {
-  T re, im;
+constexpr int kRun = 8;                   // samples a thread scans serially
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kTile = kRun * kThreads;    // samples a block
+constexpr long long kGridLimit = 2147483647LL;
+
+enum Step : int { kAggLp, kAggLm, kY1, kAggLam, kOut };
+
+// One pole and its powers a^n, in the order ops/cuda_dc.py::scan_factors
+// lays them out.
+template <typename V>
+struct Powers {
+  V a;
+  V run[5];     // a^(kRun 2^e): the warp scan's step factors over runs
+  V warp;       // a^(kRun kWarp): one warp's stretch
+  V tile;       // a^kTile: one tile
+  V carry[5];   // a^(kTile seg 2^e): the carry scan's step factors
 };
-
-template <typename T>
-__device__ __forceinline__ T mul(T a, T b) { return a * b; }
-template <typename T>
-__device__ __forceinline__ T add(T a, T b) { return a + b; }
-template <typename T>
-__device__ __forceinline__ Cplx<T> mul(Cplx<T> a, Cplx<T> b) {
-  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
-}
-template <typename T>
-__device__ __forceinline__ Cplx<T> add(Cplx<T> a, Cplx<T> b) {
-  return {a.re + b.re, a.im + b.im};
-}
 
 template <typename T>
 struct DcCoef {
-  T lp, lm;                   // HP1's real poles
-  Cplx<T> lam;                // HP2's pole (upper half plane)
-  Cplx<T> g;                  // y2 = 2 Re(g u)
-  T fp[kScanSteps];           // lp^(L 2^e)
-  T fm[kScanSteps];           // lm^(L 2^e)
-  Cplx<T> f2[kScanSteps];     // lam^(L 2^e)
+  Powers<T> lp, lm;
+  Powers<Cplx<T>> lam;
+  Cplx<T> g;
 };
 
-// Entry state of this thread's chunk: the exclusive scan of the chunk end
-// states `end` with factor f = lam^L, seeded with y0 (the carried state).
-template <typename V>
-__device__ V chunk_entry(V end, V y0, const V* factors, V* sh) {
-  const int k = threadIdx.x;
-  sh[k] = end;
-  __syncthreads();
-  V h = k == 0 ? y0 : sh[k - 1];
-  __syncthreads();
+// Shared-memory slot of tile sample i: one element of skew per 128 bytes,
+// so the lanes reading sample j of their runs (kRun apart) hit distinct
+// banks (float), or distinct bank pairs per half-warp (double).
+template <typename T>
+constexpr int kSkew = 128 / static_cast<int>(sizeof(T));
+template <typename T>
+constexpr int kSlots = kTile + kTile / kSkew<T>;
+template <typename T>
+__device__ __forceinline__ int slot(int i) { return i + i / kSkew<T>; }
+
+// One step y <- a y + v of a real or complex stage with a real drive v.
+template <typename T>
+__device__ __forceinline__ T rec(T a, T y, T v) { return a * y + v; }
+template <typename T>
+__device__ __forceinline__ Cplx<T> rec(Cplx<T> a, Cplx<T> y, T v) {
+  return add(mul(a, y), Cplx<T>{v, T(0)});
+}
+
+// The stage's end over a run from a zero entry.
+template <typename V, typename T>
+__device__ __forceinline__ V run_end(V a, const T (&v)[kRun]) {
+  V y{};
 #pragma unroll
-  for (int e = 0; e < kScanSteps; ++e) {
-    const int off = 1 << e;
-    sh[k] = h;
-    __syncthreads();
-    if (k >= off) h = add(h, mul(factors[e], sh[k - off]));
-    __syncthreads();
+  for (int j = 0; j < kRun; ++j) y = rec(a, y, v[j]);
+  return y;
+}
+
+// The tile's end from a zero entry (its aggregate), valid in thread 0: the
+// runs' zero-entry ends scanned per warp, the warp ends folded in order.
+template <typename V>
+__device__ V tile_end(V end, const Powers<V>& p, V* ends) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const V s = warp_scan(end, p.run, lane);
+  if (lane == kWarp - 1) ends[warp] = s;
+  __syncthreads();
+  V agg{};
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w) agg = add(mul(p.warp, agg), ends[w]);
   }
-  return h;
+  return agg;
+}
+
+// The entry state of this thread's run (the stage at the sample before
+// it), from the run's zero-entry end and the tile's entry *tile_in, which
+// the caller writes to shared memory before the call.
+template <typename V>
+__device__ V run_entry(V end, const V* tile_in, const Powers<V>& p, V* ends) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const V s = warp_scan(end, p.run, lane);
+  if (lane == kWarp - 1) ends[warp] = s;
+  __syncthreads();
+  V x = *tile_in;   // becomes the warp's entry
+  for (int w = 0; w < warp; ++w) x = add(mul(p.warp, x), ends[w]);
+  // the scan again with the warp's entry folded into lane 0: lane l then
+  // ends where lane l + 1 enters
+  const V s_in = warp_scan(lane == 0 ? add(end, mul(p.run[0], x)) : end,
+                           p.run, lane);
+  const V up = shfl_up(s_in, 1);
+  __syncthreads();  // ends and *tile_in are written again after the call
+  return lane == 0 ? x : up;
+}
+
+// The entry state of tile j, by one warp, valid in lane 31: the carried
+// state c0 (as tile -1) and the row's aggregates agg[0..j) folded with
+// a^kTile in one fixed order.  Lane l folds the tiles [j - (32 - l) seg,
+// j - (31 - l) seg) by Horner; a warp scan with (a^(kTile seg))^(2^e)
+// folds the lanes.
+template <typename V>
+__device__ V tile_entry(const V* agg, long long j, long long seg, V c0,
+                        const Powers<V>& p) {
+  const int lane = threadIdx.x % kWarp;
+  const long long hi = j - (kWarp - 1 - lane) * seg;
+  V h{};
+  for (long long i = hi - seg < -1 ? -1 : hi - seg; i < hi; ++i) {
+    h = add(mul(p.tile, h), i < 0 ? c0 : agg[i]);
+  }
+  return warp_scan(h, p.carry, lane);
+}
+
+template <typename T, int kStep>
+__global__ void __launch_bounds__(kThreads)
+dc_chain_kernel(const T* __restrict__ x, T lf, const T* __restrict__ st_in,
+                T* __restrict__ out, T* __restrict__ y1,
+                T* __restrict__ agg, T* __restrict__ st_out, long long t_len,
+                long long tiles, long long seg, DcCoef<T> co) {
+  using C = Cplx<T>;
+  __shared__ T sh[kSlots<T>];
+  __shared__ T halo[2];        // the two samples before the tile
+  __shared__ T ends_r[kWarps];
+  __shared__ C ends_c[kWarps];
+  __shared__ T entry_r[2];     // the tile's entry states of lp and lm
+  __shared__ C entry_c;        // and of lam
+  const int k = threadIdx.x, lane = k % kWarp, warp = k / kWarp;
+  const long long plane = gridDim.x;  // rows * tiles
+  const long long row = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const long long t0 = tile * kTile;
+  const int n = t_len - t0 < kTile ? static_cast<int>(t_len - t0) : kTile;
+  const bool last = tile == tiles - 1;
+  auto st = [&](int i) {
+    return st_in != nullptr ? st_in[row * 8 + i] : T(0);
+  };
+  T* agg_lp = agg + row * tiles;
+  T* agg_lm = agg + plane + row * tiles;
+  C* agg_lam = reinterpret_cast<C*>(agg + 2 * plane) + row * tiles;
+  T* sto = st_out + row * 8;
+
+  // ---- the tile, coalesced: lf x (steps 0-2) or y1 (steps 3-4) ----
+  constexpr bool kFromX = kStep < kAggLam;
+  const T* src = (kFromX ? x : y1) + row * t_len;
+  auto load = [&](long long t) { return kFromX ? lf * src[t] : src[t]; };
+  for (int i = k; i < kTile; i += kThreads) {
+    sh[slot<T>(i)] = i < n ? load(t0 + i) : T(0);
+  }
+  if (k < 2) {
+    const long long t = t0 + k - 2;
+    // before the row: the carried tail, x at [0, 1], y1 at [4, 5]
+    halo[k] = t >= 0 ? load(t) : st(static_cast<int>(t) + (kFromX ? 2 : 6));
+  }
+  __syncthreads();
+  auto at = [&](int i) { return i >= 0 ? sh[slot<T>(i)] : halo[i + 2]; };
+
+  // ---- the feedforward (1 - z^-1)^2 over this thread's run ----
+  const int base = k * kRun;
+  // this thread's run holds the row's last sample at j_last
+  const int j_last = last ? n - 1 - base : -1;
+  T v[kRun];
+  {
+    T m2 = at(base - 2), m1 = at(base - 1);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      const T c = sh[slot<T>(base + j)];
+      v[j] = c - T(2) * m1 + m2;
+      m2 = m1;
+      m1 = c;
+    }
+  }
+
+  if constexpr (kStep == kAggLp) {
+    const T a = tile_end(run_end(co.lp.a, v), co.lp, ends_r);
+    if (k == 0) agg_lp[tile] = a;
+  } else if constexpr (kStep == kAggLm || kStep == kY1) {
+    if (warp == 0) {
+      const T c = tile_entry<T>(agg_lp, tile, seg, st(2), co.lp);
+      if (lane == kWarp - 1) entry_r[0] = c;
+    } else if (kStep == kY1 && warp == 1) {
+      const T c = tile_entry<T>(agg_lm, tile, seg, st(3), co.lm);
+      if (lane == kWarp - 1) entry_r[1] = c;
+    }
+    T w[kRun];
+    T y = run_entry(run_end(co.lp.a, v), &entry_r[0], co.lp, ends_r);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) w[j] = y = co.lp.a * y + v[j];
+    const T end = run_end(co.lm.a, w);
+    if constexpr (kStep == kAggLm) {
+      const T a = tile_end(end, co.lm, ends_r);
+      if (k == 0) agg_lm[tile] = a;
+    } else {
+      // every read of the tile's x lies before run_entry's barriers
+      y = run_entry(end, &entry_r[1], co.lm, ends_r);
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        sh[slot<T>(base + j)] = y = co.lm.a * y + w[j];
+        if (j == j_last) sto[2] = w[j];
+      }
+      __syncthreads();
+      T* dst = y1 + row * t_len + t0;
+      for (int i = k; i < n; i += kThreads) dst[i] = sh[slot<T>(i)];
+    }
+  } else {
+    if constexpr (kStep == kOut) {
+      if (warp == 0) {
+        const C c = tile_entry<C>(agg_lam, tile, seg, C{st(6), st(7)},
+                                  co.lam);
+        if (lane == kWarp - 1) entry_c = c;
+      }
+    }
+    const C end = run_end(co.lam.a, v);
+    if constexpr (kStep == kAggLam) {
+      const C a = tile_end(end, co.lam, ends_c);
+      if (k == 0) agg_lam[tile] = a;
+    } else {
+      if (last && k == 0) {
+        // the tails, y1 from the tile before run_entry's barriers
+        sto[3] = sto[5] = at(n - 1);
+        sto[4] = at(n - 2);
+        const T* xr = x + row * t_len;
+        sto[0] = t_len >= 2 ? lf * xr[t_len - 2] : st(1);
+        sto[1] = lf * xr[t_len - 1];
+      }
+      C u = run_entry(end, &entry_c, co.lam, ends_c);
+#pragma unroll
+      for (int j = 0; j < kRun; ++j) {
+        u = rec(co.lam.a, u, v[j]);
+        sh[slot<T>(base + j)] = T(2) * (co.g.re * u.re - co.g.im * u.im);
+        if (j == j_last) {
+          sto[6] = u.re;
+          sto[7] = u.im;
+        }
+      }
+      __syncthreads();
+      T* dst = out + row * t_len + t0;
+      for (int i = k; i < n; i += kThreads) dst[i] = sh[slot<T>(i)];
+    }
+  }
+}
+
+// Reads one pole and its powers from the host's float64 factors.
+template <typename T>
+const double* fill(Powers<T>& p, const double* c) {
+  p.a = static_cast<T>(*c++);
+  for (T& f : p.run) f = static_cast<T>(*c++);
+  p.warp = static_cast<T>(*c++);
+  p.tile = static_cast<T>(*c++);
+  for (T& f : p.carry) f = static_cast<T>(*c++);
+  return c;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dc_chain_kernel(const T* __restrict__ x, T lf, const T* __restrict__ st_in,
-                T* __restrict__ out, T* __restrict__ scratch,
-                T* __restrict__ st_out, long long t_len, long long chunk,
-                DcCoef<T> co) {
-  __shared__ T sh_r[kThreads];
-  __shared__ Cplx<T> sh_c[kThreads];
-  __shared__ T captured[4];   // w_{T-1}, y1_{T-1}, y1_{T-2}, y1_{T-1}
-  const long long row = blockIdx.x;
-  const T* xr = x + row * t_len;
-  T* yr = out + row * t_len;
-  T* sr = scratch + row * t_len;
-  T st[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) st[i] = st_in != nullptr ? st_in[row * 8 + i] : T(0);
-  const long long t0 = threadIdx.x * chunk;
-  const long long t1 = t0 + chunk < t_len ? t0 + chunk : t_len;
-  // scaled input at i, the carried tail (x_{-2}, x_{-1}) before the row
-  auto xs_at = [&](long long i) { return i >= 0 ? lf * xr[i] : st[i + 2]; };
-
-  // ---- ff1 and w = rec(lp, v1) ----
-  // a thread whose chunk lies past the row's end reads nothing
-  const bool busy = t0 < t_len;
-  T xm1 = busy ? xs_at(t0 - 1) : T(0);
-  T xm2 = busy ? xs_at(t0 - 2) : T(0);
-  T acc = T(0);
-  for (long long t = t0; t < t1; ++t) {
-    const T xs = lf * xr[t];
-    acc = co.lp * acc + (xs - T(2) * xm1 + xm2);
-    yr[t] = acc;
-    xm2 = xm1;
-    xm1 = xs;
-  }
-  T c = chunk_entry<T>(acc, st[2], co.fp, sh_r);
-  for (long long t = t0; t < t1; ++t) {
-    c = co.lp * c;
-    yr[t] += c;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) captured[0] = yr[t_len - 1];
-  __syncthreads();
-
-  // ---- y1 = rec(lm, w), in place ----
-  acc = T(0);
-  for (long long t = t0; t < t1; ++t) {
-    acc = co.lm * acc + yr[t];
-    yr[t] = acc;
-  }
-  c = chunk_entry<T>(acc, st[3], co.fm, sh_r);
-  for (long long t = t0; t < t1; ++t) {
-    c = co.lm * c;
-    yr[t] += c;
-  }
-  __syncthreads();
-  // y1 at i, the carried tail (y1_{-2}, y1_{-1}) before the row
-  auto y1_at = [&](long long i) { return i >= 0 ? yr[i] : st[i + 6]; };
-  if (threadIdx.x == 0) {
-    captured[1] = yr[t_len - 1];
-    captured[2] = y1_at(t_len - 2);
-    captured[3] = yr[t_len - 1];
-  }
-  T ym1 = busy ? y1_at(t0 - 1) : T(0);
-  T ym2 = busy ? y1_at(t0 - 2) : T(0);
-  __syncthreads();
-
-  // ---- ff2 and u = rec(lam, v2): Re u in place, Im u in scratch ----
-  Cplx<T> u = {T(0), T(0)};
-  for (long long t = t0; t < t1; ++t) {
-    const T y1 = yr[t];
-    u = add(mul(co.lam, u), Cplx<T>{y1 - T(2) * ym1 + ym2, T(0)});
-    yr[t] = u.re;
-    sr[t] = u.im;
-    ym2 = ym1;
-    ym1 = y1;
-  }
-  Cplx<T> cc = chunk_entry<Cplx<T>>(u, Cplx<T>{st[6], st[7]}, co.f2, sh_c);
-  for (long long t = t0; t < t1; ++t) {
-    cc = mul(co.lam, cc);
-    const T ur = yr[t] + cc.re;
-    const T ui = sr[t] + cc.im;
-    yr[t] = T(2) * (co.g.re * ur - co.g.im * ui);
-    if (t == t_len - 1) {
-      st_out[row * 8 + 6] = ur;
-      st_out[row * 8 + 7] = ui;
-    }
-  }
-  if (threadIdx.x == 0) {
-    st_out[row * 8 + 0] = xs_at(t_len - 2);
-    st_out[row * 8 + 1] = xs_at(t_len - 1);
-    st_out[row * 8 + 2] = captured[0];
-    st_out[row * 8 + 3] = captured[1];
-    st_out[row * 8 + 4] = captured[2];
-    st_out[row * 8 + 5] = captured[3];
-  }
+const double* fill(Powers<Cplx<T>>& p, const double* c) {
+  auto next = [&c] {
+    const Cplx<T> z{static_cast<T>(c[0]), static_cast<T>(c[1])};
+    c += 2;
+    return z;
+  };
+  p.a = next();
+  for (Cplx<T>& f : p.run) f = next();
+  p.warp = next();
+  p.tile = next();
+  for (Cplx<T>& f : p.carry) f = next();
+  return c;
 }
 
 template <typename T>
 int launch_dc(const void* x, double lf, const void* st_in, void* out,
-              void* scratch, void* st_out, long long rows, long long t_len,
-              double lp, double lm, double lam_re, double lam_im, double g_re,
-              double g_im, void* stream) {
-  if (rows > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows > 0 && t_len > 0) {
-    const long long chunk = (t_len + kThreads - 1) / kThreads;
-    DcCoef<T> co;
-    co.lp = static_cast<T>(lp);
-    co.lm = static_cast<T>(lm);
-    co.lam = {static_cast<T>(lam_re), static_cast<T>(lam_im)};
-    co.g = {static_cast<T>(g_re), static_cast<T>(g_im)};
-    const std::complex<double> lam(lam_re, lam_im);
-    for (int e = 0; e < kScanSteps; ++e) {
-      const double n = static_cast<double>(chunk) * static_cast<double>(1 << e);
-      co.fp[e] = static_cast<T>(std::pow(lp, n));
-      co.fm[e] = static_cast<T>(std::pow(lm, n));
-      const std::complex<double> f =
-          std::polar(std::pow(std::abs(lam), n), std::arg(lam) * n);
-      co.f2[e] = {static_cast<T>(f.real()), static_cast<T>(f.imag())};
-    }
-    dc_chain_kernel<T><<<static_cast<unsigned>(rows), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+              void* y1, void* agg, void* st_out, long long rows,
+              long long t_len, long long tiles, long long seg,
+              const double* coef, void* stream) {
+  if (rows <= 0 || t_len <= 0) return static_cast<int>(cudaGetLastError());
+  if (tiles != (t_len + kTile - 1) / kTile || seg < 1 ||
+      kWarp * seg < tiles || rows > kGridLimit / tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DcCoef<T> co;
+  const double* c = fill(co.lp, coef);
+  c = fill(co.lm, c);
+  c = fill(co.lam, c);
+  co.g = {static_cast<T>(c[0]), static_cast<T>(c[1])};
+  const auto blocks = static_cast<unsigned>(rows * tiles);
+  using Kernel = void (*)(const T*, T, const T*, T*, T*, T*, T*, long long,
+                          long long, long long, DcCoef<T>);
+  const Kernel steps[] = {
+      dc_chain_kernel<T, kAggLp>, dc_chain_kernel<T, kAggLm>,
+      dc_chain_kernel<T, kY1>, dc_chain_kernel<T, kAggLam>,
+      dc_chain_kernel<T, kOut>};
+  for (const Kernel kernel : steps) {
+    kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(x), static_cast<T>(lf),
         static_cast<const T*>(st_in), static_cast<T*>(out),
-        static_cast<T*>(scratch), static_cast<T*>(st_out), t_len, chunk, co);
+        static_cast<T*>(y1), static_cast<T*>(agg), static_cast<T*>(st_out),
+        t_len, tiles, seg, co);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
-// x, out, scratch: [rows, t_len]; st_in (nullable = zero state), st_out:
-// [rows, 8]; the poles and the output gain come from the caller.
+// Each entry makes five launches on `stream` and returns the first
+// cudaGetLastError() that is not 0 (0 = ok).  x, out, y1 (scratch):
+// [rows, t_len]; agg (scratch): [4, rows, tiles]; st_in (nullable = zero
+// state), st_out: [rows, 8]; tiles and seg from ops/cuda_dc.py::
+// launch_plan; coef: the host's float64 factors, scan_factors(seg).
 int peaq_dc_chain_f32(const void* x, double lf, const void* st_in, void* out,
-                      void* scratch, void* st_out, long long rows,
-                      long long t_len, double lp, double lm, double lam_re,
-                      double lam_im, double g_re, double g_im, void* stream) {
-  return launch_dc<float>(x, lf, st_in, out, scratch, st_out, rows, t_len, lp,
-                          lm, lam_re, lam_im, g_re, g_im, stream);
+                      void* y1, void* agg, void* st_out, long long rows,
+                      long long t_len, long long tiles, long long seg,
+                      const double* coef, void* stream) {
+  return launch_dc<float>(x, lf, st_in, out, y1, agg, st_out, rows, t_len,
+                          tiles, seg, coef, stream);
 }
 
 int peaq_dc_chain_f64(const void* x, double lf, const void* st_in, void* out,
-                      void* scratch, void* st_out, long long rows,
-                      long long t_len, double lp, double lm, double lam_re,
-                      double lam_im, double g_re, double g_im, void* stream) {
-  return launch_dc<double>(x, lf, st_in, out, scratch, st_out, rows, t_len,
-                           lp, lm, lam_re, lam_im, g_re, g_im, stream);
+                      void* y1, void* agg, void* st_out, long long rows,
+                      long long t_len, long long tiles, long long seg,
+                      const double* coef, void* stream) {
+  return launch_dc<double>(x, lf, st_in, out, y1, agg, st_out, rows, t_len,
+                           tiles, seg, coef, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,11 @@
 // The warp-wide scan of a first-order recurrence x_l <- a x_{l-1} + x_l over
-// the 32 lanes of a warp, shared by the banded recurrences (recurrence.cu)
-// and the FB slope filter (fb_spread.cu).  Each lane holds one instant of a
-// 32-instant chunk; the step factors a^(2^e) are built by repeated squaring
-// in the working type, and a^(lane + 1) weighs the state entering the chunk.
+// the 32 lanes of a warp, shared by the banded recurrences (recurrence.cu),
+// the FB slope filter (fb_spread.cu) and the DC cascade (dc_chain.cu).  Each
+// lane holds the drive of one stretch (one instant, or a run of samples);
+// the scan's step factors are a^(2^e) of the factor over one stretch.  For
+// one instant a stretch, lane_powers builds them by repeated squaring in the
+// working type, and a^(lane + 1) weighs the state entering the chunk; the DC
+// cascade passes factors computed on the host in double, real or complex.
 
 #pragma once
 
@@ -12,6 +15,34 @@ namespace peaq {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// A complex value in the working type (the DC cascade's conjugate pole).
+template <typename T>
+struct Cplx {
+  T re, im;
+};
+
+template <typename T>
+__device__ __forceinline__ T mul(T a, T b) { return a * b; }
+template <typename T>
+__device__ __forceinline__ T add(T a, T b) { return a + b; }
+template <typename T>
+__device__ __forceinline__ Cplx<T> mul(Cplx<T> a, Cplx<T> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+template <typename T>
+__device__ __forceinline__ Cplx<T> add(Cplx<T> a, Cplx<T> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_up(T v, int off) {
+  return __shfl_up_sync(kFull, v, off);
+}
+template <typename T>
+__device__ __forceinline__ Cplx<T> shfl_up(Cplx<T> v, int off) {
+  return {__shfl_up_sync(kFull, v.re, off), __shfl_up_sync(kFull, v.im, off)};
+}
 
 // Powers of one row's coefficient, per lane.
 template <typename T>
@@ -40,16 +71,23 @@ __device__ __forceinline__ LanePowers<T> lane_powers(T a, int lane) {
   return p;
 }
 
-// Inclusive scan of x_l <- a x_{l-1} + x_l over the 32 lanes of a warp.
-template <typename T>
-__device__ __forceinline__ T warp_scan(T x, const LanePowers<T>& p, int lane) {
+// Inclusive scan of x_l <- f x_{l-1} + x_l over the 32 lanes of a warp,
+// step[e] = f^(2^e); V is a real working type or a Cplx of one.
+template <typename V>
+__device__ __forceinline__ V warp_scan(V x, const V (&step)[5], int lane) {
 #pragma unroll
   for (int e = 0; e < 5; ++e) {
     const int off = 1 << e;
-    const T up = __shfl_up_sync(kFull, x, off);
-    if (lane >= off) x = x + p.step[e] * up;
+    const V up = shfl_up(x, off);
+    if (lane >= off) x = add(x, mul(step[e], up));
   }
   return x;
+}
+
+// The same scan with f = a, one instant a lane.
+template <typename T>
+__device__ __forceinline__ T warp_scan(T x, const LanePowers<T>& p, int lane) {
+  return warp_scan(x, p.step, lane);
 }
 
 }  // namespace peaq

@@ -10,13 +10,19 @@ complex recurrence with y = 2 Re(g u).  The state is dc_reject's tuple
 (x_tail, u1, y1_tail, u2), each [..., 2], in the scaled domain, so a state
 of either package resumes in the other.
 
+D3 cuts each row into tiles of TILE samples, one block each, and makes
+five CUDA launches per call (csrc/dc_chain.cu).  The launch plan and every
+scan factor a^n are computed here, in float64, and handed to the kernel.
+
 The wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  It
-counts its launches in `dc_chain_launches`.
+counts its launches in `dc_chain_launches`, one per call.
 """
 
 from __future__ import annotations
 
+import cmath
+import functools
 import math
 
 import numpy as np
@@ -28,6 +34,14 @@ from . import _build
 from . import iir
 
 dc_chain_launches = 0
+
+# csrc/dc_chain.cu's kRun, kThreads and kTile: a thread scans a run of RUN
+# samples, a block of THREADS threads one tile of TILE samples.
+RUN = 8
+THREADS = 256
+TILE = RUN * THREADS
+LANES = 32            # a warp; it folds the carry in LANES segments
+GRID_LIMIT = 2**31 - 1
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -42,6 +56,45 @@ def coefficients() -> tuple[float, float, complex, complex]:
     lam = (b1 + complex(0.0, math.sqrt(-(b1 * b1 + 4.0 * b2)))) / 2.0
     g = complex(lam / (lam - np.conj(lam)))
     return lp, lm, lam, g
+
+
+def launch_plan(rows: int, t: int) -> tuple[int, int, int]:
+    """(tiles, seg, blocks) of D3 on [rows, t]: each row in `tiles` tiles
+    of TILE samples (the last one ragged), one block each, `blocks` in all;
+    a block folds its row's earlier tiles into its entry state in LANES
+    segments of `seg` tiles."""
+    tiles = -(-t // TILE)
+    seg = -(-tiles // LANES)
+    blocks = rows * tiles
+    if blocks > GRID_LIMIT:
+        raise ValueError(f"dc_chain: {rows} rows of {t} samples need "
+                         f"{blocks} blocks, above CUDA's {GRID_LIMIT}")
+    return tiles, seg, blocks
+
+
+def scan_exponents(seg: int) -> list[int]:
+    """The n of each scan factor a^n, in the order dc_chain.cu reads them:
+    the warp scan's steps over runs (RUN 2^e), one warp (RUN LANES), one
+    tile (TILE), the carry scan's steps over segments (TILE seg 2^e)."""
+    return ([RUN << e for e in range(5)] + [RUN * LANES, TILE]
+            + [TILE * seg << e for e in range(5)])
+
+
+@functools.cache
+def scan_factors(seg: int) -> np.ndarray:
+    """D3's coefficients, float64, in the order dc_chain.cu reads them: lp
+    and each lp^n, lm and each lm^n, lam and each lam^n as (re, im) pairs,
+    then g as (re, im); n from scan_exponents(seg).  Complex powers through
+    polar form, |lam|^n at the angle n arg(lam).  Read-only: it is cached."""
+    lp, lm, lam, g = coefficients()
+    ns = scan_exponents(seg)
+    out = [lp, *(lp ** n for n in ns), lm, *(lm ** n for n in ns)]
+    for z in (lam, *(cmath.rect(abs(lam) ** n, cmath.phase(lam) * n)
+                     for n in ns)):
+        out += [z.real, z.imag]
+    out = np.array(out + [g.real, g.imag], dtype=np.float64)
+    out.flags.writeable = False
+    return out
 
 
 def _zero_state(x: torch.Tensor):
@@ -97,14 +150,17 @@ def dc_chain(x: torch.Tensor, level_factor: float, state=None):
         st = operands["state"] = torch.cat(
             [s.reshape(-1, 2) for s in state], dim=-1).contiguous()
     _build.require("dc_chain", x2, **operands)
+    rows = x2.shape[0]
+    tiles, seg, _ = launch_plan(rows, t)
     hp2 = torch.empty_like(x2)
-    scratch = torch.empty_like(x2)
-    st_out = x2.new_empty((x2.shape[0], 8))
-    lp, lm, lam, g = coefficients()
+    y1 = torch.empty_like(x2)
+    agg = x2.new_empty((4, rows, tiles))     # each tile's zero-entry ends
+    st_out = x2.new_empty((rows, 8))
+    coef = scan_factors(seg)
     _build.launch("dc_chain", x2, x2.data_ptr(), float(level_factor),
                   None if st is None else st.data_ptr(), hp2.data_ptr(),
-                  scratch.data_ptr(), st_out.data_ptr(), x2.shape[0], t, lp,
-                  lm, lam.real, lam.imag, g.real, g.imag)
+                  y1.data_ptr(), agg.data_ptr(), st_out.data_ptr(), rows, t,
+                  tiles, seg, coef.ctypes.data)
     dc_chain_launches += 1
     st_out = st_out.reshape(*lead, 8)
     return hp2.reshape(x.shape), tuple(st_out[..., 2 * i:2 * i + 2]

@@ -26,6 +26,7 @@ from gstpeaq_tpu.ops import pallas_dc
 from gstpeaq_tpu.ops import pallas_fb
 from gstpeaq_tpu.utils import numpy_ref as R
 from gstpeaq_tpu_torch import convert
+from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import fb_ear as FB
@@ -206,6 +207,110 @@ def test_dc_chain_state_resumes_across_packages():
     np.testing.assert_allclose(st3[0][..., 0], st[0][..., 1])
     np.testing.assert_allclose(st3[0][..., 1], x[..., cut] * LF)
     assert rel(h3[..., 0], h2[..., 0]) < 1e-12
+
+
+@pytest.mark.parametrize("t", [1, 31, cuda_dc.TILE - 1, cuda_dc.TILE,
+                               cuda_dc.TILE + 1, 480000, 10**7])
+def test_dc_chain_launch_plan_covers_each_row(t):
+    """D3's tiles cover a row exactly (the last one ragged), the LANES
+    segments of `seg` tiles that a block folds reach back to tile 0, and
+    the grid stays within CUDA's 2^31 - 1 blocks up to 2^16 rows."""
+    for rows in (1, 4, 2**16):
+        tiles, seg, blocks = cuda_dc.launch_plan(rows, t)
+        assert (tiles - 1) * cuda_dc.TILE < t <= tiles * cuda_dc.TILE
+        assert (seg - 1) * cuda_dc.LANES < tiles <= seg * cuda_dc.LANES
+        assert blocks == rows * tiles <= cuda_dc.GRID_LIMIT == 2**31 - 1
+    with pytest.raises(ValueError, match="blocks"):
+        cuda_dc.launch_plan(2**16, 2**40)
+
+
+def test_dc_chain_plan_constants_are_the_kernels():
+    src = (_build.CSRC / "dc_chain.cu").read_text()
+    assert f"constexpr int kRun = {cuda_dc.RUN};" in src
+    assert f"constexpr int kThreads = {cuda_dc.THREADS};" in src
+    assert "constexpr int kTile = kRun * kThreads;" in src
+    assert f"constexpr long long kGridLimit = {cuda_dc.GRID_LIMIT}LL;" in src
+    assert cuda_dc.TILE == cuda_dc.RUN * cuda_dc.THREADS
+
+
+def _pole_factors(seg):
+    """scan_factors(seg) split per pole into [a, *a^n] (lp, lm real; lam
+    complex from its (re, im) pairs) and g."""
+    f = cuda_dc.scan_factors(seg)
+    k = len(cuda_dc.scan_exponents(seg)) + 1
+    assert f.shape == (4 * k + 2,) and f.dtype == np.float64
+    lam = f[2 * k:4 * k:2] + 1j * f[2 * k + 1:4 * k:2]
+    return f[:k], f[k:2 * k], lam, complex(f[-2], f[-1])
+
+
+@pytest.mark.parametrize("seg", [1, 8, 153])
+def test_dc_chain_scan_factors_are_float64_powers(seg):
+    """Each factor equals numpy's float64 power of its pole to 1e-15
+    relative, the complex one through polar form."""
+    ns = cuda_dc.scan_exponents(seg)
+    tile = cuda_dc.TILE
+    assert ns == [8, 16, 32, 64, 128, 256, tile,
+                  tile * seg, 2 * tile * seg, 4 * tile * seg, 8 * tile * seg,
+                  16 * tile * seg]
+    n = np.array([1, *ns], dtype=np.float64)
+    lp, lm, lam, g = cuda_dc.coefficients()
+    got_lp, got_lm, got_lam, got_g = _pole_factors(seg)
+    for a, got in ((lp, got_lp), (lm, got_lm)):
+        want = np.float64(a) ** n
+        assert np.all(np.abs(got - want) <= 1e-15 * want)
+    want = np.abs(lam) ** n * np.exp(1j * n * np.angle(lam))
+    assert np.all(np.abs(got_lam - want) <= 1e-15 * np.abs(want))
+    assert got_g == g
+    assert not cuda_dc.scan_factors(seg).flags.writeable
+
+
+@pytest.mark.parametrize("pole", ["lp", "lam"])
+def test_dc_chain_factors_fold_tiles_as_the_kernel_does(pole):
+    """csrc/dc_chain.cu's algebra on the host's factors, in float64: runs of
+    RUN folded by a warp scan and the warp ends by a^(RUN LANES) give a
+    tile's zero-entry end (tile_end); the carried state and the earlier
+    tiles' ends folded in LANES segments of `seg` tiles, then a warp scan,
+    give each tile's entry state (tile_entry).  Both against the
+    recurrence run straight through, on 70 tiles (seg = 3)."""
+    tile, lanes = cuda_dc.TILE, cuda_dc.LANES
+    tiles, seg, _ = cuda_dc.launch_plan(1, 70 * tile)
+    assert (tiles, seg) == (70, 3)
+    lp, _, lam, _ = _pole_factors(seg)
+    p = lp if pole == "lp" else lam
+    a, run, warp, tile_f, carry = p[0], p[1:6], p[6], p[7], p[8:13]
+    c0 = 0.7 if pole == "lp" else 0.7 - 0.3j
+    dtype = torch.float64 if pole == "lp" else torch.complex128
+    v = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        tiles * tile)).to(dtype)
+
+    def rec(drive, y0=None):
+        return iir.linear_recurrence(a, drive, axis=-1, y0=y0).numpy()
+
+    def warp_scan(x, steps):
+        for e, f in enumerate(steps):
+            off = 1 << e
+            x = np.concatenate([x[..., :off], x[..., off:]
+                                + f * x[..., :-off]], -1)
+        return x
+
+    y = rec(v, torch.tensor(c0, dtype=dtype))
+    agg = rec(v.reshape(tiles, tile))[:, -1]
+    ends = warp_scan(rec(v.reshape(tiles, -1, lanes, cuda_dc.RUN))[..., -1],
+                     run)[..., -1]                  # [tiles, warps]
+    folded = np.zeros_like(agg)
+    for w in range(ends.shape[-1]):
+        folded = warp * folded + ends[:, w]
+    scale = np.abs(y).max()
+    assert np.abs(folded - agg).max() < 1e-12 * scale
+    for j in range(tiles):
+        h = np.zeros(lanes, dtype=agg.dtype)
+        for lane in range(lanes):
+            hi = j - (lanes - 1 - lane) * seg
+            for i in range(max(hi - seg, -1), hi):
+                h[lane] = tile_f * h[lane] + (c0 if i < 0 else agg[i])
+        entry = warp_scan(h, carry)[-1]
+        want = c0 if j == 0 else y[j * tile - 1]
+        assert abs(entry - want) < 1e-12 * scale, j
 
 
 def test_linear_recurrence_complex_matches_jax():
