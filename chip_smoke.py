@@ -10,13 +10,15 @@ Phases, each on its own lines and ending with its seconds:
               gstpeaq_tpu_torch/csrc, one process per source, and ptxas
               reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes and edge shapes (D3: its tile edges),
-              in float32 and float64, the float32 DC cascade's own rounding
-              against float64, and two launches of D3 bit for bit
+              the main paths' shapes and edge shapes (D1 and D3: their tile
+              edges; K3: band counts 1..128), in float32 and float64, the
+              float32 DC cascade's own rounding against float64, and two
+              launches each of D1, K3 and D3 bit for bit
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
-              (stereo upmix), and a 10 s stereo pair against the NumPy spec
-              (gstpeaq_tpu.utils.numpy_ref, framework-free)
-  4b float64  the advanced path: the same 10 s pair against the NumPy spec
+              (stereo upmix), and a 10 s stereo pair against the NumPy
+              spec's float64 results, frozen with the pair's fingerprint in
+              tests/golden/torch_pair10_spec.json
+  4b float64  the advanced path: the same 10 s pair against the frozen spec
   5 float32   the basic float32 tier on the same pairs, and the cause of its
               identical-sine ODG: the float32 rDFT's rounding floor
   5b float32  the advanced float32 tier against the card's float64
@@ -24,25 +26,35 @@ Phases, each on its own lines and ending with its seconds:
               pair, each with the counts set to 0 just before it: the
               advanced call goes through all six kernels
   7 times     CUDA-event medians of each kernel and its plain version in
-              float32 and float64 and of the FB ear's FIR bank, and peaq()
-              wall time per 10 s stereo pair per mode and tier
+              float32 and float64, each kernel's share of its bound (also
+              at the advanced path's other call-site shapes), the FB ear's
+              FIR bank, and peaq() wall time per 10 s stereo pair per mode
+              and tier
   8 profile   torch.profiler over five peaq() calls per mode and tier:
               device time per call, its share of the wall time, each hand
               kernel's share of it, and time by kernel
 
 Two lines before the last is one JSON object with each kernel's error,
-times and launches: `max_abs_err`, `ms` and `plain_ms` in float32 and the
-same with `_f64` in float64; `launches_by_path` holds phase 6's count per
-path (basic, advanced; 0 where a path does not launch the kernel),
-`launches` their sum.  The line before the last is the card's name and
+times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
+`bound_by` and `library_ms` in float32 and the same with `_f64` in float64;
+`bound_ms` is the larger of the bytes the kernel's function must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64), counted from
+this run's main-shape inputs; `library_ms` is null, since no single PyTorch
+call computes any of these functions; `launches_by_path` holds phase 6's
+count per path (basic, advanced; 0 where a path does not launch the
+kernel), `launches` their sum.  The line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Any failed
 check exits non-zero without that last line.  Without CUDA the
-script exits non-zero at once and prints no result.  No JAX is imported.
+script exits non-zero at once and prints no result.  Nothing of JAX or of
+the JAX package gstpeaq_tpu is imported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import pathlib
 import re
 import statistics
 import subprocess
@@ -54,6 +66,8 @@ import numpy as np
 import torch
 
 from gstpeaq_tpu_torch import api
+from gstpeaq_tpu_torch import constants as C
+from gstpeaq_tpu_torch import earparams as EP
 from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
@@ -61,10 +75,13 @@ from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-from gstpeaq_tpu.utils import numpy_ref
-from gstpeaq_tpu.utils import testsignals as TS
+from gstpeaq_tpu_torch.ops import tile_scan
+from gstpeaq_tpu_torch.utils import testsignals as TS
+
+# the NumPy spec's float64 results on ten_second_pair(), frozen with the
+# pair's fingerprint by tests/test_torch_standalone.py
+SPEC = pathlib.Path(__file__).resolve().parent / "tests" / "golden" / \
+    "torch_pair10_spec.json"
 
 MAIN = (2, 2, 109, 468)      # [sig, CH, Z, F] of a 10 s stereo pair
 FB_MAIN = (2, 2, 40, 15000)  # [sig, CH, Z, I] of its FB ear
@@ -111,6 +128,64 @@ COUNTERS = {
 # the noise case), so it is held at 1e-10.
 BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
+# the bound's rates: an H100 SXM's device memory and its peaks outside the
+# tensor cores at its full 700 W (NVIDIA's data sheet)
+MEMORY_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def ops_of(name: str, inputs) -> float:
+    """The operations that one call of kernel `name` on its main-shape
+    `inputs` needs (a transcendental counted as one).  K3 per row: Z(Z - 1)
+    for the upper part's Z(Z - 1)/2 (source, destination) pairs, a multiply
+    and an add each in the shift-multiply walk; 2 Z for the lower part, the
+    Toeplitz table's backward recurrence L_j = Ene_j + aLe L_{j+1}; and
+    15 Z for the per-band quantities and the output: aUCE (2), g_iu (4),
+    Ene (4), the walk's ratio (1), E2^2.5 / norm (4)."""
+    x = inputs[1] if name in ("recurrence_banded",
+                              "fused_mod_smoothers") else inputs[0]
+    per_element = {"recurrence_banded": 2,      # a y + b
+                   # loud, deriv (3), 3 drives, 3 recurrences (6), mod (3)
+                   "fused_mod_smoothers": 16,
+                   # re^2 + im^2 (3), log10, 10x, s (3), power, (1 - a)x,
+                   # the recurrence (2)
+                   "slope_state": 12,
+                   # scale, ff1 (3), two real poles (4), ff2 (3), the
+                   # complex pole (7), 2 Re(g u) (4)
+                   "dc_chain": 22}
+    if name in per_element:
+        return per_element[name] * x.numel()
+    z = x.shape[-1] if name == "spread_fft" else x.shape[-2]
+    lines = x.numel() // z                      # frame rows, or instants
+    if name == "spread_fft":
+        return (z * (z - 1) + 2 * z + 15 * z) * lines
+    # spread_fb: 4 per (i < j) step of the complex upper walk, 4 per
+    # (j >= c) multiply-add of the complex lower product, |.|^2 (3)
+    return (4 * z * z + 3 * z) * lines
+
+
+def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
+    """The least time in ms that the card could take for kernel `name`'s
+    function on `inputs` giving `output`, and what sets it: the bytes
+    (each input read once, each output written once) over the memory rate,
+    or the operations (ops_of) over the peak rate of `dtype`."""
+    moved = sum(t.numel() * t.element_size() for t in (*inputs, output))
+    by_bytes = moved / MEMORY_BYTES_PER_S * 1e3
+    by_ops = ops_of(name, inputs) / PEAK_OPS_PER_S[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+@dataclasses.dataclass
+class Case:
+    """One kernel case of phase 3: the kernel's wrapper and its plain
+    version as functions returning a tensor or a tuple of tensors, and, for
+    the main-shape case, the tensors its function reads (for its bound)."""
+    name: str
+    case: str
+    kernel: object
+    plain: object
+    inputs: tuple = ()
 
 
 def check(ok: bool, what: str) -> None:
@@ -196,10 +271,12 @@ def phase_build() -> None:
     names = "|".join(KERNELS)
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"({names})_kernelI([fd])(?:Li(\d+)E)?", line)
+            m = re.search(rf"({names})(?:_([a-z]+))?_kernelI([fd])"
+                          rf"(?:Li(\d+)E)?", line)
             entry = m and " ".join(
-                [m[1], "double" if m[2] == "d" else "float"]
-                + ([f"step {m[3]}"] if m[3] else []))
+                [m[1]] + ([m[2]] if m[2] else [])
+                + ["double" if m[3] == "d" else "float"]
+                + ([f"step {m[4]}"] if m[4] else []))
         elif entry and "spill" in line:
             spills = line.strip()
         elif entry and "Used" in line:
@@ -236,14 +313,17 @@ def fb_cases(dtype, rng, pair10, t):
     swap = 1.0 - k.slope_a
     y0 = t(rng.uniform(0.0, 0.5, FB_MAIN[:-1]))
     for case, a, y in (("main", k.slope_a, None), ("main y0 swap", swap, y0)):
-        cases.append(("slope_state", case,
-                      lambda a=a, y=y: cuda_fb.slope_state(re, im, c1, a, y),
-                      lambda a=a, y=y: cuda_fb.slope_state_plain(
-                          re, im, c1, a, y)))
-    cases.append(("spread_fb", "main",
-                  lambda: cuda_fb.spread_fb(re, im, cu, k.lower_matrix),
-                  lambda: cuda_fb.spread_fb_plain(re, im, cu,
-                                                  k.lower_matrix)))
+        cases.append(Case("slope_state", case,
+                          lambda a=a, y=y: cuda_fb.slope_state(
+                              re, im, c1, a, y),
+                          lambda a=a, y=y: cuda_fb.slope_state_plain(
+                              re, im, c1, a, y),
+                          (re, im, c1)))
+    cases.append(Case("spread_fb", "main",
+                      lambda: cuda_fb.spread_fb(re, im, cu, k.lower_matrix),
+                      lambda: cuda_fb.spread_fb_plain(re, im, cu,
+                                                      k.lower_matrix),
+                      (re, im, cu, k.lower_matrix)))
     for n in (37, 1):
         er = rng.standard_normal((2, 40, n)) * 100.0
         ei = rng.standard_normal((2, 40, n)) * 100.0
@@ -252,58 +332,111 @@ def fb_cases(dtype, rng, pair10, t):
         ecu = t(rng.uniform(0.2, 0.9, (2, 40, n)))
         ey0 = t(rng.uniform(0.0, 0.5, (2, 40)))
         for a, y in ((k.slope_a, None), (swap, ey0)):
-            cases.append(("slope_state", f"I={n} a={a:.4f} "
-                          f"y0={y is not None}",
-                          lambda a=a, y=y, er=er, ei=ei:
-                          cuda_fb.slope_state(er, ei, c1, a, y),
-                          lambda a=a, y=y, er=er, ei=ei:
-                          cuda_fb.slope_state_plain(er, ei, c1, a, y)))
-        cases.append(("spread_fb", f"I={n}",
-                      lambda er=er, ei=ei, ecu=ecu:
-                      cuda_fb.spread_fb(er, ei, ecu, k.lower_matrix),
-                      lambda er=er, ei=ei, ecu=ecu:
-                      cuda_fb.spread_fb_plain(er, ei, ecu, k.lower_matrix)))
+            cases.append(Case("slope_state", f"I={n} a={a:.4f} "
+                              f"y0={y is not None}",
+                              lambda a=a, y=y, er=er, ei=ei:
+                              cuda_fb.slope_state(er, ei, c1, a, y),
+                              lambda a=a, y=y, er=er, ei=ei:
+                              cuda_fb.slope_state_plain(er, ei, c1, a, y)))
+        cases.append(Case("spread_fb", f"I={n}",
+                          lambda er=er, ei=ei, ecu=ecu:
+                          cuda_fb.spread_fb(er, ei, ecu, k.lower_matrix),
+                          lambda er=er, ei=ei, ecu=ecu:
+                          cuda_fb.spread_fb_plain(er, ei, ecu,
+                                                  k.lower_matrix)))
     x4 = x.reshape(4, -1)
     state = tuple(t(rng.standard_normal((4, 2))) for _ in range(4))
     noise = t(rng.standard_normal((2, 49152)) * 2500.0)
     for case, xx, lf, st in (("main", x4, k.level, None),
                              ("main state", x4, k.level, state),
                              ("noise T=49152", noise, 0.0357, None)):
-        cases.append(("dc_chain", case,
-                      lambda xx=xx, lf=lf, st=st:
-                      dc_out(cuda_dc.dc_chain(xx, lf, st)),
-                      lambda xx=xx, lf=lf, st=st:
-                      dc_out(cuda_dc.dc_chain_plain(xx, lf, st))))
+        cases.append(Case("dc_chain", case,
+                          lambda xx=xx, lf=lf, st=st:
+                          dc_out(cuda_dc.dc_chain(xx, lf, st)),
+                          lambda xx=xx, lf=lf, st=st:
+                          dc_out(cuda_dc.dc_chain_plain(xx, lf, st)),
+                          (xx,)))
     for n in (1000, 1):
         xe = t(rng.standard_normal((2, n)) * 2500.0)
         for st in (None, tuple(s[:2] for s in state)):
-            cases.append(("dc_chain", f"T={n} state={st is not None}",
-                          lambda xe=xe, st=st:
-                          dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
-                          lambda xe=xe, st=st:
-                          dc_out(cuda_dc.dc_chain_plain(xe, 0.0357, st))))
+            cases.append(Case("dc_chain", f"T={n} state={st is not None}",
+                              lambda xe=xe, st=st:
+                              dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
+                              lambda xe=xe, st=st:
+                              dc_out(cuda_dc.dc_chain_plain(xe, 0.0357,
+                                                            st))))
     # D3's tile edges, on three rows from a generator of their own (the
     # other cases keep their inputs): below, at and past one tile, a last
     # tile of one or two samples, and 33 tiles, two per lane of the fold of
     # the earlier tiles' carries
     erng = np.random.default_rng(3)
-    tile = cuda_dc.TILE
+    tile = tile_scan.TILE
     for n in (tile - 1, tile, tile + 1, 2 * tile + 1, 3 * tile + 2,
               32 * tile + 1):
         xe = t(erng.standard_normal((3, n)) * 2500.0)
         for st in (None, tuple(t(erng.standard_normal((3, 2)))
                                for _ in range(4))):
-            cases.append(("dc_chain", f"T={n} state={st is not None}",
-                          lambda xe=xe, st=st:
-                          dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
-                          lambda xe=xe, st=st:
-                          dc_out(cuda_dc.dc_chain_plain(xe, 0.0357, st))))
+            cases.append(Case("dc_chain", f"T={n} state={st is not None}",
+                              lambda xe=xe, st=st:
+                              dc_out(cuda_dc.dc_chain(xe, 0.0357, st)),
+                              lambda xe=xe, st=st:
+                              dc_out(cuda_dc.dc_chain_plain(xe, 0.0357,
+                                                            st))))
+    return cases + slope_edges(t, c1[:3], k.slope_a)
+
+
+def slope_edges(t, c1, a):
+    """D1's tile edges on 3 rows, from a generator of their own: below, at
+    and past one tile, a last tile of one instant, and 34 tiles (folded two
+    a lane); each with and without a carried y0, in both slope conventions,
+    with a silent instant at the start of every tile."""
+    cases = []
+    srng = np.random.default_rng(4)
+    tile = tile_scan.TILE
+    for n in (tile - 1, tile, tile + 1, 2 * tile + 1, 33 * tile + 1):
+        er = srng.standard_normal((3, n)) * 100.0
+        ei = srng.standard_normal((3, n)) * 100.0
+        er[:, ::tile] = ei[:, ::tile] = 0.0
+        er, ei = t(er), t(ei)
+        ey0 = t(srng.uniform(0.0, 0.5, 3))
+        for aa, y in ((a, None), (a, ey0), (1.0 - a, None), (1.0 - a, ey0)):
+            cases.append(Case("slope_state", f"I={n} a={aa:.4f} "
+                              f"y0={y is not None}",
+                              lambda aa=aa, y=y, er=er, ei=ei:
+                              cuda_fb.slope_state(er, ei, c1, aa, y),
+                              lambda aa=aa, y=y, er=er, ei=ei:
+                              cuda_fb.slope_state_plain(er, ei, c1, aa, y)))
+    return cases
+
+
+def spread_consts(z: int, dtype):
+    """K3's constants for z bands, (a_uc, g_il, a_le or the lower table,
+    spread_norm, dz02) for the kernel and for its plain version: the FFT
+    ear's own for its band count (the first band of two for z = 1, whose
+    lower table is [[1]])."""
+    k = FE.build_consts(EP.fft_ear_params(max(z, 2)), dtype, "cuda")
+    a_uc, g_il, norm = k.a_uc[:z], k.g_il[:z], k.spread_norm[:z]
+    return ((a_uc, g_il, k.a_le, norm, k.dz02),
+            (a_uc, g_il, k.lower_matrix[:z, :z].contiguous(), norm, k.dz02))
+
+
+def spread_edges(t, dtype):
+    """K3 at band counts 1..128 on 3 x 7 = 21 frame rows, not a multiple
+    of the rows a block, from a generator of their own."""
+    cases = []
+    krng = np.random.default_rng(5)
+    for z in (1, 2, 31, 32, 33, 55, 64, 109, 128):
+        p = t(krng.uniform(1e-6, 1e4, (3, 7, z)))
+        c, cp = spread_consts(z, dtype)
+        cases.append(Case("spread_fft", f"Z={z} rows=21",
+                          lambda p=p, c=c: cuda_spread_fft.spread_fft(p, *c),
+                          lambda p=p, cp=cp:
+                          cuda_spread_fft.spread_fft_plain(p, *cp)))
     return cases
 
 
 def kernel_cases(dtype, rng, pair10):
-    """(kernel, case, cuda fn, plain fn) at main-path and edge shapes;
-    each fn returns a tensor or a tuple of tensors."""
+    """Every Case of phase 3, at main-path and edge shapes."""
     dev = "cuda"
     cases = []
     z = MAIN[2]
@@ -315,30 +448,35 @@ def kernel_cases(dtype, rng, pair10):
     for f in (MAIN[3], 37, 1):
         b = t(rng.standard_normal((*MAIN[:3], f)))
         y0 = t(rng.standard_normal(MAIN[:3]))
-        cases.append(("recurrence_banded", f"F={f}",
-                      lambda a=a, b=b: cuda_iir.recurrence_banded(a, b),
-                      lambda a=a, b=b: cuda_iir.recurrence_banded_plain(a, b)))
-        cases.append(("recurrence_banded", f"F={f} y0",
-                      lambda a=a, b=b, y0=y0:
-                      cuda_iir.recurrence_banded(a, b, y0),
-                      lambda a=a, b=b, y0=y0:
-                      cuda_iir.recurrence_banded_plain(a, b, y0)))
+        cases.append(Case("recurrence_banded", f"F={f}",
+                          lambda a=a, b=b: cuda_iir.recurrence_banded(a, b),
+                          lambda a=a, b=b:
+                          cuda_iir.recurrence_banded_plain(a, b),
+                          (a, b)))
+        cases.append(Case("recurrence_banded", f"F={f} y0",
+                          lambda a=a, b=b, y0=y0:
+                          cuda_iir.recurrence_banded(a, b, y0),
+                          lambda a=a, b=b, y0=y0:
+                          cuda_iir.recurrence_banded_plain(a, b, y0)))
     exc2 = t(rng.uniform(0.01, 10.0, MAIN))
     uns2 = t(rng.uniform(0.01, 10.0, MAIN))
     scale = C.SAMPLING_RATE / C.FFT_STEPSIZE
-    cases.append(("fused_mod_smoothers", "main",
-                  lambda: cuda_iir.fused_mod_smoothers(a, exc2, uns2, scale),
-                  lambda: cuda_iir.fused_mod_smoothers_plain(
-                      a, exc2, uns2, scale)))
+    cases.append(Case("fused_mod_smoothers", "main",
+                      lambda: cuda_iir.fused_mod_smoothers(a, exc2, uns2,
+                                                           scale),
+                      lambda: cuda_iir.fused_mod_smoothers_plain(
+                          a, exc2, uns2, scale),
+                      (a, exc2, uns2)))
     for bc in (109, 55):
-        k = FE.build_consts(EP.fft_ear_params(bc), dtype, dev)
+        c, cp = spread_consts(bc, dtype)
         p = t(rng.uniform(1e-6, 1e4, (*MAIN[:2], MAIN[3], bc)))
-        consts = (k.a_uc, k.g_il, k.lower_matrix, k.spread_norm, k.dz02)
-        cases.append(("spread_fft", f"Z={bc}",
-                      lambda p=p, c=consts: cuda_spread_fft.spread_fft(p, *c),
-                      lambda p=p, c=consts:
-                      cuda_spread_fft.spread_fft_plain(p, *c)))
-    return cases + fb_cases(dtype, rng, pair10, t)
+        cases.append(Case("spread_fft", f"Z={bc}",
+                          lambda p=p, c=c: cuda_spread_fft.spread_fft(p, *c),
+                          lambda p=p, cp=cp:
+                          cuda_spread_fft.spread_fft_plain(p, *cp),
+                          (p, c[0], c[1], c[3])))
+    return (cases + spread_edges(t, dtype)
+            + fb_cases(dtype, rng, pair10, t))
 
 
 def phase_kernels(rng, pair10) -> dict:
@@ -347,11 +485,12 @@ def phase_kernels(rng, pair10) -> dict:
     print("phase 3 kernels against their plain versions", flush=True)
     main = {name: {} for name in KERNELS}
     for dtype in DTYPES:
-        for name, case, kern, plain in kernel_cases(dtype, rng, pair10):
+        for c in kernel_cases(dtype, rng, pair10):
+            name, case = c.name, c.case
             bar = (DC_BARS if name == "dc_chain" else BARS)[dtype]
-            got = stacked(kern())
+            got = stacked(c.kernel())
             torch.cuda.synchronize()
-            want = stacked(plain())
+            want = stacked(c.plain())
             err = (got - want).abs().max().item()
             # an all-zero reference (a silent edge case) is held absolutely
             rel = err / max(want.abs().max().item(),
@@ -366,10 +505,12 @@ def phase_kernels(rng, pair10) -> dict:
             check(ok, f"{name} {case} {dtype} disagrees with its plain "
                       "version")
             if case in ("F=468", "main", "Z=109"):
-                main[name][dtype] = dict(max_abs_err=err, kernel=kern,
-                                         plain=plain)
+                bound_ms, bound_by = bound(name, dtype, c.inputs, got)
+                main[name][dtype] = dict(max_abs_err=err, kernel=c.kernel,
+                                         plain=c.plain, bound_ms=bound_ms,
+                                         bound_by=bound_by)
     dc_float32_rounding(rng, pair10)
-    dc_determinism(pair10)
+    determinism(main)
     return main
 
 
@@ -390,18 +531,18 @@ def dc_float32_rounding(rng, pair10) -> None:
               f"max|d|/max|hp2| {rel.item():.3e}", flush=True)
 
 
-def dc_determinism(pair10) -> None:
-    """Two launches of D3 on the pair's FB rows give the same bits, hp2 and
-    state, in both dtypes: its carries are folded in one fixed order."""
-    for dtype in DTYPES:
-        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
-        x4 = fb_rows(pair10, k).reshape(4, -1)
-        first, second = (dc_out(cuda_dc.dc_chain(x4, k.level))
-                         for _ in range(2))
-        same = torch.equal(first, second)
-        print(f"  dc_chain main {dtype}: two launches bit-identical: {same}",
-              flush=True)
-        check(same, f"dc_chain {dtype}: two launches differ")
+def determinism(main: dict) -> None:
+    """Two launches of K3, D1 and D3 at their main shapes (D1 and D3 on the
+    pair's own FB rows) give the same bits, in both dtypes: no atomics, and
+    D1's and D3's carries are folded in one fixed order."""
+    for name in ("spread_fft", "slope_state", "dc_chain"):
+        for dtype in DTYPES:
+            kernel = main[name][dtype]["kernel"]
+            first, second = (stacked(kernel()) for _ in range(2))
+            same = torch.equal(first, second)
+            print(f"  {name} main {dtype}: two launches bit-identical: "
+                  f"{same}", flush=True)
+            check(same, f"{name} {dtype}: two launches differ")
 
 
 def ten_second_pair() -> tuple[np.ndarray, np.ndarray]:
@@ -418,6 +559,27 @@ def ten_second_pair() -> tuple[np.ndarray, np.ndarray]:
     return ref, test
 
 
+def check_fingerprint(spec: dict, pair) -> None:
+    """The frozen spec belongs to this pair: the same shape, each channel's
+    sum of squares within 1e-7 relative and the picked samples within 1e-6
+    (another numpy may round a float32 sample of the pair differently)."""
+    fp = spec["pair"]
+    for sig, sum_sq, samples in zip(pair, fp["sum_sq"], fp["samples"]):
+        got_sq = np.sum(np.square(sig, dtype=np.float64), axis=0)
+        check(list(sig.shape) == fp["shape"]
+              and np.allclose(got_sq, sum_sq, rtol=1e-7, atol=0.0)
+              and np.allclose(sig[fp["picks"]], samples, rtol=0.0,
+                              atol=1e-6),
+              "the 10 s pair does not match the frozen spec's fingerprint "
+              f"({SPEC.name}): the spec belongs to another pair")
+
+
+def load_spec(pair) -> dict:
+    spec = json.loads(SPEC.read_text())
+    check_fingerprint(spec, pair)
+    return spec
+
+
 def pinned_pairs() -> dict:
     n = 128 * 1024
     sine, saw, tri = TS.sine(n), TS.saw(n), TS.triangle(n)
@@ -426,7 +588,23 @@ def pinned_pairs() -> dict:
                                np.stack([tri, tri], 1))}
 
 
-def phase_float64(pair10) -> float:
+def against_spec(got, want: dict, mode: str) -> None:
+    """One mode's float64 result on the 10 s pair against the frozen NumPy
+    spec: the ODG within 1e-6 and each MOV within 1e-6 (1 + |w|)."""
+    names = C.MOV_BASIC_NAMES if mode == "basic" else C.MOV_ADVANCED_NAMES
+    worst = max(abs(got.movs[n] - want["movs"][n]) / (1 + abs(want["movs"][n]))
+                for n in names)
+    print(f"  10 s stereo pair: ODG {got.odg:.9f}, NumPy spec "
+          f"{want['odg']:.9f} ({SPEC.name}); MOVs within {worst:.2e} "
+          f"(1 + |w|)")
+    check(abs(got.odg - want["odg"]) <= 1e-6, f"float64 {mode} 10 s pair ODG")
+    for name in names:
+        w, g = want["movs"][name], got.movs[name]
+        ok = np.isnan(g) if np.isnan(w) else abs(g - w) <= 1e-6 * (1 + abs(w))
+        check(ok, f"float64 {mode} 10 s pair {name}: {g} against {w}")
+
+
+def phase_float64(pair10, spec: dict) -> float:
     print("phase 4 main path, float64", flush=True)
     pinned = {"sine/sine": "0.171", "saw/tri": "-2.007",
               "saw/tri stereo": "-2.007"}
@@ -436,14 +614,7 @@ def phase_float64(pair10) -> float:
         check(f"{odg:.3f}" == pinned[label],
               f"float64 {label} ODG {odg:.6f} is not {pinned[label]}")
     got = api.peaq(*pair10, dtype="float64")
-    want = numpy_ref.peaq_basic(*pair10)
-    print(f"  10 s stereo pair: ODG {got.odg:.9f}, NumPy spec "
-          f"{want.odg:.9f}")
-    check(abs(got.odg - want.odg) <= 1e-6, "float64 10 s pair ODG")
-    for name in C.MOV_BASIC_NAMES:
-        w, g = float(want.movs[name]), got.movs[name]
-        ok = np.isnan(g) if np.isnan(w) else abs(g - w) <= 1e-6 * (1 + abs(w))
-        check(ok, f"float64 10 s pair {name}: {g} against {w}")
+    against_spec(got, spec["basic"], "basic")
     return got.odg
 
 
@@ -497,25 +668,12 @@ def phase_float32(pair10, odg64: float) -> None:
     check(abs(ten - odg64) <= 2e-3, f"float32 10 s pair ODG {ten}")
 
 
-def phase_adv_float64(pair10):
-    """The advanced path in float64 on the 10 s pair against the NumPy
-    spec, each MOV within 1e-6 (1 + |w|) and the ODG within 1e-6."""
+def phase_adv_float64(pair10, spec: dict):
+    """The advanced path in float64 on the 10 s pair against the frozen
+    NumPy spec, each MOV within 1e-6 (1 + |w|) and the ODG within 1e-6."""
     print("phase 4b advanced path, float64", flush=True)
-    start = time.perf_counter()
-    want = numpy_ref.peaq_advanced(*pair10)
-    spec_s = time.perf_counter() - start
     got = api.peaq(*pair10, advanced=True, dtype="float64")
-    worst = max(abs(got.movs[n] - float(want.movs[n]))
-                / (1 + abs(float(want.movs[n])))
-                for n in C.MOV_ADVANCED_NAMES)
-    print(f"  10 s stereo pair: ODG {got.odg:.9f}, NumPy spec "
-          f"{want.odg:.9f} ({spec_s:.1f} s); MOVs within {worst:.2e} "
-          f"(1 + |w|)")
-    check(abs(got.odg - want.odg) <= 1e-6, "advanced float64 10 s pair ODG")
-    for name in C.MOV_ADVANCED_NAMES:
-        w, g = float(want.movs[name]), got.movs[name]
-        check(abs(g - w) <= 1e-6 * (1 + abs(w)),
-              f"advanced float64 10 s pair {name}: {g} against {w}")
+    against_spec(got, spec["advanced"], "advanced")
     return got
 
 
@@ -571,6 +729,43 @@ def peaq_call(pair10, mode: str, tier: str):
     return api.peaq(*pair10, advanced=mode == "advanced", dtype=tier)
 
 
+def site_cases(dtype) -> list:
+    """The call sites of the advanced path whose shapes differ from the
+    main-shape cases (those of the basic path, for K1-K3), on inputs from
+    a generator of their own: K1 smears the reference's 55 FFT bands in
+    time once and runs three times over the 40 FB bands of 2,500 frames
+    (forward masking and the level adapter's two smoothers), K2 runs over
+    the FB bands, and K3 spreads the reference alone."""
+    srng = np.random.default_rng(6)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device="cuda")
+
+    cases = []
+    for z, shape, label in ((55, (2, 55, 468), "time smear"),
+                            (40, (2, 2, 40, 2500), "FB, 3 sites")):
+        a = t(np.exp(-srng.uniform(0.01, 0.5, z)))
+        b = t(srng.standard_normal(shape))
+        cases.append(Case("recurrence_banded", f"advanced {label} "
+                          f"{list(shape)}",
+                          lambda a=a, b=b: cuda_iir.recurrence_banded(a, b),
+                          None, (a, b)))
+    a = t(np.exp(-srng.uniform(0.01, 0.5, 40)))
+    exc2, uns2 = (t(srng.uniform(0.01, 10.0, (2, 2, 40, 2500)))
+                  for _ in range(2))
+    scale = C.SAMPLING_RATE / C.FB_FRAMESIZE
+    cases.append(Case("fused_mod_smoothers", "advanced [2, 2, 40, 2500]",
+                      lambda: cuda_iir.fused_mod_smoothers(a, exc2, uns2,
+                                                           scale),
+                      None, (a, exc2, uns2)))
+    c, _ = spread_consts(55, dtype)
+    p = t(srng.uniform(1e-6, 1e4, (2, 468, 55)))
+    cases.append(Case("spread_fft", "advanced ref only [2, 468, 55]",
+                      lambda: cuda_spread_fft.spread_fft(p, *c),
+                      None, (p, c[0], c[1], c[3])))
+    return cases
+
+
 def phase_times(main: dict, pair10, reps: int = 30) -> dict:
     """Kernel and plain device times (cuda_ms), the FB ear's FIR bank
     (plain PyTorch, a conv1d) per tier, then peaq() host wall time per 10 s
@@ -583,9 +778,19 @@ def phase_times(main: dict, pair10, reps: int = 30) -> dict:
             entry["ms"], host = cuda_ms(entry.pop("kernel"), calls=20,
                                         cover_host=True)
             entry["plain_ms"], _ = cuda_ms(entry.pop("plain"), calls=1)
+            share = entry["bound_ms"] / entry["ms"]
             print(f"  {name} {dtype}: kernel {entry['ms']:.4f} ms (host "
-                  f"enqueue {host:.4f} ms), plain {entry['plain_ms']:.4f} "
-                  f"ms (median of 10)")
+                  f"enqueue {host:.4f} ms), {share:.1%} of its bound "
+                  f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}), plain "
+                  f"{entry['plain_ms']:.4f} ms (median of 10)")
+    for dtype in DTYPES:
+        for c in site_cases(dtype):
+            ms, _ = cuda_ms(c.kernel, calls=20, cover_host=True)
+            bound_ms, bound_by = bound(c.name, dtype, c.inputs,
+                                       stacked(c.kernel()))
+            print(f"  {c.name} {c.case} {dtype}: kernel {ms:.4f} ms, "
+                  f"{bound_ms / ms:.1%} of its bound {bound_ms:.5f} ms "
+                  f"({bound_by})")
     for tier in TIERS:
         k = FB.build_consts(EP.fb_ear_params(), api.DTYPES[tier], "cuda")
         hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
@@ -630,9 +835,11 @@ def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
             events = prof.key_averages()
             device = [e for e in events if e.device_type == DeviceType.CUDA]
             device_ms = sum(e.self_device_time_total for e in device) / 1e3
-            # each hand kernel's rows (D3: one per launch step)
+            # each hand kernel's rows (D1: one per launch, D3: one per
+            # launch step)
             by_kernel = {name: sum(e.self_device_time_total for e in device
-                                   if f"{name}_kernel" in e.key) / 1e3
+                                   if re.search(rf"\b{name}(_\w+)?_kernel",
+                                                e.key)) / 1e3
                          for name in KERNELS}
             hand_ms = sum(by_kernel.values())
             check(device_ms > 0, "the profiler saw no device time")
@@ -653,6 +860,13 @@ def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
             if steps:
                 print("    dc_chain per step and call: " + ", ".join(
                     f"{step} {ms:.4f} ms" for step, ms in steps))
+            slope = sorted((re.sub(r".*slope_state_(\w+)_kernel.*", r"\1",
+                                   e.key),
+                            e.self_device_time_total / 1e3 / calls)
+                           for e in device if "slope_state_" in e.key)
+            if slope:
+                print("    slope_state per launch and call: " + ", ".join(
+                    f"{step} {ms:.4f} ms" for step, ms in slope))
             print(events.table(sort_by="self_device_time_total",
                                row_limit=12))
 
@@ -672,15 +886,18 @@ def main() -> None:
     timed(phase_build)
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()
+    spec = load_spec(pair10)
     main_kernels = timed(phase_kernels, rng, pair10)
-    odg64 = timed(phase_float64, pair10)
-    adv64 = timed(phase_adv_float64, pair10)
+    odg64 = timed(phase_float64, pair10, spec)
+    adv64 = timed(phase_adv_float64, pair10, spec)
     timed(phase_float32, pair10, odg64)
     timed(phase_adv_float32, pair10, adv64)
     counts = timed(phase_counters, pair10)
     walls = timed(phase_times, main_kernels, pair10)
     timed(phase_profile, pair10, walls)
-    check("jax" not in sys.modules, "JAX was imported")
+    check(not any(m == "jax" or m.split(".")[0] == "gstpeaq_tpu"
+                  for m in sys.modules),
+          "JAX or the JAX package was imported")
     kernels = []
     for name in KERNELS:
         f32, f64 = (main_kernels[name][dtype] for dtype in DTYPES)
@@ -688,8 +905,11 @@ def main() -> None:
             name=name, **KERNELS[name], launches=sum(counts[name].values()),
             launches_by_path=counts[name], max_abs_err=f32["max_abs_err"],
             ms=f32["ms"], plain_ms=f32["plain_ms"],
-            max_abs_err_f64=f64["max_abs_err"], ms_f64=f64["ms"],
-            plain_ms_f64=f64["plain_ms"]))
+            bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+            library_ms=None, max_abs_err_f64=f64["max_abs_err"],
+            ms_f64=f64["ms"], plain_ms_f64=f64["plain_ms"],
+            bound_ms_f64=f64["bound_ms"], bound_by_f64=f64["bound_by"],
+            library_ms_f64=None))
     print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

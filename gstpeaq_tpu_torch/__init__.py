@@ -4,14 +4,15 @@ CUDA kernels for Hopper.
 The port of the JAX package `gstpeaq_tpu`, which stays the reference.  So
 far it computes the basic and the advanced version for one pair:
 `gstpeaq_tpu_torch.api.peaq(ref, test, advanced=False, device="cuda")`.
-The kernels are built from `csrc/` with nvcc at first use.  The framework-free modules of
-the JAX package (constants, earparams, utils.testsignals, utils.numpy_ref)
-are imported as they are; JAX itself is never imported.
+The kernels are built from `csrc/` with nvcc at first use.  The port imports
+nothing of the JAX package: `constants`, `earparams` and
+`utils.testsignals` are its own copies of that package's framework-free
+modules, and `Settings` is its own.
 """
 
 __version__ = "0.1.0"
 
-from gstpeaq_tpu.constants import DEFAULT_SETTINGS, Settings  # noqa: F401
+from .constants import DEFAULT_SETTINGS, Settings  # noqa: F401
 
 
 def peaq(*args, **kwargs):

@@ -16,8 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from gstpeaq_tpu import constants as C
-
+from . import constants as C
 from .models.advanced import AdvancedPipeline
 from .models.basic import BasicPipeline
 from .ops import framing

@@ -1,16 +1,17 @@
-"""Carry constants and weights across from the JAX package.
+"""Carry settings, constants and weights across from the JAX package.
 
-Each takes plain numpy arrays (`np.asarray` of each JAX leaf), so this
-module imports no JAX.
+Each takes plain numpy arrays (`np.asarray` of each JAX leaf) or plain
+fields, so this module imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from gstpeaq_tpu import constants as C
-
+from . import constants as C
 from .models.nn import WEIGHT_NAMES, CognitiveModel
 from .ops import fb_ear as FB
 from .ops.fft_ear import CONST_FIELDS, FFTEarConsts
@@ -19,6 +20,13 @@ from .ops.fft_ear import CONST_FIELDS, FFTEarConsts
 # lag-reversed taps behind this many leading zeros (gstpeaq_tpu/ops/
 # fb_ear.py:126-131, _KERNEL_OFF)
 _H_PHASE_OFFSET = 81
+
+
+def settings_from_jax(settings) -> C.Settings:
+    """The port's Settings from the JAX package's (any object with the
+    same fields): each package takes only its own."""
+    return C.Settings(**{f.name: getattr(settings, f.name)
+                         for f in dataclasses.fields(C.Settings)})
 
 
 def fft_consts_from_jax(leaves: dict[str, np.ndarray],

@@ -36,7 +36,8 @@
 //   2  w and y1 from their entries, writing y1
 //   3  the lam aggregates of ff2(y1)
 //   4  u from its entry, writing hp2 and the final state
-// where a tile's aggregate is its end state from a zero entry.  Inside a
+// where a tile's aggregate is its end state from a zero entry.  The tile
+// scan is tile_scan.cuh's, which D1 (fb_spread.cu) shares.  Inside a
 // block the tile is loaded coalesced into shared memory, skewed by one
 // element per 128 bytes so that a thread's run of 8 samples reads without
 // bank conflicts; each thread scans its run serially in registers, a warp
@@ -52,35 +53,28 @@
 
 #include <cuda_runtime.h>
 
-#include "warp_scan.cuh"
+#include "tile_scan.cuh"
 
 namespace {
 
-using peaq::add;
 using peaq::Cplx;
+using peaq::fill;
+using peaq::kRun;
+using peaq::kSlots;
+using peaq::kThreads;
+using peaq::kTile;
 using peaq::kWarp;
-using peaq::mul;
-using peaq::shfl_up;
-using peaq::warp_scan;
-
-constexpr int kRun = 8;                   // samples a thread scans serially
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / kWarp;
-constexpr int kTile = kRun * kThreads;    // samples a block
-constexpr long long kGridLimit = 2147483647LL;
+using peaq::kWarps;
+using peaq::plan_fits;
+using peaq::Powers;
+using peaq::rec;
+using peaq::run_end;
+using peaq::run_entry;
+using peaq::slot;
+using peaq::tile_end;
+using peaq::tile_entry;
 
 enum Step : int { kAggLp, kAggLm, kY1, kAggLam, kOut };
-
-// One pole and its powers a^n, in the order ops/cuda_dc.py::scan_factors
-// lays them out.
-template <typename V>
-struct Powers {
-  V a;
-  V run[5];     // a^(kRun 2^e): the warp scan's step factors over runs
-  V warp;       // a^(kRun kWarp): one warp's stretch
-  V tile;       // a^kTile: one tile
-  V carry[5];   // a^(kTile seg 2^e): the carry scan's step factors
-};
 
 template <typename T>
 struct DcCoef {
@@ -88,85 +82,6 @@ struct DcCoef {
   Powers<Cplx<T>> lam;
   Cplx<T> g;
 };
-
-// Shared-memory slot of tile sample i: one element of skew per 128 bytes,
-// so the lanes reading sample j of their runs (kRun apart) hit distinct
-// banks (float), or distinct bank pairs per half-warp (double).
-template <typename T>
-constexpr int kSkew = 128 / static_cast<int>(sizeof(T));
-template <typename T>
-constexpr int kSlots = kTile + kTile / kSkew<T>;
-template <typename T>
-__device__ __forceinline__ int slot(int i) { return i + i / kSkew<T>; }
-
-// One step y <- a y + v of a real or complex stage with a real drive v.
-template <typename T>
-__device__ __forceinline__ T rec(T a, T y, T v) { return a * y + v; }
-template <typename T>
-__device__ __forceinline__ Cplx<T> rec(Cplx<T> a, Cplx<T> y, T v) {
-  return add(mul(a, y), Cplx<T>{v, T(0)});
-}
-
-// The stage's end over a run from a zero entry.
-template <typename V, typename T>
-__device__ __forceinline__ V run_end(V a, const T (&v)[kRun]) {
-  V y{};
-#pragma unroll
-  for (int j = 0; j < kRun; ++j) y = rec(a, y, v[j]);
-  return y;
-}
-
-// The tile's end from a zero entry (its aggregate), valid in thread 0: the
-// runs' zero-entry ends scanned per warp, the warp ends folded in order.
-template <typename V>
-__device__ V tile_end(V end, const Powers<V>& p, V* ends) {
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const V s = warp_scan(end, p.run, lane);
-  if (lane == kWarp - 1) ends[warp] = s;
-  __syncthreads();
-  V agg{};
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) agg = add(mul(p.warp, agg), ends[w]);
-  }
-  return agg;
-}
-
-// The entry state of this thread's run (the stage at the sample before
-// it), from the run's zero-entry end and the tile's entry *tile_in, which
-// the caller writes to shared memory before the call.
-template <typename V>
-__device__ V run_entry(V end, const V* tile_in, const Powers<V>& p, V* ends) {
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const V s = warp_scan(end, p.run, lane);
-  if (lane == kWarp - 1) ends[warp] = s;
-  __syncthreads();
-  V x = *tile_in;   // becomes the warp's entry
-  for (int w = 0; w < warp; ++w) x = add(mul(p.warp, x), ends[w]);
-  // the scan again with the warp's entry folded into lane 0: lane l then
-  // ends where lane l + 1 enters
-  const V s_in = warp_scan(lane == 0 ? add(end, mul(p.run[0], x)) : end,
-                           p.run, lane);
-  const V up = shfl_up(s_in, 1);
-  __syncthreads();  // ends and *tile_in are written again after the call
-  return lane == 0 ? x : up;
-}
-
-// The entry state of tile j, by one warp, valid in lane 31: the carried
-// state c0 (as tile -1) and the row's aggregates agg[0..j) folded with
-// a^kTile in one fixed order.  Lane l folds the tiles [j - (32 - l) seg,
-// j - (31 - l) seg) by Horner; a warp scan with (a^(kTile seg))^(2^e)
-// folds the lanes.
-template <typename V>
-__device__ V tile_entry(const V* agg, long long j, long long seg, V c0,
-                        const Powers<V>& p) {
-  const int lane = threadIdx.x % kWarp;
-  const long long hi = j - (kWarp - 1 - lane) * seg;
-  V h{};
-  for (long long i = hi - seg < -1 ? -1 : hi - seg; i < hi; ++i) {
-    h = add(mul(p.tile, h), i < 0 ? c0 : agg[i]);
-  }
-  return warp_scan(h, p.carry, lane);
-}
 
 template <typename T, int kStep>
 __global__ void __launch_bounds__(kThreads)
@@ -295,40 +210,13 @@ dc_chain_kernel(const T* __restrict__ x, T lf, const T* __restrict__ st_in,
   }
 }
 
-// Reads one pole and its powers from the host's float64 factors.
-template <typename T>
-const double* fill(Powers<T>& p, const double* c) {
-  p.a = static_cast<T>(*c++);
-  for (T& f : p.run) f = static_cast<T>(*c++);
-  p.warp = static_cast<T>(*c++);
-  p.tile = static_cast<T>(*c++);
-  for (T& f : p.carry) f = static_cast<T>(*c++);
-  return c;
-}
-
-template <typename T>
-const double* fill(Powers<Cplx<T>>& p, const double* c) {
-  auto next = [&c] {
-    const Cplx<T> z{static_cast<T>(c[0]), static_cast<T>(c[1])};
-    c += 2;
-    return z;
-  };
-  p.a = next();
-  for (Cplx<T>& f : p.run) f = next();
-  p.warp = next();
-  p.tile = next();
-  for (Cplx<T>& f : p.carry) f = next();
-  return c;
-}
-
 template <typename T>
 int launch_dc(const void* x, double lf, const void* st_in, void* out,
               void* y1, void* agg, void* st_out, long long rows,
               long long t_len, long long tiles, long long seg,
               const double* coef, void* stream) {
   if (rows <= 0 || t_len <= 0) return static_cast<int>(cudaGetLastError());
-  if (tiles != (t_len + kTile - 1) / kTile || seg < 1 ||
-      kWarp * seg < tiles || rows > kGridLimit / tiles) {
+  if (!plan_fits(rows, t_len, tiles, seg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DcCoef<T> co;
@@ -362,8 +250,9 @@ extern "C" {
 // Each entry makes five launches on `stream` and returns the first
 // cudaGetLastError() that is not 0 (0 = ok).  x, out, y1 (scratch):
 // [rows, t_len]; agg (scratch): [4, rows, tiles]; st_in (nullable = zero
-// state), st_out: [rows, 8]; tiles and seg from ops/cuda_dc.py::
-// launch_plan; coef: the host's float64 factors, scan_factors(seg).
+// state), st_out: [rows, 8]; tiles and seg from ops/tile_scan.py::
+// launch_plan; coef: the host's float64 factors, ops/cuda_dc.py::
+// scan_factors(seg).
 int peaq_dc_chain_f32(const void* x, double lf, const void* st_in, void* out,
                       void* y1, void* agg, void* st_out, long long rows,
                       long long t_len, long long tiles, long long seg,

@@ -15,11 +15,24 @@
 //     phases; on the flat layout the recurrence yields cu directly.  A
 //     silent instant (re = im = 0) gives level = -inf, s = +inf and
 //     DIST^s = 0, never NaN.
-//     What bounds it: bytes (read re and im, write cu) and one log10 and
-//     one pow per element.  Design: K1's (recurrence.cu) with the drive
-//     fused in: one warp per row walks it in 32-instant chunks, one
-//     coalesced load per chunk, the drive in registers, the shuffle scan of
-//     warp_scan.cuh, and the carry from lane 31.
+//     What bounds it: bytes (read re and im, write cu: 28.8 MB in float,
+//     57.6 MB in double at [2, 2, 40, 15000], 8.6 / 17.2 us at 3.35 TB/s)
+//     once the work is spread over the card, and the log10 and the power
+//     per instant in double.  A row is a serial recurrence and there are
+//     only 160 rows, so one warp per row would leave most of the card idle.
+//     Design: tile_scan.cuh's, as D3 uses it.  Each row is cut into tiles
+//     of kTile = 2048 instants, one block of 256 threads each (1,280 blocks
+//     at the main shape), and each call makes two launches:
+//       ends  the zero-entry end of the recurrence over each tile but the
+//             row's last (whose end no tile reads), into agg
+//       cu    each tile's entry state (the carried y0 and its row's earlier
+//             tile ends, folded by one warp in one fixed order), then cu
+//     Both compute the drive while staging the tile coalesced through
+//     shared memory; the second launch computes it again rather than store
+//     it, since bytes bound the kernel.  DIST^s is exp(s ln DIST) with
+//     ln DIST a float64 constant: one exp in place of a pow.  Every power
+//     a^n comes from the host in float64 (ops/cuda_fb.py::slope_factors).
+//     No atomics: two launches give the same bits.
 //
 // D2  spread_fb    replaces pallas_fb.py::spread_apply (K4) and
 //     spread_from_conv (K6).  Per (lead, instant):
@@ -46,57 +59,123 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "warp_scan.cuh"
+#include "tile_scan.cuh"
 
 namespace {
 
-using peaq::kFull;
+using peaq::fill;
+using peaq::kRun;
+using peaq::kSlots;
+using peaq::kThreads;
+using peaq::kTile;
 using peaq::kWarp;
-using peaq::lane_powers;
-using peaq::LanePowers;
-using peaq::warp_scan;
+using peaq::kWarps;
+using peaq::plan_fits;
+using peaq::Powers;
+using peaq::run_end;
+using peaq::run_entry;
+using peaq::slot;
+using peaq::tile_end;
+using peaq::tile_entry;
 
 constexpr int kZ = 40;                  // FB band count (BS.1387 Table 8)
-constexpr double kDist = 0.921851456499719;  // src/fbearmodel.c:50
-constexpr int kWarpsPerBlock = 4;
+// ln DIST, DIST = 0.921851456499719 (src/fbearmodel.c:50)
+constexpr double kLnDist = -0.08137117849224008;
 constexpr int kSpreadThreads = 128;
 
-__device__ __forceinline__ float pow_t(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double pow_t(double x, double y) { return pow(x, y); }
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
 __device__ __forceinline__ float log10_t(float x) { return log10f(x); }
 __device__ __forceinline__ double log10_t(double x) { return log10(x); }
 
 template <typename T>
-__global__ void slope_state_kernel(const T* __restrict__ fb_re,
-                                   const T* __restrict__ fb_im,
-                                   const T* __restrict__ c1_band, T a,
-                                   T oma, const T* __restrict__ y0,
-                                   T* __restrict__ cu, long long rows, int z,
-                                   long long n) {
-  const int lane = threadIdx.x % kWarp;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= rows) return;  // uniform over the warp
+struct SlopeCoef {
+  Powers<T> p;  // the smoother's decay a and its powers
+  T oma;        // 1 - a
+};
+
+// The slope filter's drive (1 - a) DIST^s at one instant; a silent instant
+// (re = im = 0) gives level = -inf, s = +inf and 0.
+template <typename T>
+__device__ __forceinline__ T slope_drive(T re, T im, T c1, T oma) {
+  const T level = T(10) * log10_t(re * re + im * im);
+  const T s0 = c1 - T(0.2) * level;
+  const T s = s0 > T(4) ? s0 : T(4);
+  return oma * exp_t(s * static_cast<T>(kLnDist));
+}
+
+// Tile `tile` of row `row`: its zero-entry end into agg (kCu false), or cu
+// from its entry state (kCu true).
+template <typename T, bool kCu>
+__device__ __forceinline__ void slope_tile(
+    const T* __restrict__ fb_re, const T* __restrict__ fb_im,
+    const T* __restrict__ c1_band, const T* __restrict__ y0,
+    T* __restrict__ cu, T* __restrict__ agg, int z, long long n,
+    long long row, long long tile, long long tiles, long long seg,
+    const SlopeCoef<T>& co) {
+  __shared__ T sh[kSlots<T>];
+  __shared__ T ends[kWarps];
+  __shared__ T entry;
+  const int k = threadIdx.x;
+  const long long t0 = tile * kTile;
+  const int m = n - t0 < kTile ? static_cast<int>(n - t0) : kTile;
+  const long long base = row * n + t0;
   const T c1 = c1_band[row % z];
-  const T dist = static_cast<T>(kDist);
-  const LanePowers<T> p = lane_powers(a, lane);
-  const long long base = row * n;
-  T carry = y0 != nullptr ? y0[row] : T(0);
-  for (long long t0 = 0; t0 < n; t0 += kWarp) {
-    const long long t = t0 + lane;
-    T drive = T(0);
-    if (t < n) {
-      const T re = fb_re[base + t];
-      const T im = fb_im[base + t];
-      const T level = T(10) * log10_t(re * re + im * im);
-      const T s0 = c1 - T(0.2) * level;
-      const T s = s0 > T(4) ? s0 : T(4);
-      drive = oma * pow_t(dist, s);
-    }
-    const T y = warp_scan(drive, p, lane) + p.carry * carry;
-    if (t < n) cu[base + t] = y;
-    carry = __shfl_sync(kFull, y, kWarp - 1);
+  for (int i = k; i < kTile; i += kThreads) {
+    sh[slot<T>(i)] = i < m ? slope_drive(fb_re[base + i], fb_im[base + i],
+                                         c1, co.oma)
+                           : T(0);
   }
+  __syncthreads();
+  T v[kRun];
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) v[j] = sh[slot<T>(k * kRun + j)];
+  T* agg_row = agg + row * tiles;
+  if constexpr (!kCu) {
+    const T a = tile_end(run_end(co.p.a, v), co.p, ends);
+    if (k == 0) agg_row[tile] = a;
+  } else {
+    if (k < kWarp) {
+      const T c = tile_entry<T>(agg_row, tile, seg,
+                                y0 != nullptr ? y0[row] : T(0), co.p);
+      if (k == kWarp - 1) entry = c;
+    }
+    // every read of the tile's drive lies before run_entry's barriers
+    T y = run_entry(run_end(co.p.a, v), &entry, co.p, ends);
+#pragma unroll
+    for (int j = 0; j < kRun; ++j) {
+      sh[slot<T>(k * kRun + j)] = y = co.p.a * y + v[j];
+    }
+    __syncthreads();
+    for (int i = k; i < m; i += kThreads) cu[base + i] = sh[slot<T>(i)];
+  }
+}
+
+// One block per tile but each row's last: tiles - 1 blocks a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+slope_state_ends_kernel(const T* __restrict__ fb_re,
+                        const T* __restrict__ fb_im,
+                        const T* __restrict__ c1_band, T* __restrict__ agg,
+                        int z, long long n, long long tiles, long long seg,
+                        SlopeCoef<T> co) {
+  const long long row = blockIdx.x / (tiles - 1);
+  const long long tile = blockIdx.x % (tiles - 1);
+  slope_tile<T, false>(fb_re, fb_im, c1_band, nullptr, nullptr, agg, z, n,
+                       row, tile, tiles, seg, co);
+}
+
+// One block per tile: tiles blocks a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+slope_state_cu_kernel(const T* __restrict__ fb_re,
+                      const T* __restrict__ fb_im,
+                      const T* __restrict__ c1_band,
+                      const T* __restrict__ y0, T* __restrict__ cu,
+                      T* __restrict__ agg, int z, long long n,
+                      long long tiles, long long seg, SlopeCoef<T> co) {
+  slope_tile<T, true>(fb_re, fb_im, c1_band, y0, cu, agg, z, n,
+                      blockIdx.x / tiles, blockIdx.x % tiles, tiles, seg, co);
 }
 
 template <typename T>
@@ -146,18 +225,30 @@ spread_fb_kernel(const T* __restrict__ fb_re, const T* __restrict__ fb_im,
 
 template <typename T>
 int launch_slope(const void* fb_re, const void* fb_im, const void* c1_band,
-                 double a, const void* y0, void* cu, long long rows, int z,
-                 long long n, void* stream) {
-  if (rows > 0 && n > 0) {
-    const unsigned blocks =
-        static_cast<unsigned>((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    slope_state_kernel<T><<<blocks, kWarp * kWarpsPerBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(fb_re), static_cast<const T*>(fb_im),
-        static_cast<const T*>(c1_band), static_cast<T>(a),
-        static_cast<T>(1.0 - a), static_cast<const T*>(y0),
-        static_cast<T*>(cu), rows, z, n);
+                 const void* y0, void* cu, void* agg, long long rows, int z,
+                 long long n, long long tiles, long long seg,
+                 const double* coef, void* stream) {
+  if (rows <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (z < 1 || !plan_fits(rows, n, tiles, seg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  SlopeCoef<T> co;
+  co.oma = static_cast<T>(*fill(co.p, coef));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const T* re = static_cast<const T*>(fb_re);
+  const T* im = static_cast<const T*>(fb_im);
+  const T* c1 = static_cast<const T*>(c1_band);
+  if (tiles > 1) {
+    slope_state_ends_kernel<T>
+        <<<static_cast<unsigned>(rows * (tiles - 1)), kThreads, 0, s>>>(
+            re, im, c1, static_cast<T*>(agg), z, n, tiles, seg, co);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  slope_state_cu_kernel<T><<<static_cast<unsigned>(rows * tiles), kThreads, 0,
+                             s>>>(
+      re, im, c1, static_cast<const T*>(y0), static_cast<T*>(cu),
+      static_cast<T*>(agg), z, n, tiles, seg, co);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -183,22 +274,28 @@ int launch_spread(const void* fb_re, const void* fb_im, const void* cu,
 
 extern "C" {
 
-// Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
-// rows = prod(lead) * z rows of n instants; leads = prod(lead).
+// Each entry launches on `stream` and returns the first cudaGetLastError()
+// that is not 0 (0 = ok).  rows = prod(lead) * z rows of n instants; leads
+// = prod(lead).  slope_state makes two launches (one when a row is one
+// tile): agg (scratch) is [rows, tiles]; y0 (nullable = a zero state) is
+// [rows]; tiles and seg from ops/tile_scan.py::launch_plan; coef: the
+// host's float64 factors, ops/cuda_fb.py::slope_factors(a, seg).
 int peaq_slope_state_f32(const void* fb_re, const void* fb_im,
-                         const void* c1_band, double a, const void* y0,
-                         void* cu, long long rows, int z, long long n,
+                         const void* c1_band, const void* y0, void* cu,
+                         void* agg, long long rows, int z, long long n,
+                         long long tiles, long long seg, const double* coef,
                          void* stream) {
-  return launch_slope<float>(fb_re, fb_im, c1_band, a, y0, cu, rows, z, n,
-                             stream);
+  return launch_slope<float>(fb_re, fb_im, c1_band, y0, cu, agg, rows, z, n,
+                             tiles, seg, coef, stream);
 }
 
 int peaq_slope_state_f64(const void* fb_re, const void* fb_im,
-                         const void* c1_band, double a, const void* y0,
-                         void* cu, long long rows, int z, long long n,
+                         const void* c1_band, const void* y0, void* cu,
+                         void* agg, long long rows, int z, long long n,
+                         long long tiles, long long seg, const double* coef,
                          void* stream) {
-  return launch_slope<double>(fb_re, fb_im, c1_band, a, y0, cu, rows, z, n,
-                              stream);
+  return launch_slope<double>(fb_re, fb_im, c1_band, y0, cu, agg, rows, z, n,
+                              tiles, seg, coef, stream);
 }
 
 int peaq_spread_fb_f32(const void* fb_re, const void* fb_im, const void* cu,

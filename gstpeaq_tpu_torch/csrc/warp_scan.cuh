@@ -1,11 +1,13 @@
 // The warp-wide scan of a first-order recurrence x_l <- a x_{l-1} + x_l over
 // the 32 lanes of a warp, shared by the banded recurrences (recurrence.cu),
-// the FB slope filter (fb_spread.cu) and the DC cascade (dc_chain.cu).  Each
-// lane holds the drive of one stretch (one instant, or a run of samples);
-// the scan's step factors are a^(2^e) of the factor over one stretch.  For
-// one instant a stretch, lane_powers builds them by repeated squaring in the
-// working type, and a^(lane + 1) weighs the state entering the chunk; the DC
-// cascade passes factors computed on the host in double, real or complex.
+// the tile scans of the FB slope filter and the DC cascade (tile_scan.cuh)
+// and, run from lane 31 down, the FFT ear's lower spreading
+// (spread_fft.cu).  Each lane holds the drive of one stretch (one instant,
+// a run of samples, or a group of bands); the scan's step factors are
+// a^(2^e) of the factor over one stretch.  For one instant a stretch,
+// lane_powers builds them by repeated squaring in the working type, and
+// a^(lane + 1) weighs the state entering the chunk; the other callers pass
+// factors computed on the host in double, real or complex.
 
 #pragma once
 
@@ -42,6 +44,10 @@ __device__ __forceinline__ T shfl_up(T v, int off) {
 template <typename T>
 __device__ __forceinline__ Cplx<T> shfl_up(Cplx<T> v, int off) {
   return {__shfl_up_sync(kFull, v.re, off), __shfl_up_sync(kFull, v.im, off)};
+}
+template <typename T>
+__device__ __forceinline__ T shfl_down(T v, int off) {
+  return __shfl_down_sync(kFull, v, off);
 }
 
 // Powers of one row's coefficient, per lane.
@@ -80,6 +86,20 @@ __device__ __forceinline__ V warp_scan(V x, const V (&step)[5], int lane) {
     const int off = 1 << e;
     const V up = shfl_up(x, off);
     if (lane >= off) x = add(x, mul(step[e], up));
+  }
+  return x;
+}
+
+// The same scan run backward, x_l <- f x_{l+1} + x_l from lane 31 down to
+// lane 0, step[e] = f^(2^e).
+template <typename T>
+__device__ __forceinline__ T warp_scan_down(T x, const T (&step)[5],
+                                            int lane) {
+#pragma unroll
+  for (int e = 0; e < 5; ++e) {
+    const int off = 1 << e;
+    const T down = shfl_down(x, off);
+    if (lane + off < kWarp) x = x + step[e] * down;
   }
   return x;
 }

@@ -22,9 +22,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-
+from .. import constants as C
+from .. import earparams as EP
 from ..ops import fb_ear as FB
 from ..ops import fft_ear as FE
 from ..ops import framing

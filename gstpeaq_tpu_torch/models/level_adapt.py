@@ -12,8 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gstpeaq_tpu.constants import SAMPLING_RATE
-
+from ..constants import SAMPLING_RATE
 from ..ops import cuda_iir
 from ..ops import iir
 

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from gstpeaq_tpu import constants as C
+from .. import constants as C
 
 
 def modulation_difference(internal_noise: torch.Tensor,

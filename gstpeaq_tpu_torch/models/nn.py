@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gstpeaq_tpu import constants as C
+from .. import constants as C
 
 WEIGHT_NAMES = ("amin", "amax", "wx", "wxb", "wy", "wyb")
 

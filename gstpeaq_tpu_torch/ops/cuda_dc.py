@@ -10,9 +10,10 @@ complex recurrence with y = 2 Re(g u).  The state is dc_reject's tuple
 (x_tail, u1, y1_tail, u2), each [..., 2], in the scaled domain, so a state
 of either package resumes in the other.
 
-D3 cuts each row into tiles of TILE samples, one block each, and makes
-five CUDA launches per call (csrc/dc_chain.cu).  The launch plan and every
-scan factor a^n are computed here, in float64, and handed to the kernel.
+D3 cuts each row into tiles of tile_scan.TILE samples, one block each, and
+makes five CUDA launches per call (csrc/dc_chain.cu).  The launch plan
+(ops/tile_scan.py) and every scan factor a^n are computed on the host, in
+float64, and handed to the kernel.
 
 The wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  It
@@ -28,20 +29,12 @@ import math
 import numpy as np
 import torch
 
-from gstpeaq_tpu import constants as C
-
+from .. import constants as C
 from . import _build
 from . import iir
+from . import tile_scan
 
 dc_chain_launches = 0
-
-# csrc/dc_chain.cu's kRun, kThreads and kTile: a thread scans a run of RUN
-# samples, a block of THREADS threads one tile of TILE samples.
-RUN = 8
-THREADS = 256
-TILE = RUN * THREADS
-LANES = 32            # a warp; it folds the carry in LANES segments
-GRID_LIMIT = 2**31 - 1
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -58,37 +51,16 @@ def coefficients() -> tuple[float, float, complex, complex]:
     return lp, lm, lam, g
 
 
-def launch_plan(rows: int, t: int) -> tuple[int, int, int]:
-    """(tiles, seg, blocks) of D3 on [rows, t]: each row in `tiles` tiles
-    of TILE samples (the last one ragged), one block each, `blocks` in all;
-    a block folds its row's earlier tiles into its entry state in LANES
-    segments of `seg` tiles."""
-    tiles = -(-t // TILE)
-    seg = -(-tiles // LANES)
-    blocks = rows * tiles
-    if blocks > GRID_LIMIT:
-        raise ValueError(f"dc_chain: {rows} rows of {t} samples need "
-                         f"{blocks} blocks, above CUDA's {GRID_LIMIT}")
-    return tiles, seg, blocks
-
-
-def scan_exponents(seg: int) -> list[int]:
-    """The n of each scan factor a^n, in the order dc_chain.cu reads them:
-    the warp scan's steps over runs (RUN 2^e), one warp (RUN LANES), one
-    tile (TILE), the carry scan's steps over segments (TILE seg 2^e)."""
-    return ([RUN << e for e in range(5)] + [RUN * LANES, TILE]
-            + [TILE * seg << e for e in range(5)])
-
-
 @functools.cache
 def scan_factors(seg: int) -> np.ndarray:
     """D3's coefficients, float64, in the order dc_chain.cu reads them: lp
     and each lp^n, lm and each lm^n, lam and each lam^n as (re, im) pairs,
-    then g as (re, im); n from scan_exponents(seg).  Complex powers through
-    polar form, |lam|^n at the angle n arg(lam).  Read-only: it is cached."""
+    then g as (re, im); n from tile_scan.scan_exponents(seg).  Complex
+    powers through polar form, |lam|^n at the angle n arg(lam).  Read-only:
+    it is cached."""
     lp, lm, lam, g = coefficients()
-    ns = scan_exponents(seg)
-    out = [lp, *(lp ** n for n in ns), lm, *(lm ** n for n in ns)]
+    ns = tile_scan.scan_exponents(seg)
+    out = [*tile_scan.real_powers(lp, seg), *tile_scan.real_powers(lm, seg)]
     for z in (lam, *(cmath.rect(abs(lam) ** n, cmath.phase(lam) * n)
                      for n in ns)):
         out += [z.real, z.imag]
@@ -151,7 +123,7 @@ def dc_chain(x: torch.Tensor, level_factor: float, state=None):
             [s.reshape(-1, 2) for s in state], dim=-1).contiguous()
     _build.require("dc_chain", x2, **operands)
     rows = x2.shape[0]
-    tiles, seg, _ = launch_plan(rows, t)
+    tiles, seg, _ = tile_scan.launch_plan(rows, t, "dc_chain")
     hp2 = torch.empty_like(x2)
     y1 = torch.empty_like(x2)
     agg = x2.new_empty((4, rows, tiles))     # each tile's zero-entry ends

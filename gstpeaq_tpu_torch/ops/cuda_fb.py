@@ -11,20 +11,28 @@ spread excitation E0.  Both keep the JAX package's transposed FB layout
 [..., Z, I]: Z = 40 bands, I subsampled instants, instants last.  What they
 compute: src/fbearmodel.c:326-360.
 
+D1 cuts each row into tiles of tile_scan.TILE instants, one block each,
+and makes two CUDA launches per call (csrc/fb_spread.cu); the launch plan
+(ops/tile_scan.py) and every power a^n of the smoother's decay are computed
+on the host, in float64.
+
 Each wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  Each
 counts its launches in a module-level int (`slope_state_launches`,
-`spread_fb_launches`).
+`spread_fb_launches`), one per call.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from gstpeaq_tpu import constants as C
-
+from .. import constants as C
 from . import _build
 from . import iir
+from . import tile_scan
 
 BANDS = C.FB_BAND_COUNT   # a compile-time constant of spread_fb_kernel
 # destination bands per step of spread_fb_plain's upper part: bounds its
@@ -51,6 +59,17 @@ def slope_state_plain(fb_re: torch.Tensor, fb_im: torch.Tensor,
     return iir.linear_recurrence(a, drive, axis=-1, y0=y0).contiguous()
 
 
+@functools.cache
+def slope_factors(a: float, seg: int) -> np.ndarray:
+    """D1's coefficients, float64, in the order fb_spread.cu reads them: a
+    and each a^n of tile_scan.scan_exponents(seg), then 1 - a.  Read-only:
+    it is cached."""
+    out = np.array([*tile_scan.real_powers(a, seg), 1.0 - a],
+                   dtype=np.float64)
+    out.flags.writeable = False
+    return out
+
+
 def slope_state(fb_re: torch.Tensor, fb_im: torch.Tensor,
                 c1_band: torch.Tensor, a: float,
                 y0: torch.Tensor | None = None) -> torch.Tensor:
@@ -72,10 +91,14 @@ def slope_state(fb_re: torch.Tensor, fb_im: torch.Tensor,
     cu = torch.empty_like(fb_re)
     if fb_re.numel() == 0:
         return cu
+    rows = fb_re.numel() // n
+    tiles, seg, _ = tile_scan.launch_plan(rows, n, "slope_state")
+    agg = fb_re.new_empty((rows, tiles))     # each tile's zero-entry end
+    coef = slope_factors(float(a), seg)
     _build.launch("slope_state", fb_re, fb_re.data_ptr(), fb_im.data_ptr(),
-                  c1_band.data_ptr(), float(a),
-                  None if y0 is None else y0.data_ptr(), cu.data_ptr(),
-                  fb_re.numel() // n, z, n)
+                  c1_band.data_ptr(), None if y0 is None else y0.data_ptr(),
+                  cu.data_ptr(), agg.data_ptr(), rows, z, n, tiles, seg,
+                  coef.ctypes.data)
     slope_state_launches += 1
     return cu
 

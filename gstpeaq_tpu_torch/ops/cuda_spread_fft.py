@@ -5,6 +5,15 @@ gstpeaq_tpu/ops/pallas_spread_fft.py::spread_fft and keeps its layout:
 [..., F, Z], bands last, one contiguous row per frame.  What it computes:
 src/fftearmodel.c:636-676.
 
+The kernel runs one warp per frame row with BANDS_PER_LANE consecutive
+bands a lane.  Its upper part is the TPU kernel's shift-multiply walk; its
+lower part uses that the lower table is Toeplitz, lower[i, j] = aLe^(i-j)
+for i >= j, and runs the backward recurrence L_j = Ene_j + aLe L_{j+1}.  So
+the wrapper takes aLe (FFTEarConsts.a_le) alone: the kernel reads it and
+the host's float64 step factors of its warp scan, and the plain version
+reads the table `lower_table` forms from it, so both paths compute one
+function of one input.
+
 The wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  It
 counts its launches in `spread_fft_launches`.
@@ -12,11 +21,18 @@ counts its launches in `spread_fft_launches`.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from . import _build
 
-MAX_BANDS = 128          # one thread per band in the kernel's block
+# csrc/spread_fft.cu's kBands: a lane holds BANDS_PER_LANE bands of its
+# row, one warp a row, so a row has at most MAX_BANDS bands
+BANDS_PER_LANE = 4
+LANES = 32
+MAX_BANDS = BANDS_PER_LANE * LANES
 spread_fft_launches = 0
 
 
@@ -52,31 +68,53 @@ def spread_fft_plain(pitch_power: torch.Tensor, a_uc: torch.Tensor,
     return (e2 * e2) * torch.sqrt(e2) / spread_norm
 
 
+def lower_table(z: int, a_le: float, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """The lower table [Z, Z] with lower[i, j] = aLe^(i-j) for i >= j, else
+    0: the powers in float64, rounded to `dtype` (FFTEarConsts.lower_matrix
+    is the same table of the exact aLe)."""
+    i, j = np.indices((z, z))
+    table = np.where(i >= j, np.float64(a_le) ** np.maximum(i - j, 0), 0.0)
+    return torch.as_tensor(table, dtype=dtype, device=device)
+
+
+@functools.cache
+def lower_factors(a_le: float) -> np.ndarray:
+    """K3's lower-part factors, float64, in the order spread_fft.cu reads
+    them: aLe, then the backward warp scan's step factors
+    (aLe^BANDS_PER_LANE)^(2^e), e = 0..4.  Read-only: it is cached."""
+    out = np.array([a_le, *(a_le ** (BANDS_PER_LANE << e) for e in range(5))],
+                   dtype=np.float64)
+    out.flags.writeable = False
+    return out
+
+
 def spread_fft(pitch_power: torch.Tensor, a_uc: torch.Tensor,
-               g_il: torch.Tensor, lower_matrix: torch.Tensor,
-               spread_norm: torch.Tensor, dz02: float) -> torch.Tensor:
-    """K3: see spread_fft_plain.  pitch_power: contiguous [..., F, Z] with
-    Z <= 128.  Returns the unsmeared excitation, same shape and dtype."""
+               g_il: torch.Tensor, a_le: float, spread_norm: torch.Tensor,
+               dz02: float) -> torch.Tensor:
+    """K3: spread_fft_plain with the lower table aLe^(i-j) given by its
+    ratio a_le.  pitch_power: contiguous [..., F, Z] with Z <= MAX_BANDS.
+    Returns the unsmeared excitation, same shape and dtype."""
     global spread_fft_launches
-    if pitch_power.device.type == "cpu":
-        return spread_fft_plain(pitch_power, a_uc, g_il, lower_matrix,
-                                spread_norm, dz02)
     z = pitch_power.shape[-1]
+    if pitch_power.device.type == "cpu":
+        return spread_fft_plain(
+            pitch_power, a_uc, g_il,
+            lower_table(z, a_le, pitch_power.dtype, pitch_power.device),
+            spread_norm, dz02)
     if (not 1 <= z <= MAX_BANDS or a_uc.shape != (z,)
-            or g_il.shape != (z,) or spread_norm.shape != (z,)
-            or lower_matrix.shape != (z, z)):
+            or g_il.shape != (z,) or spread_norm.shape != (z,)):
         raise ValueError(f"spread_fft: pitch_power {tuple(pitch_power.shape)} "
-                         f"and its [Z] / [Z, Z] constants do not match "
+                         f"and its [Z] constants do not match "
                          f"(Z <= {MAX_BANDS})")
     _build.require("spread_fft", pitch_power, pitch_power=pitch_power,
-                   a_uc=a_uc, g_il=g_il, lower_matrix=lower_matrix,
-                   spread_norm=spread_norm)
+                   a_uc=a_uc, g_il=g_il, spread_norm=spread_norm)
     out = torch.empty_like(pitch_power)
     if pitch_power.numel() == 0:
         return out
     _build.launch("spread_fft", pitch_power, pitch_power.data_ptr(),
-                  a_uc.data_ptr(), g_il.data_ptr(), lower_matrix.data_ptr(),
-                  spread_norm.data_ptr(), float(dz02), out.data_ptr(),
-                  pitch_power.numel() // z, z)
+                  a_uc.data_ptr(), g_il.data_ptr(), spread_norm.data_ptr(),
+                  float(dz02), lower_factors(float(a_le)).ctypes.data,
+                  out.data_ptr(), pitch_power.numel() // z, z)
     spread_fft_launches += 1
     return out

@@ -27,9 +27,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-
+from .. import constants as C
+from .. import earparams as EP
 from . import cuda_dc
 from . import cuda_fb
 from . import iir

@@ -13,9 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from gstpeaq_tpu import constants as C
-from gstpeaq_tpu import earparams as EP
-
+from .. import constants as C
+from .. import earparams as EP
 from . import cuda_spread_fft
 from . import iir
 
@@ -39,7 +38,9 @@ class FFTEarConsts(nn.Module):
     is fed plain power where the reference fed it weighted power (see
     gstpeaq_tpu/ops/fft_ear.py, FFTEarConsts.ehs_zero).  group_bin_hi is
     the last bin the grouping reads, plus one; dz02 = 0.2 * delta_z,
-    rounded in the working dtype."""
+    rounded in the working dtype; a_le = lower_matrix[1, 0], the ratio aLe
+    of the lower table lower[i, j] = aLe^(i-j) in the working dtype, which
+    K3's wrapper takes in place of the table (0.0 for one band)."""
 
     def __init__(self, tensors: dict[str, torch.Tensor], group_bin_hi: int):
         super().__init__()
@@ -49,6 +50,8 @@ class FFTEarConsts(nn.Module):
         self.group_bin_hi = int(group_bin_hi)
         np_dtype = _NUMPY_DTYPE[self.internal_noise.dtype]
         self.dz02 = float(np_dtype(0.2) * np_dtype(self.delta_z.item()))
+        self.a_le = (float(self.lower_matrix[1, 0]) if self.band_count > 1
+                     else 0.0)
 
 
 def build_consts(params: EP.FFTEarParams, dtype=torch.float64,
@@ -100,8 +103,8 @@ def spread(k: FFTEarConsts, pitch_power: torch.Tensor) -> torch.Tensor:
     """Level-dependent frequency spreading, src/fftearmodel.c:636-676, on
     [..., F, Z] (bands last): kernel K3."""
     return cuda_spread_fft.spread_fft(
-        pitch_power.contiguous(), k.a_uc, k.g_il, k.lower_matrix,
-        k.spread_norm, k.dz02)
+        pitch_power.contiguous(), k.a_uc, k.g_il, k.a_le, k.spread_norm,
+        k.dz02)
 
 
 def _spectrum_hop(k: FFTEarConsts, blocks: torch.Tensor):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gstpeaq_tpu import constants as C
+from .. import constants as C
 
 
 def dequantize(sig: torch.Tensor) -> torch.Tensor:

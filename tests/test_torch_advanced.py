@@ -17,6 +17,8 @@ from gstpeaq_tpu import api as JAPI
 from gstpeaq_tpu import constants as C
 from gstpeaq_tpu.utils import testsignals as TS
 from gstpeaq_tpu_torch import api
+from gstpeaq_tpu_torch import constants as PC
+from gstpeaq_tpu_torch import convert
 from gstpeaq_tpu_torch.models.advanced import AdvancedPipeline
 from gstpeaq_tpu_torch.ops import framing
 
@@ -97,10 +99,12 @@ def test_settings_flags_match_jax(flag):
     """tests/test_settings_flags.py's advanced flags on its saw/triangle
     pair: the port moves with JAX, and the flag moves the FB-path MOVs."""
     ref, test = TS.saw(N), TS.triangle(N)
-    settings = dataclasses.replace(
+    jsettings = dataclasses.replace(
         C.DEFAULT_SETTINGS, **{flag: not getattr(C.DEFAULT_SETTINGS, flag)})
+    settings = convert.settings_from_jax(jsettings)
+    assert getattr(settings, flag) != getattr(PC.DEFAULT_SETTINGS, flag)
     want = JAPI.peaq(ref, test, advanced=True, dtype="float64",
-                     settings=settings)
+                     settings=jsettings)
     got = api.peaq(ref, test, advanced=True, dtype="float64", device="cpu",
                    settings=settings)
     assert_matches(got, want)
@@ -126,7 +130,7 @@ def test_stereo_duplicate_channels_match_mono():
 def test_tier_dtypes(tier, dtype):
     """Each tier runs both ear models in the dtype it names, and float32
     stays within 2e-3 ODG of float64 on saw/triangle."""
-    pipe = api.advanced_pipeline(92.0, C.DEFAULT_SETTINGS, tier,
+    pipe = api.advanced_pipeline(92.0, PC.DEFAULT_SETTINGS, tier,
                                  torch.device("cpu"))
     assert pipe.fft.hann.dtype == pipe.fb.fir_weight.dtype == dtype
     assert pipe.fb.internal_noise.dtype == dtype
@@ -148,7 +152,7 @@ def test_pipeline_outputs():
                torch.stack([pad(ref, 192 * n_fb), pad(test, 192 * n_fb)]))
     assert out.movs.shape == (5,) and out.movs.dtype == torch.float64
     assert torch.isfinite(out.movs).all() and torch.isfinite(out.odg)
-    assert (api.advanced_pipeline(92.0, C.DEFAULT_SETTINGS, "float64",
+    assert (api.advanced_pipeline(92.0, PC.DEFAULT_SETTINGS, "float64",
                                   torch.device("cpu"))
-            is api.advanced_pipeline(92.0, C.DEFAULT_SETTINGS, "float64",
+            is api.advanced_pipeline(92.0, PC.DEFAULT_SETTINGS, "float64",
                                      torch.device("cpu")))

@@ -32,6 +32,7 @@ from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu_torch.ops import iir
+from gstpeaq_tpu_torch.ops import tile_scan
 
 LF = 0.0357           # the DC tests' level factor (test_pallas_kernels.py)
 jax_dc_reject = jax.jit(JFB.dc_reject, static_argnames="return_state")
@@ -209,35 +210,46 @@ def test_dc_chain_state_resumes_across_packages():
     assert rel(h3[..., 0], h2[..., 0]) < 1e-12
 
 
-@pytest.mark.parametrize("t", [1, 31, cuda_dc.TILE - 1, cuda_dc.TILE,
-                               cuda_dc.TILE + 1, 480000, 10**7])
+TILE, LANES = tile_scan.TILE, tile_scan.LANES
+
+
+@pytest.mark.parametrize("t", [1, 31, TILE - 1, TILE, TILE + 1, 480000,
+                               10**7])
 def test_dc_chain_launch_plan_covers_each_row(t):
-    """D3's tiles cover a row exactly (the last one ragged), the LANES
-    segments of `seg` tiles that a block folds reach back to tile 0, and
-    the grid stays within CUDA's 2^31 - 1 blocks up to 2^16 rows."""
+    """D3's tiles (tile_scan.launch_plan) cover a row exactly (the last one
+    ragged), the LANES segments of `seg` tiles that a block folds reach
+    back to tile 0, and the grid stays within CUDA's 2^31 - 1 blocks up to
+    2^16 rows."""
     for rows in (1, 4, 2**16):
-        tiles, seg, blocks = cuda_dc.launch_plan(rows, t)
-        assert (tiles - 1) * cuda_dc.TILE < t <= tiles * cuda_dc.TILE
-        assert (seg - 1) * cuda_dc.LANES < tiles <= seg * cuda_dc.LANES
-        assert blocks == rows * tiles <= cuda_dc.GRID_LIMIT == 2**31 - 1
-    with pytest.raises(ValueError, match="blocks"):
-        cuda_dc.launch_plan(2**16, 2**40)
+        tiles, seg, blocks = tile_scan.launch_plan(rows, t, "dc_chain")
+        assert (tiles - 1) * TILE < t <= tiles * TILE
+        assert (seg - 1) * LANES < tiles <= seg * LANES
+        assert blocks == rows * tiles <= tile_scan.GRID_LIMIT == 2**31 - 1
+    with pytest.raises(ValueError, match="dc_chain: .* blocks"):
+        tile_scan.launch_plan(2**16, 2**40, "dc_chain")
 
 
 def test_dc_chain_plan_constants_are_the_kernels():
-    src = (_build.CSRC / "dc_chain.cu").read_text()
-    assert f"constexpr int kRun = {cuda_dc.RUN};" in src
-    assert f"constexpr int kThreads = {cuda_dc.THREADS};" in src
+    """ops/tile_scan.py's plan constants are csrc/tile_scan.cuh's, which
+    dc_chain.cu (D3) and fb_spread.cu (D1) both include."""
+    src = (_build.CSRC / "tile_scan.cuh").read_text()
+    assert f"constexpr int kRun = {tile_scan.RUN};" in src
+    assert f"constexpr int kThreads = {tile_scan.THREADS};" in src
     assert "constexpr int kTile = kRun * kThreads;" in src
-    assert f"constexpr long long kGridLimit = {cuda_dc.GRID_LIMIT}LL;" in src
-    assert cuda_dc.TILE == cuda_dc.RUN * cuda_dc.THREADS
+    assert (f"constexpr long long kGridLimit = {tile_scan.GRID_LIMIT}LL;"
+            in src)
+    assert tile_scan.TILE == tile_scan.RUN * tile_scan.THREADS
+    assert LANES == 32 and "constexpr int kWarp = 32;" in (
+        _build.CSRC / "warp_scan.cuh").read_text()
+    for name in ("dc_chain.cu", "fb_spread.cu"):
+        assert '#include "tile_scan.cuh"' in (_build.CSRC / name).read_text()
 
 
 def _pole_factors(seg):
     """scan_factors(seg) split per pole into [a, *a^n] (lp, lm real; lam
     complex from its (re, im) pairs) and g."""
     f = cuda_dc.scan_factors(seg)
-    k = len(cuda_dc.scan_exponents(seg)) + 1
+    k = len(tile_scan.scan_exponents(seg)) + 1
     assert f.shape == (4 * k + 2,) and f.dtype == np.float64
     lam = f[2 * k:4 * k:2] + 1j * f[2 * k + 1:4 * k:2]
     return f[:k], f[k:2 * k], lam, complex(f[-2], f[-1])
@@ -247,8 +259,8 @@ def _pole_factors(seg):
 def test_dc_chain_scan_factors_are_float64_powers(seg):
     """Each factor equals numpy's float64 power of its pole to 1e-15
     relative, the complex one through polar form."""
-    ns = cuda_dc.scan_exponents(seg)
-    tile = cuda_dc.TILE
+    ns = tile_scan.scan_exponents(seg)
+    tile = TILE
     assert ns == [8, 16, 32, 64, 128, 256, tile,
                   tile * seg, 2 * tile * seg, 4 * tile * seg, 8 * tile * seg,
                   16 * tile * seg]
@@ -272,8 +284,8 @@ def test_dc_chain_factors_fold_tiles_as_the_kernel_does(pole):
     tiles' ends folded in LANES segments of `seg` tiles, then a warp scan,
     give each tile's entry state (tile_entry).  Both against the
     recurrence run straight through, on 70 tiles (seg = 3)."""
-    tile, lanes = cuda_dc.TILE, cuda_dc.LANES
-    tiles, seg, _ = cuda_dc.launch_plan(1, 70 * tile)
+    tile, lanes = TILE, LANES
+    tiles, seg, _ = tile_scan.launch_plan(1, 70 * tile, "dc_chain")
     assert (tiles, seg) == (70, 3)
     lp, _, lam, _ = _pole_factors(seg)
     p = lp if pole == "lp" else lam
@@ -295,7 +307,7 @@ def test_dc_chain_factors_fold_tiles_as_the_kernel_does(pole):
 
     y = rec(v, torch.tensor(c0, dtype=dtype))
     agg = rec(v.reshape(tiles, tile))[:, -1]
-    ends = warp_scan(rec(v.reshape(tiles, -1, lanes, cuda_dc.RUN))[..., -1],
+    ends = warp_scan(rec(v.reshape(tiles, -1, lanes, tile_scan.RUN))[..., -1],
                      run)[..., -1]                  # [tiles, warps]
     folded = np.zeros_like(agg)
     for w in range(ends.shape[-1]):
@@ -311,6 +323,134 @@ def test_dc_chain_factors_fold_tiles_as_the_kernel_does(pole):
         entry = warp_scan(h, carry)[-1]
         want = c0 if j == 0 else y[j * tile - 1]
         assert abs(entry - want) < 1e-12 * scale, j
+
+
+@pytest.mark.parametrize("n", [1, 31, TILE - 1, TILE, TILE + 1, 15000,
+                               33 * TILE + 1, 10**7])
+def test_slope_state_launch_plan_covers_each_row(n):
+    """D1's plan (tile_scan.launch_plan): its tiles cover a row of n
+    instants exactly, the segments its fold reads reach back to tile 0,
+    and both launches (rows (tiles - 1) blocks of ends, rows tiles of cu)
+    stay within CUDA's grid, from one row to 2^16 rows of 40 bands."""
+    for rows in (1, 160, 40 * 2**10):
+        tiles, seg, blocks = tile_scan.launch_plan(rows, n, "slope_state")
+        assert (tiles - 1) * TILE < n <= tiles * TILE
+        assert (seg - 1) * LANES < tiles <= seg * LANES
+        assert 0 <= rows * (tiles - 1) < blocks == rows * tiles
+        assert blocks <= tile_scan.GRID_LIMIT
+    with pytest.raises(ValueError, match="slope_state: .* blocks"):
+        tile_scan.launch_plan(40 * 2**16, 10**8, "slope_state")
+
+
+@pytest.mark.parametrize("swap", [False, True])
+@pytest.mark.parametrize("seg", [1, 2, 153])
+def test_slope_factors_are_float64_powers(params, swap, seg):
+    """slope_factors: the smoother's decay a (or 1 - a, the swapped slope
+    convention) and each a^n of tile_scan.scan_exponents to 1e-15
+    relative, then 1 - a; read-only."""
+    a = FB.build_consts(params, swap_slope=swap).slope_a
+    f = cuda_fb.slope_factors(a, seg)
+    n = np.array([1, *tile_scan.scan_exponents(seg)], dtype=np.float64)
+    assert f.dtype == np.float64 and f.shape == (len(n) + 1,)
+    want = np.float64(a) ** n
+    assert np.all(np.abs(f[:-1] - want) <= 1e-15 * want)
+    assert f[-1] == 1.0 - a
+    assert not f.flags.writeable
+
+
+def _warp_scan(x, steps):
+    """tile_scan.cuh's warp scan on the host, along the last axis (lanes)."""
+    for e, f in enumerate(steps):
+        off = 1 << e
+        x = np.concatenate([x[..., :off], x[..., off:] + f * x[..., :-off]],
+                           -1)
+    return x
+
+
+def _slope_state_on_host(re, im, c1, a, y0):
+    """csrc/fb_spread.cu's D1 on the host in float64: the drive with
+    exp(s ln DIST), the ends launch (tiles but the last: runs of RUN, a
+    warp scan, the warp ends folded), the cu launch (tile_entry's fold of
+    y0 and the earlier ends in LANES segments of `seg`, run_entry's warp
+    fold and scan, then each run from its entry).  Returns cu and the
+    ends."""
+    rows, n = re.shape
+    tiles, seg, _ = tile_scan.launch_plan(rows, n, "slope_state")
+    f = cuda_fb.slope_factors(a, seg)
+    run, warp, tile_f, carry, oma = f[1:6], f[6], f[7], f[8:13], f[13]
+    with np.errstate(divide="ignore"):
+        level = 10.0 * np.log10(re * re + im * im)
+    s = np.maximum(c1[:, None] - 0.2 * level, 4.0)
+    drive = np.zeros((rows, tiles * TILE))
+    drive[:, :n] = oma * np.exp(s * float(np.log(C.DIST)))
+    v = drive.reshape(rows, tiles, -1, LANES, tile_scan.RUN)
+    end = np.zeros(v.shape[:-1])
+    for j in range(tile_scan.RUN):
+        end = a * end + v[..., j]
+    scanned = _warp_scan(end, run)                     # [rows, tiles, W, L]
+    agg = np.zeros((rows, tiles))
+    for w in range(scanned.shape[2]):
+        agg = warp * agg + scanned[:, :, w, -1]
+    agg[:, -1] = np.nan                    # the ends launch skips it
+    cu = np.zeros_like(v)
+    for row in range(rows):
+        for t in range(tiles):
+            h = np.zeros(LANES)
+            for lane in range(LANES):
+                hi = t - (LANES - 1 - lane) * seg
+                for i in range(max(hi - seg, -1), hi):
+                    h[lane] = tile_f * h[lane] + (y0[row] if i < 0
+                                                  else agg[row, i])
+            x = _warp_scan(h, carry)[-1]               # the tile's entry
+            for w in range(v.shape[2]):
+                lane0 = end[row, t, w].copy()
+                lane0[0] += run[0] * x
+                s_in = _warp_scan(lane0, run)
+                y = np.concatenate([[x], s_in[:-1]])   # each run's entry
+                for j in range(tile_scan.RUN):
+                    y = a * y + v[row, t, w, :, j]
+                    cu[row, t, w, :, j] = y
+                x = warp * x + scanned[row, t, w, -1]
+    return cu.reshape(rows, -1)[:, :n], agg[:, :-1]
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_slope_state_folds_tiles_as_the_kernel_does(params, swap):
+    """D1's tile-and-fold algebra on the host's factors equals the plain
+    version (the straight recurrence) to 1e-12, on 2 rows of 34 tiles
+    (seg = 2) with silent instants at tile starts and a carried y0; each
+    tile's end equals the zero-entry recurrence over that tile."""
+    k = FB.build_consts(params, swap_slope=swap)
+    rng = np.random.default_rng(37)
+    n = 33 * TILE + 5
+    re = rng.standard_normal((2, n)) * 100.0
+    im = rng.standard_normal((2, n)) * 100.0
+    re[:, ::TILE] = im[:, ::TILE] = 0.0
+    c1 = (24.0 + 230.0 / k.fc[:2]).numpy()
+    y0 = np.array([0.3, 0.05])
+    got, ends = _slope_state_on_host(re, im, c1, k.slope_a, y0)
+    want = cuda_fb.slope_state_plain(tt(re), tt(im), tt(c1), k.slope_a,
+                                     tt(y0)).numpy()
+    assert np.isfinite(got).all()
+    assert rel(got, want) < 1e-12
+    zero = cuda_fb.slope_state_plain(tt(re), tt(im), tt(c1),
+                                     k.slope_a).numpy()
+    tile_ends = np.stack([
+        zero[:, t * TILE + TILE - 1] - k.slope_a ** TILE
+        * (zero[:, t * TILE - 1] if t else 0.0) for t in range(33)], 1)
+    assert np.abs(ends - tile_ends).max() < 1e-12 * np.abs(zero).max()
+
+
+def test_slope_state_constants_are_the_kernels():
+    """fb_spread.cu's ln DIST is log(C.DIST) in float64, its two launches
+    are named slope_state_*_kernel, and it reads slope_factors' layout
+    through tile_scan.cuh's fill, then 1 - a."""
+    src = (_build.CSRC / "fb_spread.cu").read_text()
+    assert f"constexpr double kLnDist = {float(np.log(C.DIST))!r};" in src
+    for kernel in ("slope_state_ends_kernel", "slope_state_cu_kernel"):
+        assert f"\n{kernel}(" in src
+    assert "co.oma = static_cast<T>(*fill(co.p, coef));" in src
+    assert f"constexpr int kZ = {cuda_fb.BANDS};" in src
 
 
 def test_linear_recurrence_complex_matches_jax():

@@ -153,6 +153,119 @@ def test_spread_plain_matches_xla_f64(band_count):
     assert rel(got, want) < 1e-12
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spread_lower_matrix_is_the_power_table(dtype):
+    """For every band count the pipelines run (55..109), the plain
+    version's lower table is exactly aLe^(i-j) (i >= j) in the working
+    dtype, and FFTEarConsts.a_le, which K3's wrapper takes in place of the
+    table, is aLe in that dtype: the kernel's recurrence and the plain
+    product are one function.  The table the wrapper forms from a_le on
+    the CPU is that table, bit for bit in float64, and within the rounding
+    of aLe to float32 (1e-5 relative, for powers up to 108) in float32."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    for bc in range(55, 110):
+        params = EP.fft_ear_params(bc)
+        a_le = params.lower_spreading_exponentiated
+        k = FE.build_consts(params, dtype)
+        i, j = np.indices((bc, bc))
+        want = np.where(i >= j, a_le ** np.maximum(i - j, 0), 0.0)
+        np.testing.assert_array_equal(k.lower_matrix.numpy(),
+                                      want.astype(np_dtype))
+        assert k.a_le == float(np_dtype(a_le))
+        table = cuda_spread_fft.lower_table(bc, k.a_le, dtype, "cpu")
+        assert table.dtype == dtype
+        if dtype == torch.float64:
+            assert torch.equal(table, k.lower_matrix)
+        else:
+            np.testing.assert_allclose(table.numpy(), k.lower_matrix.numpy(),
+                                       rtol=1e-5, atol=1e-44)
+
+
+def test_spread_lower_factors_are_float64_powers():
+    """lower_factors: aLe, then (aLe^4)^(2^e) to 1e-15 relative, the
+    backward warp scan's step over 4 bands a lane; read-only."""
+    a_le = EP.fft_ear_params(109).lower_spreading_exponentiated
+    f = cuda_spread_fft.lower_factors(a_le)
+    want = np.float64(a_le) ** np.array([1, 4, 8, 16, 32, 64], np.float64)
+    assert f.dtype == np.float64
+    assert np.all(np.abs(f - want) <= 1e-15 * want)
+    assert not f.flags.writeable
+
+
+def _warp_scan_down(x, steps):
+    """warp_scan.cuh's warp_scan_down on the host, along the last axis
+    (lanes): x_l <- f x_{l+1} + x_l from lane 31 down."""
+    for e, f in enumerate(steps):
+        off = 1 << e
+        x = np.concatenate([x[..., :-off] + f * x[..., off:], x[..., -off:]],
+                           -1)
+    return x
+
+
+def _spread_on_host(p, a_uc, g_il, norm, dz02, a_le):
+    """csrc/spread_fft.cu's K3 on the host in float64: 4 bands a lane of
+    32 (bands past Z hold zeros), the powers in log form, the lower part as
+    the lane's suffix, the backward warp scan and 4 steps from the lane's
+    entry, the upper part as Z - 1 steps of the shift-multiply walk, where
+    lane 0 takes in w = 0 and its own last rb."""
+    z = p.shape[-1]
+    lanes, per = cuda_spread_fft.LANES, cuda_spread_fft.BANDS_PER_LANE
+    band = np.arange(z)
+    ln_p = np.log(p)
+    ln_auce = np.log(a_uc) + dz02 * ln_p
+    g_iu = (1.0 - np.exp((z - band) * ln_auce)) / (1.0 - np.exp(ln_auce))
+    pad = [(0, 0)] * (p.ndim - 1) + [(0, lanes * per - z)]
+    ene = np.pad(np.exp(0.4 * (ln_p - np.log(g_il + g_iu - 1.0))), pad)
+    rb = np.pad(np.exp(0.4 * ln_auce), pad)
+    f = cuda_spread_fft.lower_factors(a_le)
+    lane_ene = ene.reshape(*p.shape[:-1], lanes, per)
+    s = lane_ene[..., per - 1]
+    for b in range(per - 2, -1, -1):
+        s = lane_ene[..., b] + f[0] * s
+    scanned = _warp_scan_down(s, f[1:])
+    entry = np.concatenate([scanned[..., 1:], np.zeros_like(s[..., :1])], -1)
+    e2 = np.zeros_like(lane_ene)
+    for b in range(per - 1, -1, -1):
+        entry = e2[..., b] = lane_ene[..., b] + f[0] * entry
+    e2 = e2.reshape(ene.shape)
+    w = ene.copy()
+    zero = np.zeros_like(w[..., :1])
+    for _ in range(1, z):
+        rb = np.concatenate([rb[..., per - 1:per], rb[..., :-1]], -1)
+        w = np.concatenate([zero, w[..., :-1]], -1) * rb
+        e2 = e2 + w
+    e2 = e2[..., :z]
+    return e2 * e2 * np.sqrt(e2) / norm
+
+
+@pytest.mark.parametrize("band_count", [55, 109])
+def test_spread_walk_and_lower_recurrence_match_plain(band_count):
+    """K3's design reproduced on the host (4 bands a lane, the log-form
+    powers, the shift-multiply walk, the backward lower recurrence) equals
+    spread_fft_plain to 1e-12 in float64."""
+    rng = np.random.default_rng(band_count + 7)
+    k = FE.build_consts(EP.fft_ear_params(band_count), torch.float64)
+    pp = 10.0 ** rng.uniform(-3, 9, (2, 3, 37, band_count))
+    got = _spread_on_host(pp, k.a_uc.numpy(), k.g_il.numpy(),
+                          k.spread_norm.numpy(), k.dz02, k.a_le)
+    want = cuda_spread_fft.spread_fft_plain(
+        tt(pp), k.a_uc, k.g_il, k.lower_matrix, k.spread_norm, k.dz02)
+    assert rel(got, want) < 1e-12
+    assert (np.abs(got - want.numpy()) / want.numpy()).max() < 1e-12
+
+
+def test_spread_constants_are_the_kernels():
+    """cuda_spread_fft's layout constants are spread_fft.cu's, and the
+    kernel reads lower_factors' six float64 values."""
+    src = (_build.CSRC / "spread_fft.cu").read_text()
+    assert (f"constexpr int kBands = {cuda_spread_fft.BANDS_PER_LANE};"
+            in src)
+    assert "constexpr int kMaxBands = kBands * kWarp;" in src
+    assert cuda_spread_fft.MAX_BANDS == 128
+    assert "lo.step[e] = static_cast<T>(lower[e + 1]);" in src
+    assert len(cuda_spread_fft.lower_factors(0.5)) == 6
+
+
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """A CPU tensor runs the plain version and launches nothing."""
     monkeypatch.setattr(cuda_iir, "recurrence_banded_launches", 0)
@@ -168,11 +281,12 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
                     cuda_iir.fused_mod_smoothers_plain(a, b, b, SCALE)):
         np.testing.assert_array_equal(g, w)
     k = FE.build_consts(EP.fft_ear_params(55), torch.float64)
-    consts = (k.a_uc, k.g_il, k.lower_matrix, k.spread_norm, k.dz02)
     p = b.transpose(-1, -2).contiguous()
     np.testing.assert_array_equal(
-        cuda_spread_fft.spread_fft(p, *consts),
-        cuda_spread_fft.spread_fft_plain(p, *consts))
+        cuda_spread_fft.spread_fft(p, k.a_uc, k.g_il, k.a_le, k.spread_norm,
+                                   k.dz02),
+        cuda_spread_fft.spread_fft_plain(p, k.a_uc, k.g_il, k.lower_matrix,
+                                         k.spread_norm, k.dz02))
     assert (cuda_iir.recurrence_banded_launches,
             cuda_iir.fused_mod_smoothers_launches,
             cuda_spread_fft.spread_fft_launches) == (0, 0, 0)
@@ -190,7 +304,7 @@ def test_other_devices_raise_without_fallback():
     z = torch.ones(4, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         cuda_spread_fft.spread_fft(b.transpose(-1, -2).contiguous(), z, z,
-                                   torch.ones(4, 4, device="meta"), z, 0.1)
+                                   0.5, z, 0.1)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -215,7 +329,8 @@ def test_build_is_keyed_by_the_sources():
 def test_build_is_keyed_by_the_headers(monkeypatch, tmp_path):
     """An edited csrc/*.cuh header names a new library, so a stale build is
     never loaded; every C entry of the sources has its signature."""
-    assert {p.name for p in _build.headers()} == {"warp_scan.cuh"}
+    assert {p.name for p in _build.headers()} == {"warp_scan.cuh",
+                                                  "tile_scan.cuh"}
     for src in _build.sources() + _build.headers():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)

@@ -8,6 +8,8 @@ reassociation; 1e-9 where the two sides take different FFT libraries
 exactly the natively built constants.
 """
 
+import pathlib
+import re
 import subprocess
 import sys
 
@@ -239,11 +241,12 @@ def test_ehs_matches_jax(consts, subtract_dc):
     ref, test, delta = _spectra(rng)
     thresh_r = rng.uniform(size=(2, 30)) > 0.3
     thresh_t = rng.uniform(size=(2, 30)) > 0.3
-    settings = C.Settings(ehs_subtract_dc_before_window=subtract_dc)
+    jsettings = C.Settings(ehs_subtract_dc_before_window=subtract_dc)
+    settings = convert.settings_from_jax(jsettings)
     window = EP.ehs_correlation_window(settings.center_ehs_correlation_window)
     want = jit(JMOVS.ehs, "settings", "dtype")(
         jnp.asarray(ref), jnp.asarray(test), jnp.asarray(thresh_r),
-        jnp.asarray(thresh_t), settings, jnp.float64,
+        jnp.asarray(thresh_t), jsettings, jnp.float64,
         delta_weighted=jnp.asarray(delta), ehs_zero=jk.ehs_zero)
     got = MOVS.ehs(tt(ref), tt(test), tt(thresh_r), tt(thresh_t), settings,
                    tt(window), tt(delta), k.ehs_zero)
@@ -346,18 +349,31 @@ def test_cognitive_from_jax_equals_native(advanced):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling JAX in."""
+    """Every module of the port, and chip_smoke.py, imports without pulling
+    in JAX or any module of the JAX package gstpeaq_tpu; no source line of
+    either imports gstpeaq_tpu."""
+    root = pathlib.Path(__file__).resolve().parents[1]
     code = (
         "import importlib, pkgutil, sys\n"
         "import gstpeaq_tpu_torch as P\n"
         "names = [m.name for m in pkgutil.walk_packages(P.__path__, "
         "'gstpeaq_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 19, names\n"
+        "import chip_smoke\n"
+        "assert len(names) >= 23, names\n"
         "for n in ('models.advanced', 'ops.fb_ear', 'ops.cuda_fb',\n"
-        "          'ops.cuda_dc'):\n"
+        "          'ops.cuda_dc', 'constants', 'earparams',\n"
+        "          'utils.testsignals'):\n"
         "    assert 'gstpeaq_tpu_torch.' + n in names, n\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n")
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'gstpeaq_tpu' or m.startswith('gstpeaq_tpu.')]\n"
+        "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120, cwd=root)
     assert proc.returncode == 0, proc.stderr
+    imports = re.compile(r"^\s*(from\s+gstpeaq_tpu[\s.]|import\s+gstpeaq_tpu"
+                         r"(\s|\.|,|$))", re.M)
+    for path in [root / "chip_smoke.py",
+                 *(root / "gstpeaq_tpu_torch").rglob("*.py")]:
+        assert not imports.search(path.read_text()), path

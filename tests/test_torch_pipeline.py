@@ -17,6 +17,7 @@ from gstpeaq_tpu import api as JAPI
 from gstpeaq_tpu import constants as C
 from gstpeaq_tpu.utils import testsignals as TS
 from gstpeaq_tpu_torch import api
+from gstpeaq_tpu_torch import constants as PC
 from gstpeaq_tpu_torch.models.basic import BasicPipeline
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
@@ -108,7 +109,7 @@ def test_tier_dtypes(tier, band, spectrum):
     n = 40 * 1024
     ref = torch.from_numpy(np.stack([TS.saw(n + 1024)]))
     test = torch.from_numpy(np.stack([TS.triangle(n + 1024)]))
-    pipe = api.pipeline(109, 92.0, C.DEFAULT_SETTINGS, tier,
+    pipe = api.pipeline(109, 92.0, PC.DEFAULT_SETTINGS, tier,
                         torch.device("cpu"))
     assert pipe.consts.hann.dtype == spectrum
     assert pipe.consts.internal_noise.dtype == band
