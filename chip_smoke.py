@@ -10,10 +10,13 @@ Phases, each on its own lines and ending with its seconds:
               gstpeaq_tpu_torch/csrc, one process per source, and ptxas
               reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
-              the main paths' shapes and edge shapes (D1 and D3: their tile
-              edges; K3: band counts 1..128), in float32 and float64, the
-              float32 DC cascade's own rounding against float64, and two
-              launches each of D1, K3 and D3 bit for bit
+              the main paths' shapes and edge shapes (K1 and K2: the FB
+              ear's [2, 2, 40, 2500] and their tile edges F = 1 .. 5121, K1
+              with and without y0 and on an all-zero row, K2 with uns
+              jumping at every run edge; D1 and D3: their tile edges; K3:
+              band counts 1..128), in float32 and float64, the float32 DC
+              cascade's own rounding against float64, and two launches each
+              of K1, K2, K3, D1 and D3 bit for bit
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
               (stereo upmix), and a 10 s stereo pair against the NumPy
               spec's float64 results, frozen with the pair's fingerprint in
@@ -27,9 +30,10 @@ Phases, each on its own lines and ending with its seconds:
               advanced call goes through all six kernels
   7 times     CUDA-event medians of each kernel and its plain version in
               float32 and float64, each kernel's share of its bound (also
-              at the advanced path's other call-site shapes), the FB ear's
-              FIR bank, and peaq() wall time per 10 s stereo pair per mode
-              and tier
+              at the advanced path's other call-site shapes), K1's library
+              call (a grouped causal conv1d) at each K1 call site, the FB
+              ear's FIR bank, and peaq() wall time per 10 s stereo pair per
+              mode and tier
   8 profile   torch.profiler over five peaq() calls per mode and tier:
               device time per call, its share of the wall time, each hand
               kernel's share of it, and time by kernel
@@ -40,8 +44,9 @@ times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
 `bound_ms` is the larger of the bytes the kernel's function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64), counted from
-this run's main-shape inputs; `library_ms` is null, since no single PyTorch
-call computes any of these functions; `launches_by_path` holds phase 6's
+this run's main-shape inputs; `library_ms` is K1's grouped causal conv1d
+at its main shape, and null for the other kernels, since no single PyTorch
+call computes their functions; `launches_by_path` holds phase 6's
 count per path (basic, advanced; 0 where a path does not launch the
 kernel), `launches` their sum.  The line before the last is the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.  Any failed
@@ -435,6 +440,57 @@ def spread_edges(t, dtype):
     return cases
 
 
+def row_cases(t):
+    """K1 and K2 at the FB ear's [2, 2, 40, 2500] (one tile of 2,560 frames
+    a row) and at their tile edges on 3 rows, from a generator of their
+    own: one frame; below, at and past one warp's 32 runs and its 256
+    frames; below, at and past the largest tile; two of those plus one.  K1
+    with and without y0 at each, and on an all-zero row with y0; K2 with
+    uns 1000-fold larger on every other run, so that a wrong loud_{t-1} at
+    a run, warp or tile edge shows in mod."""
+    cases = []
+    rrng = np.random.default_rng(7)
+    tile = cuda_iir.MAX_TILE
+    scale = C.SAMPLING_RATE / C.FB_FRAMESIZE
+    for label, shape in [("FB", (2, 2, 40, 2500))] + [
+            (f"edge F={f}", (1, 3, f))
+            for f in (1, 31, 32, 33, 255, 256, 257, tile - 1, tile,
+                      tile + 1, 2 * tile + 1)]:
+        z, f = shape[-2:]
+        a = t(np.exp(-rrng.uniform(0.01, 0.5, z)))
+        b = t(rrng.standard_normal(shape))
+        y0 = t(rrng.standard_normal(shape[:-1]))
+        for y in (None, y0):
+            cases.append(Case("recurrence_banded",
+                              f"{label} {list(shape)} y0={y is not None}",
+                              lambda a=a, b=b, y=y:
+                              cuda_iir.recurrence_banded(a, b, y),
+                              lambda a=a, b=b, y=y:
+                              cuda_iir.recurrence_banded_plain(a, b, y)))
+        exc2 = t(rrng.uniform(0.01, 10.0, shape))
+        uns = rrng.uniform(0.01, 10.0, shape)
+        uns[..., np.arange(f) // cuda_iir.RUN % 2 == 1] *= 1000.0
+        uns2 = t(uns)
+        cases.append(Case("fused_mod_smoothers",
+                          f"{label} {list(shape)} uns x1000 on odd runs",
+                          lambda a=a, exc2=exc2, uns2=uns2:
+                          cuda_iir.fused_mod_smoothers(a, exc2, uns2, scale),
+                          lambda a=a, exc2=exc2, uns2=uns2:
+                          cuda_iir.fused_mod_smoothers_plain(a, exc2, uns2,
+                                                             scale)))
+    zero = t(np.zeros((1, 3, tile + 1)))
+    a = t(np.exp(-rrng.uniform(0.01, 0.5, 3)))
+    y0 = t(rrng.standard_normal((1, 3)))
+    for y in (None, y0):
+        cases.append(Case("recurrence_banded",
+                          f"zero rows [1, 3, {tile + 1}] y0={y is not None}",
+                          lambda a=a, y=y:
+                          cuda_iir.recurrence_banded(a, zero, y),
+                          lambda a=a, y=y:
+                          cuda_iir.recurrence_banded_plain(a, zero, y)))
+    return cases
+
+
 def kernel_cases(dtype, rng, pair10):
     """Every Case of phase 3, at main-path and edge shapes."""
     dev = "cuda"
@@ -475,7 +531,7 @@ def kernel_cases(dtype, rng, pair10):
                           lambda p=p, cp=cp:
                           cuda_spread_fft.spread_fft_plain(p, *cp),
                           (p, c[0], c[1], c[3])))
-    return (cases + spread_edges(t, dtype)
+    return (cases + row_cases(t) + spread_edges(t, dtype)
             + fb_cases(dtype, rng, pair10, t))
 
 
@@ -507,7 +563,8 @@ def phase_kernels(rng, pair10) -> dict:
             if case in ("F=468", "main", "Z=109"):
                 bound_ms, bound_by = bound(name, dtype, c.inputs, got)
                 main[name][dtype] = dict(max_abs_err=err, kernel=c.kernel,
-                                         plain=c.plain, bound_ms=bound_ms,
+                                         plain=c.plain, inputs=c.inputs,
+                                         bound_ms=bound_ms,
                                          bound_by=bound_by)
     dc_float32_rounding(rng, pair10)
     determinism(main)
@@ -532,10 +589,10 @@ def dc_float32_rounding(rng, pair10) -> None:
 
 
 def determinism(main: dict) -> None:
-    """Two launches of K3, D1 and D3 at their main shapes (D1 and D3 on the
+    """Two launches of each kernel at its main shape (D1 and D3 on the
     pair's own FB rows) give the same bits, in both dtypes: no atomics, and
-    D1's and D3's carries are folded in one fixed order."""
-    for name in ("spread_fft", "slope_state", "dc_chain"):
+    every carry is folded in one fixed order."""
+    for name in KERNELS:
         for dtype in DTYPES:
             kernel = main[name][dtype]["kernel"]
             first, second = (stacked(kernel()) for _ in range(2))
@@ -766,6 +823,34 @@ def site_cases(dtype) -> list:
     return cases
 
 
+def k1_library(a, b, label: str) -> float:
+    """K1's function (y0 = None) as one PyTorch call, timed as cuda_ms
+    does and held against the plain version: a grouped causal conv1d of
+    each row [1, rows, F] with the weight w[k] = a_z^(F - 1 - k) (powers in
+    float64, built before the timing), padding F - 1, one group a row,
+    TF32 off; y is its first F outputs.  Returns the call's ms."""
+    f = b.shape[-1]
+    rows = b.numel() // f
+    n = torch.arange(f - 1, -1, -1, dtype=torch.float64, device=b.device)
+    weight = (a.double()[:, None] ** n).to(b.dtype).repeat(
+        rows // a.numel(), 1)[:, None, :].contiguous()
+    x = b.reshape(1, rows, f)
+
+    def call():
+        return torch.nn.functional.conv1d(x, weight, padding=f - 1,
+                                          groups=rows)
+
+    with api.full_precision_matmuls():
+        ms, _ = cuda_ms(call, calls=2, rounds=5)
+        got = call()[..., :f].reshape(b.shape)
+    want = cuda_iir.recurrence_banded_plain(a, b)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"  recurrence_banded {label} {b.dtype}: library call (grouped "
+          f"causal conv1d) {ms:.4f} ms, max|d|/max|ref| {err:.3e} against "
+          f"plain")
+    return ms
+
+
 def phase_times(main: dict, pair10, reps: int = 30) -> dict:
     """Kernel and plain device times (cuda_ms), the FB ear's FIR bank
     (plain PyTorch, a conv1d) per tier, then peaq() host wall time per 10 s
@@ -783,6 +868,9 @@ def phase_times(main: dict, pair10, reps: int = 30) -> dict:
                   f"enqueue {host:.4f} ms), {share:.1%} of its bound "
                   f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}), plain "
                   f"{entry['plain_ms']:.4f} ms (median of 10)")
+    for dtype, entry in main["recurrence_banded"].items():
+        entry["library_ms"] = k1_library(*entry.pop("inputs"),
+                                         f"basic {list(MAIN)}")
     for dtype in DTYPES:
         for c in site_cases(dtype):
             ms, _ = cuda_ms(c.kernel, calls=20, cover_host=True)
@@ -791,6 +879,8 @@ def phase_times(main: dict, pair10, reps: int = 30) -> dict:
             print(f"  {c.name} {c.case} {dtype}: kernel {ms:.4f} ms, "
                   f"{bound_ms / ms:.1%} of its bound {bound_ms:.5f} ms "
                   f"({bound_by})")
+            if c.name == "recurrence_banded":
+                k1_library(*c.inputs, c.case)
     for tier in TIERS:
         k = FB.build_consts(EP.fb_ear_params(), api.DTYPES[tier], "cuda")
         hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
@@ -906,10 +996,11 @@ def main() -> None:
             launches_by_path=counts[name], max_abs_err=f32["max_abs_err"],
             ms=f32["ms"], plain_ms=f32["plain_ms"],
             bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
-            library_ms=None, max_abs_err_f64=f64["max_abs_err"],
+            library_ms=f32.get("library_ms"),
+            max_abs_err_f64=f64["max_abs_err"],
             ms_f64=f64["ms"], plain_ms_f64=f64["plain_ms"],
             bound_ms_f64=f64["bound_ms"], bound_by_f64=f64["bound_by"],
-            library_ms_f64=None))
+            library_ms_f64=f64.get("library_ms")))
     print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

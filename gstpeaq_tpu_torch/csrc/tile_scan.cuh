@@ -2,7 +2,9 @@
 // into tiles, one block of kThreads threads per tile, shared by the DC
 // cascade (dc_chain.cu, D3) and the FB slope filter (fb_spread.cu, D1).
 // ops/tile_scan.py holds the host's side: the launch plan and every power
-// a^n, computed in float64.
+// a^n, computed in float64.  The banded recurrences (recurrence.cu, K1 and
+// K2) take the same runs, slots and run_entry with one block of up to ten
+// warps per row, walking the row's tiles in the block.
 //
 // Inside a block, thread k owns the run of kRun samples [k kRun, (k + 1)
 // kRun) of the tile, staged coalesced through shared memory (slot() skews
@@ -88,9 +90,11 @@ __device__ V tile_end(V end, const Powers<V>& p, V* ends) {
 
 // The entry state of this thread's run (the stage at the sample before
 // it), from the run's zero-entry end and the tile's entry *tile_in, which
-// the caller writes to shared memory before the call.
-template <typename V>
-__device__ V run_entry(V end, const V* tile_in, const Powers<V>& p, V* ends) {
+// the caller writes to shared memory before the call.  p holds run[5] and
+// warp as Powers does (a Powers<V>, or one real factor for a tuple of
+// states V); every warp of the block calls it, and ends has one slot a warp.
+template <typename V, typename P>
+__device__ V run_entry(V end, const V* tile_in, const P& p, V* ends) {
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const V s = warp_scan(end, p.run, lane);
   if (lane == kWarp - 1) ends[warp] = s;

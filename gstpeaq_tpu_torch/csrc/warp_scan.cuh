@@ -1,13 +1,10 @@
 // The warp-wide scan of a first-order recurrence x_l <- a x_{l-1} + x_l over
-// the 32 lanes of a warp, shared by the banded recurrences (recurrence.cu),
-// the tile scans of the FB slope filter and the DC cascade (tile_scan.cuh)
-// and, run from lane 31 down, the FFT ear's lower spreading
-// (spread_fft.cu).  Each lane holds the drive of one stretch (one instant,
-// a run of samples, or a group of bands); the scan's step factors are
-// a^(2^e) of the factor over one stretch.  For one instant a stretch,
-// lane_powers builds them by repeated squaring in the working type, and
-// a^(lane + 1) weighs the state entering the chunk; the other callers pass
-// factors computed on the host in double, real or complex.
+// the 32 lanes of a warp, shared by the tile scans of the banded
+// recurrences, the FB slope filter and the DC cascade (tile_scan.cuh) and,
+// run from lane 31 down, the FFT ear's lower spreading (spread_fft.cu).
+// Each lane holds the drive of one stretch (a run of samples or a group of
+// bands); the scan's step factors are a^(2^e) of the factor over one
+// stretch, computed in double by the caller, real or complex.
 
 #pragma once
 
@@ -50,37 +47,11 @@ __device__ __forceinline__ T shfl_down(T v, int off) {
   return __shfl_down_sync(kFull, v, off);
 }
 
-// Powers of one row's coefficient, per lane.
-template <typename T>
-struct LanePowers {
-  T carry;       // a^(lane + 1): weight of the state entering the chunk
-  T step[5];     // a^(2^e), e = 0..4: the scan's step factors
-};
-
-template <typename T>
-__device__ __forceinline__ LanePowers<T> lane_powers(T a, int lane) {
-  LanePowers<T> p;
-  T s = a;
-#pragma unroll
-  for (int e = 0; e < 5; ++e) {
-    p.step[e] = s;
-    s = s * s;
-  }
-  T acc = a;
-#pragma unroll
-  for (int e = 0; e < 5; ++e) {
-    const int off = 1 << e;
-    const T up = __shfl_up_sync(kFull, acc, off);
-    if (lane >= off) acc = acc * up;
-  }
-  p.carry = acc;
-  return p;
-}
-
 // Inclusive scan of x_l <- f x_{l-1} + x_l over the 32 lanes of a warp,
-// step[e] = f^(2^e); V is a real working type or a Cplx of one.
-template <typename V>
-__device__ __forceinline__ V warp_scan(V x, const V (&step)[5], int lane) {
+// step[e] = f^(2^e); V is a real working type or a Cplx of one, or a tuple
+// of states that share a real factor F (mul(F, V) and add(V, V) defined).
+template <typename V, typename F>
+__device__ __forceinline__ V warp_scan(V x, const F (&step)[5], int lane) {
 #pragma unroll
   for (int e = 0; e < 5; ++e) {
     const int off = 1 << e;
@@ -102,12 +73,6 @@ __device__ __forceinline__ T warp_scan_down(T x, const T (&step)[5],
     if (lane + off < kWarp) x = x + step[e] * down;
   }
   return x;
-}
-
-// The same scan with f = a, one instant a lane.
-template <typename T>
-__device__ __forceinline__ T warp_scan(T x, const LanePowers<T>& p, int lane) {
-  return warp_scan(x, p.step, lane);
 }
 
 }  // namespace peaq

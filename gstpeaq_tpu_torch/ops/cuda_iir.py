@@ -6,6 +6,11 @@ replace the Pallas TPU kernels of the same names in
 gstpeaq_tpu/ops/pallas_iir.py.  Both keep that module's layout: [..., Z, F],
 frames last, one contiguous row per (lead, band).
 
+Each kernel scans one row per block in one launch: a row of F frames gets
+`block_threads(F)` threads, each scanning a run of RUN frames, so a block
+covers a tile of RUN * block_threads(F) frames (at most MAX_TILE) and walks
+a longer row tile by tile (csrc/recurrence.cu).
+
 Each wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  Each
 counts its launches in a module-level int (`recurrence_banded_launches`,
@@ -18,9 +23,19 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .tile_scan import LANES, RUN
+
+MAX_WARPS = 10      # csrc/recurrence.cu's kMaxWarps
+MAX_TILE = RUN * LANES * MAX_WARPS
 
 recurrence_banded_launches = 0
 fused_mod_smoothers_launches = 0
+
+
+def block_threads(f: int) -> int:
+    """The threads of a row's block for rows of f frames: the fewest whole
+    warps, up to MAX_WARPS, whose runs of RUN frames cover the row."""
+    return LANES * min(MAX_WARPS, -(-f // (RUN * LANES)))
 
 
 def recurrence_banded_plain(a: torch.Tensor, b: torch.Tensor,

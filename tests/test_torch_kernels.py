@@ -6,7 +6,9 @@ stands for, run in interpret mode, in float32 (max|d|/max|ref| < 1e-5, and
 elementwise < 1e-4 for the spreading: the bars of test_pallas_kernels.py),
 and against the JAX XLA path in float64 (< 1e-12: the two differ only in
 summation order).  The CUDA kernels themselves are held against the plain
-versions on the card by chip_smoke.py.
+versions on the card by chip_smoke.py; here their designs (K1's and K2's
+one block per row, K3's warp per row) are re-enacted on the host in
+float64 and held against the plain versions at their edges.
 """
 
 import os
@@ -29,6 +31,7 @@ from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu_torch.ops import iir
+from gstpeaq_tpu_torch.ops import tile_scan
 
 SCALE = 48000 / 1024
 
@@ -120,6 +123,169 @@ def test_fused_mod_plain_matches_xla_f64(monkeypatch):
     for g, w in zip(got, want):
         assert g.dtype == torch.float64
         assert rel(g, w) < 1e-12
+
+
+RUN, LANES = cuda_iir.RUN, cuda_iir.LANES
+# K1's and K2's tile edges: one frame; below, at and past one warp's 32
+# runs and its 256 frames; below, at and past the largest tile; two of
+# those tiles plus one
+ROW_EDGES = [1, 31, 32, 33, 255, 256, 257, cuda_iir.MAX_TILE - 1,
+             cuda_iir.MAX_TILE, cuda_iir.MAX_TILE + 1,
+             2 * cuda_iir.MAX_TILE + 1]
+
+
+def _row_powers(a):
+    """csrc/recurrence.cu's row_powers on the host: a^(RUN 2^e), e < 5, and
+    a^(RUN LANES), by repeated squaring in float64."""
+    s = np.asarray(a, np.float64) ** 2
+    s = s * s
+    s = s * s
+    run = []
+    for _ in range(5):
+        run.append(s)
+        s = s * s
+    return run, s
+
+
+def _warp_scan_rows(x, steps):
+    """warp_scan.cuh's warp scan along the last axis (lanes), with one
+    factor per row (the first axis) at each step."""
+    for e, f in enumerate(steps):
+        off = 1 << e
+        f = f.reshape(f.shape + (1,) * (x.ndim - 1))
+        x = np.concatenate([x[..., :off], x[..., off:] + f * x[..., :-off]],
+                           -1)
+    return x
+
+
+def _rows_on_host(a, v, y0):
+    """csrc/recurrence.cu's block on the host in float64: rows of drives v
+    [rows, F], one coefficient a and entry y0 per row.  Per tile of RUN *
+    block_threads(F) frames: each run of RUN scanned from a zero entry, a
+    warp scan over the runs, the warp ends folded in order from the tile's
+    entry, the scan again with the warp's entry in lane 0, each run from its
+    entry; the last run's last state enters the next tile."""
+    rows, f = v.shape
+    warps = cuda_iir.block_threads(f) // LANES
+    tile = warps * LANES * RUN
+    tiles = -(-f // tile)
+    run, warp = _row_powers(a)
+    col = a[:, None]
+    drive = np.zeros((rows, tiles * tile))
+    drive[:, :f] = v
+    y = np.zeros_like(drive)
+    entry = np.asarray(y0, np.float64)
+    for t in range(tiles):
+        vt = drive[:, t * tile:(t + 1) * tile].reshape(rows, warps, LANES, RUN)
+        end = np.zeros((rows, warps, LANES))
+        for j in range(RUN):
+            end = a[:, None, None] * end + vt[..., j]
+        scanned = _warp_scan_rows(end, run)
+        yt = np.zeros_like(vt)
+        x = entry
+        for w in range(warps):
+            lane0 = end[:, w].copy()
+            lane0[:, 0] += run[0] * x
+            s_in = _warp_scan_rows(lane0, run)
+            yr = np.concatenate([x[:, None], s_in[:, :-1]], -1)
+            for j in range(RUN):
+                yr = col * yr + vt[:, w, :, j]
+                yt[:, w, :, j] = yr
+            x = warp * x + scanned[:, w, -1]
+        y[:, t * tile:(t + 1) * tile] = yt.reshape(rows, tile)
+        entry = yt[:, -1, -1, -1]
+    return y[:, :f]
+
+
+def _mod_drives_on_host(a, exc, uns, scale):
+    """K2's three drives as csrc/recurrence.cu stages them, [3, rows, F]:
+    per tile, loud = uns^0.3 (0 past the row); loud_{t-1} of a run's first
+    frame is the frame before it in the tile, or, for the tile's first run,
+    the previous tile's last loud (0 for the row's first tile)."""
+    rows, f = exc.shape
+    nt = cuda_iir.block_threads(f)
+    tile = nt * RUN
+    oma = 1.0 - a[:, None]
+    drives = np.zeros((3, rows, f))
+    last = np.zeros(rows)
+    for t0 in range(0, f, tile):
+        m = min(f - t0, tile)
+        loud = np.zeros((rows, tile))
+        loud[:, :m] = uns[:, t0:t0 + m] ** 0.3
+        runs = loud.reshape(rows, nt, RUN)
+        first = np.concatenate([last[:, None], runs[:, :-1, -1]], 1)
+        prev = np.concatenate([first[..., None], runs[..., :-1]], -1)
+        deriv = scale * np.abs(loud - prev.reshape(rows, tile))
+        drives[0, :, t0:t0 + m] = oma * exc[:, t0:t0 + m]
+        drives[1, :, t0:t0 + m] = oma * deriv[:, :m]
+        drives[2, :, t0:t0 + m] = oma * loud[:, :m]
+        last = loud[:, -1]
+    return drives
+
+
+@pytest.mark.parametrize("f", ROW_EDGES)
+@pytest.mark.parametrize("with_y0", [False, True])
+def test_recurrence_rows_scan_as_the_kernel_does(f, with_y0):
+    """K1's one-block-per-row plan (runs, warp scan, warp fold, the tile
+    walk with its carried state, y0) on the host equals the plain version
+    to 1e-12 in float64 at every tile edge."""
+    rng = np.random.default_rng(f + 100 * with_y0)
+    a = smoothing_coeffs(rng, 3, np.float64)
+    b = rng.standard_normal((1, 3, f))
+    y0 = rng.standard_normal((1, 3)) if with_y0 else np.zeros((1, 3))
+    got = _rows_on_host(a, b[0], y0[0])
+    want = cuda_iir.recurrence_banded_plain(
+        tt(a), tt(b), tt(y0) if with_y0 else None).numpy()[0]
+    assert np.isfinite(got).all()
+    assert rel(got, want) < 1e-12
+
+
+@pytest.mark.parametrize("f", ROW_EDGES)
+def test_fused_mod_rows_scan_as_the_kernel_does(f):
+    """K2's plan on the host (the drives built from the staged tiles with
+    loud_{t-1} across runs, warps and tiles, then K1's block scan of each)
+    equals the plain version to 1e-12 in float64 at every tile edge, with
+    uns jumping 1000-fold at every run edge, so that a wrong loud_{t-1}
+    shows in mod."""
+    rng = np.random.default_rng(f + 7)
+    a = smoothing_coeffs(rng, 3, np.float64)
+    exc2 = rng.uniform(0.01, 10.0, (1, 3, f))
+    uns2 = rng.uniform(0.01, 10.0, (1, 3, f))
+    uns2[..., np.arange(f) // RUN % 2 == 1] *= 1000.0
+    drives = _mod_drives_on_host(a, exc2[0], uns2[0], SCALE)
+    exc_filt, filt_deriv, filt_loud = (_rows_on_host(a, d, np.zeros(3))
+                                       for d in drives)
+    got = (exc_filt, filt_deriv / (1.0 + filt_loud / 0.3), filt_loud)
+    want = cuda_iir.fused_mod_smoothers_plain(tt(a), tt(exc2), tt(uns2),
+                                              SCALE)
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        assert rel(g, w.numpy()[0]) < 1e-12
+
+
+def test_recurrence_plan_constants_are_the_kernels():
+    """cuda_iir's plan constants and block_threads are recurrence.cu's: runs
+    of tile_scan.cuh's kRun, at most kMaxWarps warps a block, and a block
+    of the fewest warps that covers a row (a row past MAX_TILE frames is
+    walked in tiles of MAX_TILE)."""
+    src = (_build.CSRC / "recurrence.cu").read_text()
+    assert '#include "tile_scan.cuh"' in src and "using peaq::kRun;" in src
+    assert cuda_iir.RUN == tile_scan.RUN and cuda_iir.LANES == tile_scan.LANES
+    assert f"constexpr int kMaxWarps = {cuda_iir.MAX_WARPS};" in src
+    assert "constexpr int kMaxThreads = kMaxWarps * kWarp;" in src
+    assert "constexpr int kMaxTile = kRun * kMaxThreads;" in src
+    assert ("const long long warps = (f + kRun * kWarp - 1) / (kRun * kWarp);"
+            in src)
+    assert cuda_iir.MAX_TILE == RUN * LANES * cuda_iir.MAX_WARPS == 2560
+    for f in ROW_EDGES + [468, 2500, 10**6]:
+        threads = cuda_iir.block_threads(f)
+        assert threads % LANES == 0
+        assert LANES <= threads <= LANES * cuda_iir.MAX_WARPS
+        if f <= cuda_iir.MAX_TILE:
+            assert (threads - LANES) * RUN < f <= threads * RUN
+        else:
+            assert threads * RUN == cuda_iir.MAX_TILE
+    assert [cuda_iir.block_threads(f) for f in (468, 2500)] == [64, 320]
 
 
 @pytest.mark.parametrize("band_count", [109, 55])
