@@ -14,20 +14,28 @@ Phases, each on its own lines and ending with its seconds:
               ear's [2, 2, 40, 2500] and their tile edges F = 1 .. 5121, K1
               with and without y0 and on an all-zero row, K2 with uns
               jumping at every run edge; D1 and D3: their tile edges; K3:
-              band counts 1..128), in float32 and float64, the float32 DC
-              cascade's own rounding against float64, and two launches each
-              of K1, K2, K3, D1 and D3 bit for bit
+              band counts 1..128; D2: I = 1, 37, 10, 70,000 leads, counts
+              off its tiles, rows off their 16-byte boundary), in float32
+              and float64, the float32 DC cascade's own rounding against
+              float64, and two launches of every kernel bit for bit
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
               (stereo upmix), and a 10 s stereo pair against the NumPy
               spec's float64 results, frozen with the pair's fingerprint in
               tests/golden/torch_pair10_spec.json
   4b float64  the advanced path: the same 10 s pair against the frozen spec
-  5 float32   the basic float32 tier on the same pairs, and the cause of its
-              identical-sine ODG: the float32 rDFT's rounding floor
+  5 tiers     the basic float32 and accurate tiers on the same pairs: the
+              identical sine pair per tier on the card and on the CPU (the
+              float32 rDFT's rounding floor lifts float32's bandwidth MOVs;
+              accurate's float64 spectra do not), "mixed" equal to float32
   5b float32  the advanced float32 tier against the card's float64
-  6 counters  one float32 basic and one float32 advanced peaq() of the 10 s
-              pair, each with the counts set to 0 just before it: the
-              advanced call goes through all six kernels
+  5c corpus   drift corpus v2 (20 x 10 s stereo, gstpeaq_tpu_torch/utils/
+              corpus.py) through float64, float32 and accurate in both
+              modes: each tier's worst |dODG| against float64, its item and
+              the worst MOV deviation; accurate held within 1e-3 and
+              within 1e-5, a bar that float32 (the control) must miss
+  6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
+              each with the counts set to 0 just before it: the advanced
+              call goes through all six kernels
   7 times     CUDA-event medians of each kernel and its plain version in
               float32 and float64, each kernel's share of its bound (also
               at the advanced path's other call-site shapes), K1's library
@@ -47,10 +55,10 @@ operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64), counted from
 this run's main-shape inputs; `library_ms` is K1's grouped causal conv1d
 at its main shape, and null for the other kernels, since no single PyTorch
 call computes their functions; `launches_by_path` holds phase 6's
-count per path (basic, advanced; 0 where a path does not launch the
-kernel), `launches` their sum.  The line before the last is the card's name and
-power limit; the last line is {"ok": true, "device": {...}}.  Any failed
-check exits non-zero without that last line.  Without CUDA the
+float32 count per path (basic, advanced; 0 where a path does not launch
+the kernel), `launches` their sum.  The line before the last is the card's
+name and power limit; the last line is {"ok": true, "device": {...}}.  Any
+failed check exits non-zero without that last line.  Without CUDA the
 script exits non-zero at once and prints no result.  Nothing of JAX or of
 the JAX package gstpeaq_tpu is imported.
 """
@@ -59,13 +67,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import statistics
 import subprocess
 import sys
 import time
-from unittest import mock
 
 import numpy as np
 import torch
@@ -81,6 +89,7 @@ from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu_torch.ops import tile_scan
+from gstpeaq_tpu_torch.utils import corpus
 from gstpeaq_tpu_torch.utils import testsignals as TS
 
 # the NumPy spec's float64 results on ten_second_pair(), frozen with the
@@ -90,7 +99,7 @@ SPEC = pathlib.Path(__file__).resolve().parent / "tests" / "golden" / \
 
 MAIN = (2, 2, 109, 468)      # [sig, CH, Z, F] of a 10 s stereo pair
 FB_MAIN = (2, 2, 40, 15000)  # [sig, CH, Z, I] of its FB ear
-TIERS = ("float64", "float32")
+TIERS = ("float64", "float32", "accurate")
 DTYPES = (torch.float32, torch.float64)
 MODES = ("basic", "advanced")
 KERNELS = {
@@ -137,6 +146,14 @@ DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
 # tensor cores at its full 700 W (NVIDIA's data sheet)
 MEMORY_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# corpus v2's worst |dODG| against float64 (phase 5c): the conformance gate
+# JAX's "accurate" is held to, and accurate's own bar, which sits between
+# its readings on an H100 (4.4e-7 basic, 1.0e-6 advanced) and float32's
+# (4.7e-4, 9.6e-4; PERF.md section 6), so that a tier computing its
+# spectra in float32 fails it.  float32 is run through the same bar as a
+# control that must fail it.
+CONFORMANCE_BAR = 1e-3
+ACCURATE_BAR = 1e-5
 
 
 def ops_of(name: str, inputs) -> float:
@@ -146,7 +163,9 @@ def ops_of(name: str, inputs) -> float:
     and an add each in the shift-multiply walk; 2 Z for the lower part, the
     Toeplitz table's backward recurrence L_j = Ene_j + aLe L_{j+1}; and
     15 Z for the per-band quantities and the output: aUCE (2), g_iu (4),
-    Ene (4), the walk's ratio (1), E2^2.5 / norm (4)."""
+    Ene (4), the walk's ratio (1), E2^2.5 / norm (4).  D2 per instant:
+    2 Z(Z - 1) for the complex upper walk, 4 Z for the complex lower
+    recurrence B_c = A_c + CL B_{c+1} and 3 Z for |B_c|^2."""
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
     per_element = {"recurrence_banded": 2,      # a y + b
@@ -164,16 +183,17 @@ def ops_of(name: str, inputs) -> float:
     lines = x.numel() // z                      # frame rows, or instants
     if name == "spread_fft":
         return (z * (z - 1) + 2 * z + 15 * z) * lines
-    # spread_fb: 4 per (i < j) step of the complex upper walk, 4 per
-    # (j >= c) multiply-add of the complex lower product, |.|^2 (3)
-    return (4 * z * z + 3 * z) * lines
+    return (2 * z * (z - 1) + 4 * z + 3 * z) * lines
 
 
 def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
     """The least time in ms that the card could take for kernel `name`'s
     function on `inputs` giving `output`, and what sets it: the bytes
     (each input read once, each output written once) over the memory rate,
-    or the operations (ops_of) over the peak rate of `dtype`."""
+    or the operations (ops_of) over the peak rate of `dtype`.  D2 reads cu
+    of every band but the top one, from which no source walks."""
+    if name == "spread_fb":
+        inputs = (*inputs[:2], inputs[2][..., :-1, :])
     moved = sum(t.numel() * t.element_size() for t in (*inputs, output))
     by_bytes = moved / MEMORY_BYTES_PER_S * 1e3
     by_ops = ops_of(name, inputs) / PEAK_OPS_PER_S[dtype] * 1e3
@@ -270,18 +290,22 @@ def phase_build() -> None:
     _build.library()
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}, one process per source: "
           f"{path.name} in {seconds:.1f} s")
-    # ptxas: each kernel's registers and spills, per working type and, for
-    # D3's five launches, per step (the kernel's int template argument)
+    # ptxas: each kernel's registers and spills, per working type and
+    # int template argument: D3's five launches per step, D2 per values a
+    # copy
     entry, spills = None, ""
     names = "|".join(KERNELS)
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             m = re.search(rf"({names})(?:_([a-z]+))?_kernelI([fd])"
-                          rf"(?:Li(\d+)E)?", line)
+                          rf"((?:Li\d+E)*)", line)
+            ints = m and re.findall(r"Li(\d+)E", m[4])
+            labels = ("copies of",) if m and m[1] == "spread_fb" \
+                else ("step",)
             entry = m and " ".join(
                 [m[1]] + ([m[2]] if m[2] else [])
                 + ["double" if m[3] == "d" else "float"]
-                + ([f"step {m[4]}"] if m[4] else []))
+                + [f"{label} {i}" for label, i in zip(labels, ints)])
         elif entry and "spill" in line:
             spills = line.strip()
         elif entry and "Used" in line:
@@ -291,10 +315,10 @@ def phase_build() -> None:
 
 def fb_rows(pair10, k) -> torch.Tensor:
     """The 10 s pair's FB-path input [2(ref, test), CH, 480000] on the card
-    in k's dtype."""
+    in k's spectrum dtype, the DC stage's."""
     return torch.stack([
         torch.as_tensor(np.ascontiguousarray(sig.T), device="cuda")
-        for sig in pair10]).to(k.internal_noise.dtype)
+        for sig in pair10]).to(k.level_factor.dtype)
 
 
 def dc_out(out) -> torch.Tensor:
@@ -325,10 +349,10 @@ def fb_cases(dtype, rng, pair10, t):
                               re, im, c1, a, y),
                           (re, im, c1)))
     cases.append(Case("spread_fb", "main",
-                      lambda: cuda_fb.spread_fb(re, im, cu, k.lower_matrix),
+                      lambda: cuda_fb.spread_fb(re, im, cu, k.cl),
                       lambda: cuda_fb.spread_fb_plain(re, im, cu,
                                                       k.lower_matrix),
-                      (re, im, cu, k.lower_matrix)))
+                      (re, im, cu)))
     for n in (37, 1):
         er = rng.standard_normal((2, 40, n)) * 100.0
         ei = rng.standard_normal((2, 40, n)) * 100.0
@@ -345,7 +369,26 @@ def fb_cases(dtype, rng, pair10, t):
                               cuda_fb.slope_state_plain(er, ei, c1, a, y)))
         cases.append(Case("spread_fb", f"I={n}",
                           lambda er=er, ei=ei, ecu=ecu:
-                          cuda_fb.spread_fb(er, ei, ecu, k.lower_matrix),
+                          cuda_fb.spread_fb(er, ei, ecu, k.cl),
+                          lambda er=er, ei=ei, ecu=ecu:
+                          cuda_fb.spread_fb_plain(er, ei, ecu,
+                                                  k.lower_matrix)))
+    # D2's tiles, from a generator of its own: more leads than a grid's y
+    # extent holds (65,535); lead x instant counts that are not a multiple
+    # of a tile's 64 / 32 instants; copies of two instants (I = 10) and of
+    # one (rows that start off their 16-byte boundary)
+    grng = np.random.default_rng(8)
+    for shape, skew in (((70000, 40, 3), 0), ((5, 40, 7), 0),
+                        ((9, 40, 13), 0), ((3, 40, 10), 0), ((2, 40, 12), 1)):
+        er, ei, ecu = (t(np.concatenate([np.zeros(skew), x.ravel()]))[skew:]
+                       .view(shape) for x in (
+                           grng.standard_normal(shape) * 100.0,
+                           grng.standard_normal(shape) * 100.0,
+                           grng.uniform(0.2, 0.9, shape)))
+        cases.append(Case("spread_fb", f"{list(shape)}"
+                          + (f" data {skew} value on" if skew else ""),
+                          lambda er=er, ei=ei, ecu=ecu:
+                          cuda_fb.spread_fb(er, ei, ecu, k.cl),
                           lambda er=er, ei=ei, ecu=ecu:
                           cuda_fb.spread_fb_plain(er, ei, ecu,
                                                   k.lower_matrix)))
@@ -675,35 +718,25 @@ def phase_float64(pair10, spec: dict) -> float:
     return got.odg
 
 
-def spectrum_hop_f64(k, blocks):
-    """FE._spectrum_hop with the rDFT in float64, rounded to the band
-    dtype: with it patched in, the float32 band chain runs on float64
-    spectra."""
-    frames = torch.cat([blocks[..., :-1, :], blocks[..., 1:, :]], dim=-1)
-    spec = torch.fft.rfft(frames.double() * k.hann.double(), dim=-1)
-    return spec.real.to(k.hann.dtype), spec.imag.to(k.hann.dtype)
-
-
-def phase_float32(pair10, odg64: float) -> None:
-    """The float32 tier: saw/tri within 2e-3 of -2.007 and the 10 s pair
-    within 2e-3 of float64.  The identical sine pair misses the 1e-2 bar
-    around 0.171: its bandwidth MOVs compare bins against the float32
-    rDFT's rounding floor.  The phase shows that on the card (the sine
-    pair's bandwidth MOVs and ODG per tier, on the card and on the CPU, and
-    the float32 band chain on a float64 rDFT, which must meet the bar) and
-    bounds the float32 ODG at 0.05 from 0.171, set from the readings of
-    PERF.md section 6."""
-    print("phase 5 main path, float32", flush=True)
+def phase_tiers(pair10, odg64: float) -> None:
+    """The basic float32 and accurate tiers: saw/tri within 2e-3 of -2.007
+    and the 10 s pair within 2e-3 of float64 in each.  The identical sine
+    pair: accurate (the float32 band chain on float64 spectra) within 1e-2
+    of 0.171; float32 misses that bar, since its bandwidth MOVs compare
+    bins against the float32 rDFT's rounding floor, and is bounded at 0.05
+    from 0.171, set from the readings of PERF.md section 6.  The phase
+    prints the sine pair's bandwidth MOVs and ODG per tier on the card and
+    on the CPU, and checks that "mixed" gives float32's result."""
+    print("phase 5 main path, tiers", flush=True)
     pairs = pinned_pairs()
     sine_pair = pairs["sine/sine"]
     readings = {}
     for label, dtype, device in (("float64 card", "float64", "cuda"),
                                  ("float32 card", "float32", "cuda"),
-                                 ("float32 cpu", "float32", "cpu")):
+                                 ("float32 cpu", "float32", "cpu"),
+                                 ("accurate card", "accurate", "cuda"),
+                                 ("accurate cpu", "accurate", "cpu")):
         readings[label] = api.peaq(*sine_pair, dtype=dtype, device=device)
-    with mock.patch.object(FE, "_spectrum_hop", spectrum_hop_f64):
-        readings["float32 on float64 rDFT card"] = api.peaq(
-            *sine_pair, dtype="float32")
     for label, res in readings.items():
         others = max(abs(res.movs[n] - readings["float64 card"].movs[n])
                      / (1 + abs(readings["float64 card"].movs[n]))
@@ -712,17 +745,20 @@ def phase_float32(pair10, odg64: float) -> None:
               f"{res.movs['BandwidthRefB']:.4f}, BandwidthTestB "
               f"{res.movs['BandwidthTestB']:.4f}, other MOVs within "
               f"{others:.2e} of float64 card")
-    bar_f64_rdft = readings["float32 on float64 rDFT card"].odg
-    check(abs(bar_f64_rdft - 0.171) <= 1e-2,
-          f"float32 band chain on the float64 rDFT: sine/sine {bar_f64_rdft}")
+    accurate = readings["accurate card"].odg
+    check(abs(accurate - 0.171) <= 1e-2, f"accurate sine/sine ODG {accurate}")
     sine = readings["float32 card"].odg
     check(abs(sine - 0.171) <= 0.05, f"float32 sine/sine ODG {sine}")
-    saw = api.peaq(*pairs["saw/tri"], dtype="float32").odg
-    ten = api.peaq(*pair10, dtype="float32").odg
-    print(f"  float32: saw/tri {saw:.6f}, 10 s pair {ten:.6f} (float64 "
-          f"{odg64:.6f})")
-    check(abs(saw + 2.007) <= 2e-3, f"float32 saw/tri ODG {saw}")
-    check(abs(ten - odg64) <= 2e-3, f"float32 10 s pair ODG {ten}")
+    mixed = api.peaq(*sine_pair, dtype="mixed")
+    check(mixed.odg == sine and mixed.movs == readings["float32 card"].movs,
+          "mixed differs from float32")
+    for tier in ("float32", "accurate"):
+        saw = api.peaq(*pairs["saw/tri"], dtype=tier).odg
+        ten = api.peaq(*pair10, dtype=tier).odg
+        print(f"  {tier}: saw/tri {saw:.6f}, 10 s pair {ten:.6f} (float64 "
+              f"{odg64:.6f})")
+        check(abs(saw + 2.007) <= 2e-3, f"{tier} saw/tri ODG {saw}")
+        check(abs(ten - odg64) <= 2e-3, f"{tier} 10 s pair ODG {ten}")
 
 
 def phase_adv_float64(pair10, spec: dict):
@@ -754,31 +790,90 @@ def phase_adv_float32(pair10, adv64) -> None:
               f"advanced float32 {label} ODG {f32.odg} against {f64.odg}")
 
 
-def phase_counters(pair10) -> dict:
-    """Each mode's float32 peaq() of the 10 s pair with every count set to
-    0 just before it and read just after.  Returns each kernel's counts
-    per mode (0 where a mode does not launch it)."""
-    print("phase 6 launch counters", flush=True)
-    least = {"basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
-                       "spread_fft": 1},
-             "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
-                          "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
-                          "dc_chain": 1}}
-    counts = {name: {} for name in COUNTERS}
+def phase_corpus(items: int = 20, seconds: float = 10.0) -> dict:
+    """Drift corpus v2 (realistic_pairs(20, 10.0): seed 3, stereo 10 s)
+    through float64, float32 and accurate in both modes.  Per tier and mode:
+    the worst |dODG| against the card's float64 and the item that sets it,
+    and the worst MOV deviation |d| / (1 + |w|) with its MOV and item.
+    accurate is held within CONFORMANCE_BAR and ACCURATE_BAR in both modes;
+    float32, the control, must miss ACCURATE_BAR, so that the bar tells the
+    tiers apart.  A NaN in both tiers counts as agreement, in one alone as
+    inf.  "mixed" equals float32 on the first item.  Returns the worst
+    |dODG| per (mode, tier)."""
+    print("phase 5c drift corpus v2", flush=True)
+    refs, tests = corpus.realistic_pairs(items, seconds)
+    worst = {}
     for mode in MODES:
-        for module, attr in COUNTERS.values():
-            setattr(module, attr, 0)
-        result = api.peaq(*pair10, advanced=mode == "advanced",
-                          dtype="float32")
-        for name, (module, attr) in COUNTERS.items():
-            counts[name][mode] = getattr(module, attr)
-        print(f"  float32 {mode} peaq() of the 10 s pair: ODG "
-              f"{result.odg:.6f}, launches "
-              f"{ {name: n[mode] for name, n in counts.items()} }")
-        check(np.isfinite(result.odg), f"float32 {mode} ODG is not finite")
-        for name, n in least[mode].items():
-            check(counts[name][mode] >= n, f"{mode}: {name} launched "
-                  f"{counts[name][mode]} times, expected >= {n}")
+        advanced = mode == "advanced"
+        names = C.MOV_ADVANCED_NAMES if advanced else C.MOV_BASIC_NAMES
+        res = {tier: [api.peaq(r, t, advanced=advanced, dtype=tier)
+                      for r, t in zip(refs, tests)] for tier in TIERS}
+
+        def dev(g, w, scale=0.0):
+            if np.isnan(w) or np.isnan(g):
+                return 0.0 if np.isnan(w) and np.isnan(g) else math.inf
+            return abs(g - w) / (1.0 + scale * abs(w))
+
+        for tier in TIERS[1:]:
+            odg = [dev(g.odg, w.odg) for g, w in zip(res[tier],
+                                                     res["float64"])]
+            movs = [(dev(g.movs[n], w.movs[n], 1.0), n, i)
+                    for i, (g, w) in enumerate(zip(res[tier], res["float64"]))
+                    for n in names]
+            i = int(np.argmax(odg))
+            mov = max(movs)
+            worst[mode, tier] = odg[i]
+            print(f"  {mode} {tier}: worst |dODG| {odg[i]:.3e} at item "
+                  f"{i + 1} (float64 ODG {res['float64'][i].odg:.6f}); "
+                  f"worst MOV |d|/(1 + |w|) {mov[0]:.3e} ({mov[1]}, item "
+                  f"{mov[2] + 1}); within {CONFORMANCE_BAR:g}: "
+                  f"{odg[i] <= CONFORMANCE_BAR}, within {ACCURATE_BAR:g}: "
+                  f"{odg[i] <= ACCURATE_BAR}", flush=True)
+        mixed = api.peaq(refs[0], tests[0], advanced=advanced, dtype="mixed")
+        check(mixed.odg == res["float32"][0].odg
+              and mixed.movs == res["float32"][0].movs,
+              f"{mode} mixed differs from float32")
+        for bar in (CONFORMANCE_BAR, ACCURATE_BAR):
+            check(worst[mode, "accurate"] <= bar,
+                  f"{mode} accurate drifts {worst[mode, 'accurate']} ODG "
+                  f"from float64 on corpus v2, past {bar:g}")
+        check(not worst[mode, "float32"] <= ACCURATE_BAR,
+              f"{mode} float32 drifts only {worst[mode, 'float32']} ODG on "
+              f"corpus v2: the bar {ACCURATE_BAR:g} does not tell it from "
+              "accurate")
+    return worst
+
+
+def phase_counters(pair10) -> dict:
+    """Each mode's peaq() of the 10 s pair in each tier, with every count
+    set to 0 just before it and read just after.  Each tier makes the same
+    launches: 3/1/1/0/0/0 (basic) and 4/1/1/1/1/1 (advanced) of K1, K2,
+    K3, D1, D2, D3.  Returns each kernel's counts per mode in float32 (0
+    where a mode does not launch it)."""
+    print("phase 6 launch counters", flush=True)
+    want = {"basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
+                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
+                      "dc_chain": 0},
+            "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
+                         "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
+                         "dc_chain": 1}}
+    counts = {name: {} for name in COUNTERS}
+    for tier in TIERS:
+        for mode in MODES:
+            for module, attr in COUNTERS.values():
+                setattr(module, attr, 0)
+            result = api.peaq(*pair10, advanced=mode == "advanced",
+                              dtype=tier)
+            got = {name: getattr(module, attr)
+                   for name, (module, attr) in COUNTERS.items()}
+            print(f"  {tier} {mode} peaq() of the 10 s pair: ODG "
+                  f"{result.odg:.6f}, launches {got}")
+            check(np.isfinite(result.odg), f"{tier} {mode} ODG is not finite")
+            check(got == want[mode], f"{tier} {mode}: launches {got}, "
+                  f"expected {want[mode]}")
+            if tier == "float32":
+                for name, n in got.items():
+                    counts[name][mode] = n
     return counts
 
 
@@ -881,13 +976,13 @@ def phase_times(main: dict, pair10, reps: int = 30) -> dict:
                   f"({bound_by})")
             if c.name == "recurrence_banded":
                 k1_library(*c.inputs, c.case)
-    for tier in TIERS:
-        k = FB.build_consts(EP.fb_ear_params(), api.DTYPES[tier], "cuda")
+    for dtype in DTYPES:      # the tiers' spectrum dtypes
+        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
         hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
         with api.full_precision_matmuls():
             fir, _ = cuda_ms(lambda: FB.filter_bank(k, hp2), calls=5)
         print(f"  FIR bank (conv1d, 32 in-channels, window 47, 80 out) on "
-              f"{tuple(hp2.shape)} {tier}: {fir:.4f} ms (median of 10)")
+              f"{tuple(hp2.shape)} {dtype}: {fir:.4f} ms (median of 10)")
     medians = {}
     for mode in MODES:
         walls = {tier: [] for tier in TIERS}
@@ -980,8 +1075,9 @@ def main() -> None:
     main_kernels = timed(phase_kernels, rng, pair10)
     odg64 = timed(phase_float64, pair10, spec)
     adv64 = timed(phase_adv_float64, pair10, spec)
-    timed(phase_float32, pair10, odg64)
+    timed(phase_tiers, pair10, odg64)
     timed(phase_adv_float32, pair10, adv64)
+    timed(phase_corpus)
     counts = timed(phase_counters, pair10)
     walls = timed(phase_times, main_kernels, pair10)
     timed(phase_profile, pair10, walls)

@@ -21,12 +21,24 @@ from .models.advanced import AdvancedPipeline
 from .models.basic import BasicPipeline
 from .ops import framing
 
-# precision tiers -> working dtype; TF32 is off in both.  "accurate" is
-# an alias of "float32" until ROADMAP item A12 measures the tiers.  The
-# default is float64: it reproduces the pinned ODGs, and on an H100 it
-# costs what float32 costs (PERF.md section 5).
-DTYPES = {"float32": torch.float32, "accurate": torch.float32,
-          "float64": torch.float64}
+# precision tiers -> (band dtype, spectrum dtype), the pair that
+# gstpeaq_tpu/api.py::resolve_dtypes returns; TF32 is off in every tier.
+#   float64   double everywhere: reproduces the pinned ODGs and the C
+#             reference; on an H100 it costs what float32 costs (PERF.md
+#             section 5), so it is the default
+#   float32   float32 everywhere
+#   mixed     JAX's FFT-spectra tier: float32 spectra from an FFT and the
+#             float32 band chain, which is what float32 computes here (the
+#             port has one rDFT form, torch.fft.rfft), so the same pair
+#   accurate  the float32 band chain on float64 spectra: the rDFT, power,
+#             the bin-domain MOV terms and, in the advanced mode, the DC
+#             stage and the FIR bank in float64.  Held within 1e-3 ODG of
+#             float64 on drift corpus v2 (chip_smoke.py phase 5c), the
+#             conformance gate JAX's "accurate" is held to
+DTYPES = {"float64": (torch.float64, torch.float64),
+          "float32": (torch.float32, torch.float32),
+          "mixed": (torch.float32, torch.float32),
+          "accurate": (torch.float32, torch.float64)}
 DEFAULT_DTYPE = "float64"
 
 
@@ -70,8 +82,9 @@ def pipeline(band_count: int, playback_level: float, settings: C.Settings,
              dtype: str, device: torch.device) -> BasicPipeline:
     """The basic pipeline of precision tier `dtype` with its constants on
     `device`, built once per configuration."""
-    return BasicPipeline(band_count, playback_level, settings, DTYPES[dtype],
-                         device)
+    band, spectrum = DTYPES[dtype]
+    return BasicPipeline(band_count, playback_level, settings, band, device,
+                         spectrum)
 
 
 @functools.lru_cache(maxsize=8)
@@ -79,7 +92,8 @@ def advanced_pipeline(playback_level: float, settings: C.Settings,
                       dtype: str, device: torch.device) -> AdvancedPipeline:
     """The advanced pipeline of precision tier `dtype` with its constants
     on `device`, built once per configuration."""
-    return AdvancedPipeline(playback_level, settings, DTYPES[dtype], device)
+    band, spectrum = DTYPES[dtype]
+    return AdvancedPipeline(playback_level, settings, band, device, spectrum)
 
 
 def _padded(sig: np.ndarray, n_frames: int, frame_size: int,

@@ -56,7 +56,7 @@ def fb_consts_from_jax(leaves: dict[str, np.ndarray], swap_slope=False,
     `FBEarConsts` (its field names; the TPU tilings h_group_kernels and
     back_mask_gemm are not read).  The lag-order FIR taps are recovered
     from h_phase by inverting its phase-0 layout; the dtype is the one of
-    internal_noise."""
+    internal_noise, the spectrum dtype the one of level_factor."""
     h_phase = np.asarray(leaves["h_phase"])
     n_ch = 2 * C.FB_BAND_COUNT
     kp = h_phase[:, :, :n_ch].transpose(2, 0, 1).reshape(n_ch, -1)
@@ -64,5 +64,6 @@ def fb_consts_from_jax(leaves: dict[str, np.ndarray], swap_slope=False,
     values = {name: np.asarray(leaves[name]) for name in FB.CONST_FIELDS
               if name not in ("fir_weight", "back_mask_w")}
     dtype = getattr(torch, values["internal_noise"].dtype.name)
+    spectrum_dtype = getattr(torch, values["level_factor"].dtype.name)
     return FB.consts_from_taps(h_rev[:, ::-1], values, dtype, device,
-                               swap_slope)
+                               swap_slope, spectrum_dtype)

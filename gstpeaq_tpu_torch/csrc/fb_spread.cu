@@ -37,27 +37,60 @@
 // D2  spread_fb    replaces pallas_fb.py::spread_apply (K4) and
 //     spread_from_conv (K6).  Per (lead, instant):
 //       A_j  = fb_j + sum_{i<j} fb_i cu_i^(j-i)         (upper slope)
-//       E0_c = |sum_{j>=c} lower[j, c] A_j|^2             (lower slope)
+//       E0_c = |sum_{j>=c} CL^(j-c) A_j|^2                (lower slope)
 //     K6 read the raw conv outputs and wrote E0 phase-major for the TPU's
 //     back-masking GEMMs; on the flat layout it computes exactly K4's E0.
-//     What bounds it: arithmetic and registers.  Per instant it reads 3 x 40
-//     values and writes 40, against 2 x 780 shift-multiply steps and
-//     2 x 820 FMAs of the lower product.  Design: one thread per (lead,
-//     instant), so neighbouring threads read neighbouring instants and every
-//     load is coalesced; Z = 40 is a compile-time constant and the loops are
-//     unrolled, so the 80 accumulators A_j stay in registers.  The upper
-//     slope walks w = fb_i cu_i^(j-i) by repeated multiplication (the shift-
-//     multiply chain of K4 and the C reference's loop); source bands run
-//     from the top down, so each A_i is still the plain fb_i when it is
-//     read as a source.  The lower product runs against the [40, 40]
-//     matrix staged in shared memory (every thread reads the same entry:
-//     a broadcast), in plain FMAs of the working type: no tensor cores, no
-//     TF32, the full precision K4 asks for with Precision.HIGHEST.
+//     What bounds it: bytes, by the count.  Per instant it reads 2 x 40 + 39
+//     values (no source walks from the top band's cu) and writes 40 (11.4 /
+//     22.8 us at [2, 2, 40, 15000] at 3.35 TB/s), against 2 x 780 steps of the upper walk, a multiply and an add
+//     each (and 2 x 40 of the lower recurrence): ~6 / ~12 us of issue on
+//     132 SMs in float / double.  What holds it near half of that bound
+//     on an H100 is neither alone: the copies, the walk and the stores of
+//     a tile add up rather than overlap, since at that shape the tiles are
+//     about one wave of blocks, which copy, walk and store together
+//     (PERF.md section 6).
+//     Design:
+//       * persistent blocks (as many as fit the card) walk tiles of
+//         kTileInstants<T> consecutive instants of the flat leads x
+//         instants axis, any number of leads; cp.async copies a tile's
+//         re, im and cu rows (runs of consecutive instants, 16 bytes a copy
+//         where n and the pointers allow it, else 8, else one value) into
+//         shared memory, one tile a block at a time: what a block walks,
+//         it waits for, but at 30 KB a tile ~7 blocks share an SM and cover
+//         each other's copies (a ring of 2 or more tiles a block left room
+//         for 3 or fewer blocks an SM and was slower, PERF.md section 6);
+//       * the lower table is Toeplitz, so the lower slope is the backward
+//         recurrence B_39 = A_39, B_c = A_c + CL B_{c+1}, E0_c = |B_c|^2,
+//         written as soon as B_c exists: 40 steps a component in place of
+//         a [40, 40] product, and CL is one scalar of the working type (as
+//         K3 takes aLe);
+//       * the upper and lower maps are real-linear with real weights, so
+//         the real and imaginary parts never mix before |.|^2: each has a
+//         thread of its own, 40 accumulators A_j in registers, and the
+//         two join by one __shfl_xor_sync (one thread an instant, with 80
+//         accumulators, was slower, PERF.md section 6).  A warp
+//         takes 16 consecutive instants, its low half-warp the real parts
+//         and its high half the imaginary (whose rows sit 16 elements on,
+//         so the halves read other banks), and both read the same cu;
+//       * the upper slope walks w = fb_i cu_i^(j-i) by repeated
+//         multiplication (the shift-multiply chain of K4 and the C
+//         reference's loop), kWalkGroup sources in lockstep, so that a
+//         step holds that many independent multiply-add chains; groups
+//         run from the top down, so each A_i is still the plain fb_i when
+//         it is read as a source, and A_j sums its terms from the nearest
+//         source down, in the order of the plain per-source walk;
+//       * plain multiplies and adds of the working type: no tensor cores,
+//         no TF32.  Each value of E0 is computed once, the same way
+//         whatever the grid: two launches give the same bits.
+//     gstpeaq_tpu_torch/tools/spread_fb_ab.py times this form against
+//     variants of its constants (other tiles, groups and grids) and
+//     against another checkout's D2.
 //
 // Templated on float and double; no fast-math intrinsic is used.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "tile_scan.cuh"
 
@@ -81,7 +114,19 @@ using peaq::tile_entry;
 constexpr int kZ = 40;                  // FB band count (BS.1387 Table 8)
 // ln DIST, DIST = 0.921851456499719 (src/fbearmodel.c:50)
 constexpr double kLnDist = -0.08137117849224008;
-constexpr int kSpreadThreads = 128;
+// D2: instants a tile; the rows a tile stages (re and im of each band, cu
+// of all but the top one, which no walk reads) and the offset of the rows
+// past re's; one thread a part (re, im) of each instant
+template <typename T>
+constexpr int kTileInstants = sizeof(T) == 4 ? 64 : 32;
+constexpr int kTileRows = 3 * kZ - 1;
+constexpr int kRowShift = 16;
+constexpr int kWalkGroup = 16;          // sources the upper walk moves at once
+template <typename T>
+constexpr int kSpreadThreads = 2 * kTileInstants<T>;
+template <typename T>
+constexpr int kSpreadBytes =
+    (kTileRows * kTileInstants<T> + kRowShift) * static_cast<int>(sizeof(T));
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
@@ -178,48 +223,149 @@ slope_state_cu_kernel(const T* __restrict__ fb_re,
                       blockIdx.x / tiles, blockIdx.x % tiles, tiles, seg, co);
 }
 
+// Element (row, instant) of a staged tile: rows 0..39 re, 40..79 im,
+// 80..118 cu, the rows past re's kRowShift elements on.
 template <typename T>
-__global__ void __launch_bounds__(kSpreadThreads)
-spread_fb_kernel(const T* __restrict__ fb_re, const T* __restrict__ fb_im,
-                 const T* __restrict__ cu, const T* __restrict__ lower,
-                 T* __restrict__ e0, long long n) {
-  __shared__ T low[kZ * kZ];
-  for (int i = threadIdx.x; i < kZ * kZ; i += blockDim.x) low[i] = lower[i];
-  __syncthreads();
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const long long base = static_cast<long long>(blockIdx.y) * kZ * n + t;
-  T ar[kZ];
-  T ai[kZ];
+__device__ __forceinline__ int tile_slot(int row, int instant) {
+  return row * kTileInstants<T> + (row >= kZ ? kRowShift : 0) + instant;
+}
+
+// The flat instant g's offset in a [leads, kZ, n] array, band 0.
+__device__ __forceinline__ long long instant_base(long long g, long long n) {
+  const long long lead = g / n;
+  return lead * kZ * n + (g - lead * n);
+}
+
+// Queue one copy of kVec consecutive instants of a row from `src` to `dst`
+// (both aligned to its size).
+template <typename T, int kVec>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
+  const auto to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(to),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+  }
+}
+
+// Queue the copies of tile `tile` into `buf` as one cp.async group: each
+// thread copies kVec consecutive instants of every kStride-th row, so a
+// warp reads runs of consecutive instants of a few rows.  Instants past
+// `total` copy the tile's last whole kVec again.
+template <typename T, int kVec>
+__device__ __forceinline__ void stage_tile(
+    const T* __restrict__ fb_re, const T* __restrict__ fb_im,
+    const T* __restrict__ cu, T* buf, long long tile, long long n,
+    long long total) {
+  constexpr int kI = kTileInstants<T>;
+  constexpr int kChunks = kI / kVec;                   // copies a row
+  constexpr int kStride = kSpreadThreads<T> / kChunks;  // rows at once
+  const int instant = threadIdx.x % kChunks * kVec;
+  const int row0 = threadIdx.x / kChunks;
+  long long g = tile * kI + instant;
+  if (g >= total) g = total - kVec;
+  const long long base = instant_base(g, n) + row0 * n;
+  const long long step = kStride * n;
+  T* dst = buf + instant;  // + tile_slot's row offsets below
+  const T* re = fb_re + base;
+  const T* im = fb_im + base;
+  const T* c = cu + base;
+#pragma unroll 4
+  for (int row = row0; row < kZ; row += kStride, re += step) {
+    copy_async<T, kVec>(dst + row * kI, re);
+  }
+  dst += kZ * kI + kRowShift;
+#pragma unroll 4
+  for (int row = row0; row < kZ; row += kStride, im += step) {
+    copy_async<T, kVec>(dst + row * kI, im);
+  }
+  dst += kZ * kI;
+#pragma unroll 4
+  for (int row = row0; row < kZ - 1; row += kStride, c += step) {
+    copy_async<T, kVec>(dst + row * kI, c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// E0 of one staged tile; see the header.
+template <typename T>
+__device__ __forceinline__ void spread_tile(const T* buf, T cl,
+                                            T* __restrict__ e0, long long tile,
+                                            long long n, long long total) {
+  constexpr int kI = kTileInstants<T>;
+  constexpr int kSpan = kWarp / 2;           // instants a warp
+  const int lane = threadIdx.x % kWarp;
+  const int part = lane / kSpan;             // 0: re, 1: im
+  const int instant = threadIdx.x / kWarp * kSpan + lane % kSpan;
+  T a[kZ];
 #pragma unroll
   for (int j = 0; j < kZ; ++j) {
-    ar[j] = fb_re[base + j * n];
-    ai[j] = fb_im[base + j * n];
+    a[j] = buf[tile_slot<T>(part * kZ + j, instant)];
   }
+  // the upper walk, kWalkGroup sources [lo, top] at a time from the top
+  // down, each group in lockstep: at step s every source i of the group
+  // moves on to band i + s (w_i *= cu_i, A_{i+s} += w_i), so a step holds
+  // up to kWalkGroup independent chains.  A_j takes its terms from source
+  // j - 1 down to 0, and each w_i starts from A_i before any lower source
+  // has added to it
 #pragma unroll
-  for (int i = kZ - 2; i >= 0; --i) {
-    const T c = cu[base + i * n];
-    T wr = ar[i];
-    T wi = ai[i];
+  for (int top = kZ - 2; top >= 0; top -= kWalkGroup) {
+    const int lo = top >= kWalkGroup - 1 ? top - (kWalkGroup - 1) : 0;
+    T c[kWalkGroup];
+    T w[kWalkGroup];
 #pragma unroll
-    for (int j = i + 1; j < kZ; ++j) {
-      wr = wr * c;
-      wi = wi * c;
-      ar[j] = ar[j] + wr;
-      ai[j] = ai[j] + wi;
+    for (int k = 0; k < kWalkGroup; ++k) {
+      if (lo + k <= top) {
+        c[k] = buf[tile_slot<T>(2 * kZ + lo + k, instant)];
+        w[k] = a[lo + k];
+      }
+    }
+#pragma unroll
+    for (int step = 1; step < kZ - lo; ++step) {
+#pragma unroll
+      for (int k = 0; k < kWalkGroup; ++k) {
+        if (lo + k <= top && lo + k + step < kZ) {
+          w[k] = w[k] * c[k];
+          a[lo + k + step] = a[lo + k + step] + w[k];
+        }
+      }
     }
   }
+  const long long g = tile * kI + instant;
+  const bool live = g < total;
+  const long long base = instant_base(live ? g : total - 1, n);
+  T b = a[kZ - 1];
 #pragma unroll
-  for (int c = 0; c < kZ; ++c) {
-    T fr = T(0);
-    T fi = T(0);
-#pragma unroll
-    for (int j = c; j < kZ; ++j) {
-      fr += low[j * kZ + c] * ar[j];
-      fi += low[j * kZ + c] * ai[j];
-    }
-    e0[base + c * n] = fr * fr + fi * fi;
+  for (int c = kZ - 1; c >= 0; --c) {
+    if (c < kZ - 1) b = a[c] + cl * b;
+    T e = b * b;
+    e += __shfl_xor_sync(peaq::kFull, e, kSpan);
+    // the halves take turns at the stores
+    if (live && part == (c & 1)) e0[base + c * n] = e;
+  }
+}
+
+// Persistent blocks over `tiles` tiles of the flat leads x instants axis
+// (`total` instants): each block stages a tile into shared memory, copying
+// kVec instants at a time, then computes it; see the header.
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kSpreadThreads<T>)
+spread_fb_kernel(const T* __restrict__ fb_re, const T* __restrict__ fb_im,
+                 const T* __restrict__ cu, T cl, T* __restrict__ e0,
+                 long long n, long long total, long long tiles) {
+  extern __shared__ __align__(16) unsigned char spread_smem[];
+  T* buf = reinterpret_cast<T*>(spread_smem);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    stage_tile<T, kVec>(fb_re, fb_im, cu, buf, tile, n, total);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    spread_tile<T>(buf, cl, e0, tile, n, total);
+    __syncthreads();  // before the next tile overwrites the buffer
   }
 }
 
@@ -252,22 +398,87 @@ int launch_slope(const void* fb_re, const void* fb_im, const void* c1_band,
   return static_cast<int>(cudaGetLastError());
 }
 
+// D2's grid for copies of kVec instants: as many blocks as fit the card at
+// once (at least one a SM), set up once per device: the shared memory a
+// block asks for, then the occupancy.  0 on an error, with the error in
+// *err.
+template <typename T, int kVec>
+long long spread_blocks(int* err) {
+  constexpr int kMaxDevices = 64;
+  static long long cached[kMaxDevices] = {};
+  int device = 0, sms = 0, per_sm = 0;
+  *err = static_cast<int>(cudaGetDevice(&device));
+  if (*err != 0) return 0;
+  if (device < kMaxDevices && cached[device] > 0) return cached[device];
+  const auto kernel = spread_fb_kernel<T, kVec>;
+  *err = static_cast<int>(cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, device));
+  if (*err == 0) {
+    *err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSpreadBytes<T>));
+  }
+  if (*err == 0) {
+    *err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kSpreadThreads<T>, kSpreadBytes<T>));
+  }
+  if (*err != 0) return 0;
+  const long long blocks =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  if (device < kMaxDevices) cached[device] = blocks;
+  return blocks;
+}
+
+template <typename T, int kVec>
+int launch_spread_vec(const T* fb_re, const T* fb_im, const T* cu, T cl,
+                      T* e0, long long total, long long n,
+                      cudaStream_t stream) {
+  int err = 0;
+  long long blocks = spread_blocks<T, kVec>(&err);
+  if (err != 0) return err;
+  const long long tiles = (total + kTileInstants<T> - 1) / kTileInstants<T>;
+  if (blocks > tiles) blocks = tiles;
+  spread_fb_kernel<T, kVec>
+      <<<static_cast<unsigned>(blocks), kSpreadThreads<T>, kSpreadBytes<T>,
+         stream>>>(fb_re, fb_im, cu, cl, e0, n, total, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether kVec consecutive instants of every row start on a boundary of
+// their size: n a multiple of kVec, and each pointer aligned.
+template <typename T, int kVec>
+bool vec_fits(long long n, const void* a, const void* b, const void* c) {
+  constexpr auto kAlign = static_cast<uintptr_t>(kVec * sizeof(T));
+  return n % kVec == 0 &&
+         ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) %
+          kAlign) == 0;
+}
+
+// Copies of 16 bytes where the rows allow them, else of 8, else of one
+// value.
 template <typename T>
 int launch_spread(const void* fb_re, const void* fb_im, const void* cu,
-                  const void* lower, void* e0, long long leads, long long n,
+                  double cl, void* e0, long long leads, long long n,
                   void* stream) {
-  if (leads > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (leads > 0 && n > 0) {
-    const dim3 grid(
-        static_cast<unsigned>((n + kSpreadThreads - 1) / kSpreadThreads),
-        static_cast<unsigned>(leads));
-    spread_fb_kernel<T><<<grid, kSpreadThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(fb_re), static_cast<const T*>(fb_im),
-        static_cast<const T*>(cu), static_cast<const T*>(lower),
-        static_cast<T*>(e0), n);
+  if (leads <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* re = static_cast<const T*>(fb_re);
+  const auto* im = static_cast<const T*>(fb_im);
+  const auto* c = static_cast<const T*>(cu);
+  auto* out = static_cast<T*>(e0);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const long long total = leads * n;
+  const T cl_t = static_cast<T>(cl);
+  constexpr int kVec16 = 16 / static_cast<int>(sizeof(T));
+  if (vec_fits<T, kVec16>(n, re, im, c)) {
+    return launch_spread_vec<T, kVec16>(re, im, c, cl_t, out, total, n, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (kVec16 > 2) {
+    if (vec_fits<T, 2>(n, re, im, c)) {
+      return launch_spread_vec<T, 2>(re, im, c, cl_t, out, total, n, s);
+    }
+  }
+  return launch_spread_vec<T, 1>(re, im, c, cl_t, out, total, n, s);
 }
 
 }  // namespace
@@ -280,6 +491,7 @@ extern "C" {
 // tile): agg (scratch) is [rows, tiles]; y0 (nullable = a zero state) is
 // [rows]; tiles and seg from ops/tile_scan.py::launch_plan; coef: the
 // host's float64 factors, ops/cuda_fb.py::slope_factors(a, seg).
+// spread_fb: cl = CL (FBEarConsts.cl), rounded to the working type here.
 int peaq_slope_state_f32(const void* fb_re, const void* fb_im,
                          const void* c1_band, const void* y0, void* cu,
                          void* agg, long long rows, int z, long long n,
@@ -299,15 +511,15 @@ int peaq_slope_state_f64(const void* fb_re, const void* fb_im,
 }
 
 int peaq_spread_fb_f32(const void* fb_re, const void* fb_im, const void* cu,
-                       const void* lower, void* e0, long long leads,
-                       long long n, void* stream) {
-  return launch_spread<float>(fb_re, fb_im, cu, lower, e0, leads, n, stream);
+                       double cl, void* e0, long long leads, long long n,
+                       void* stream) {
+  return launch_spread<float>(fb_re, fb_im, cu, cl, e0, leads, n, stream);
 }
 
 int peaq_spread_fb_f64(const void* fb_re, const void* fb_im, const void* cu,
-                       const void* lower, void* e0, long long leads,
-                       long long n, void* stream) {
-  return launch_spread<double>(fb_re, fb_im, cu, lower, e0, leads, n, stream);
+                       double cl, void* e0, long long leads, long long n,
+                       void* stream) {
+  return launch_spread<double>(fb_re, fb_im, cu, cl, e0, leads, n, stream);
 }
 
 }  // extern "C"

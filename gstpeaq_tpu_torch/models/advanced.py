@@ -43,27 +43,38 @@ class AdvancedOutputs(NamedTuple):
 
 class AdvancedPipeline(nn.Module):
     """The advanced model's constants (both ear models, the 40-band average,
-    the EHS window, the cognitive network) as buffers in `dtype` on
-    `device`, and the pipeline as its forward."""
+    the EHS window, the cognitive network) as buffers on `device`, and the
+    pipeline as its forward.
+
+    `dtype` is the band-domain dtype, `spectrum_dtype` (default `dtype`)
+    the spectrum and sample-domain one, as in gstpeaq_tpu/models/
+    advanced.py::make_pipeline: the FFT path's frames, spectra, NMR noise
+    spectrum and EHS, the FB path's DC stage and FIR bank, both threshold
+    gates and the energy totals run in the spectrum dtype; the band chains
+    in `dtype`.  MOVs that mix the two come out in the wider, and so does
+    the cognitive network."""
 
     def __init__(self, playback_level: float = 92.0,
                  settings: C.Settings = C.DEFAULT_SETTINGS,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", spectrum_dtype=None):
         super().__init__()
+        sdtype = spectrum_dtype or dtype
         self.settings = settings
         self.fft = FE.build_consts(
             EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT, playback_level),
-            dtype, device)
+            dtype, device, sdtype)
         self.fb = FB.build_consts(
             EP.fb_ear_params(playback_level), dtype, device,
-            swap_slope=settings.swap_slope_filter_coefficients)
+            swap_slope=settings.swap_slope_filter_coefficients,
+            spectrum_dtype=sdtype)
         self.register_buffer("avg_matrix", torch.as_tensor(
             LA.sliding_average_matrix(C.FB_BAND_COUNT), dtype=dtype,
             device=device))
         self.register_buffer("ehs_window", torch.as_tensor(
             EP.ehs_correlation_window(settings.center_ehs_correlation_window),
-            dtype=dtype, device=device))
-        self.cognitive = NN.CognitiveModel.standard(True, dtype, device)
+            dtype=sdtype, device=device))
+        self.cognitive = NN.CognitiveModel.standard(
+            True, torch.promote_types(dtype, sdtype), device)
 
     def forward(self, ref_fft: torch.Tensor, test_fft: torch.Tensor,
                 fb_pair: torch.Tensor) -> AdvancedOutputs:
@@ -72,7 +83,7 @@ class AdvancedPipeline(nn.Module):
         pair's own flush frame of its path."""
         kf, kb = self.fft, self.fb
         settings = self.settings
-        dtype = kf.hann.dtype
+        sdtype = kf.hann.dtype                     # the spectrum dtype
 
         def fm(x):
             """[CH, F] -> the accumulators' [F, CH]."""
@@ -83,7 +94,7 @@ class AdvancedPipeline(nn.Module):
         test_fft = framing.dequantize(test_fft)
         n_fft = ref_fft.shape[-1] // C.FFT_STEPSIZE - 1
         above_fft = framing.above_threshold_signal(
-            ref_fft.to(dtype), n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
+            ref_fft.to(sdtype), n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
         _, _, committed_fft = accum.activity(above_fft)
         rblocks = framing.blocks_hop(ref_fft, n_fft)       # [CH, F+1, 1024]
         tblocks = framing.blocks_hop(test_fft, n_fft)
@@ -106,7 +117,7 @@ class AdvancedPipeline(nn.Module):
                                        cmf & ehs_valid[:, None]))
 
         # ------------- FB path: ModDiff / NoiseLoudAsym / LinDist ----------
-        fb_pair = framing.dequantize(fb_pair).to(dtype)
+        fb_pair = framing.dequantize(fb_pair).to(sdtype)
         n_fb = fb_pair.shape[-1] // C.FB_FRAMESIZE
         above_fb = framing.above_threshold_signal(
             fb_pair[0], n_fb, C.FB_FRAMESIZE, C.FB_FRAMESIZE)
@@ -163,8 +174,8 @@ class AdvancedPipeline(nn.Module):
         di = self.cognitive(mov_vec, settings.clamp_movs)
 
         # totalsnr bookkeeping: the first half of FFT frame f is hop block f
-        rhalf = rblocks[..., :-1, :].to(dtype)
-        nhalf = rhalf - tblocks[..., :-1, :].to(dtype)
+        rhalf = rblocks[..., :-1, :].to(sdtype)
+        nhalf = rhalf - tblocks[..., :-1, :].to(sdtype)
         return AdvancedOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
                                total_signal_energy=torch.sum(rhalf ** 2),
                                total_noise_energy=torch.sum(nhalf ** 2))

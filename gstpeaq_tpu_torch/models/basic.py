@@ -42,24 +42,34 @@ class BasicOutputs(NamedTuple):
 
 class BasicPipeline(nn.Module):
     """The basic model's constants (ear model, band average, EHS window,
-    cognitive network) as buffers in `dtype` on `device`, and the pipeline
-    as its forward."""
+    cognitive network) as buffers on `device`, and the pipeline as its
+    forward.
+
+    `dtype` is the band-domain dtype, `spectrum_dtype` (default `dtype`)
+    the bin-domain one, as in gstpeaq_tpu/models/basic.py::make_pipeline:
+    the frames, spectra, threshold gate, bandwidth, NMR's noise spectrum,
+    EHS and the energy totals run in the spectrum dtype, the band chain in
+    `dtype`.  MOVs that mix the two come out in the wider (JAX's type
+    promotion), and so does the cognitive network."""
 
     def __init__(self, band_count: int = C.BASIC_BAND_COUNT,
                  playback_level: float = 92.0,
                  settings: C.Settings = C.DEFAULT_SETTINGS,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", spectrum_dtype=None):
         super().__init__()
+        sdtype = spectrum_dtype or dtype
         self.settings = settings
         self.consts = FE.build_consts(
-            EP.fft_ear_params(band_count, playback_level), dtype, device)
+            EP.fft_ear_params(band_count, playback_level), dtype, device,
+            sdtype)
         self.register_buffer("avg_matrix", torch.as_tensor(
             LA.sliding_average_matrix(band_count), dtype=dtype,
             device=device))
         self.register_buffer("ehs_window", torch.as_tensor(
             EP.ehs_correlation_window(settings.center_ehs_correlation_window),
-            dtype=dtype, device=device))
-        self.cognitive = NN.CognitiveModel.standard(False, dtype, device)
+            dtype=sdtype, device=device))
+        self.cognitive = NN.CognitiveModel.standard(
+            False, torch.promote_types(dtype, sdtype), device)
 
     def forward(self, ref_sig: torch.Tensor,
                 test_sig: torch.Tensor) -> BasicOutputs:
@@ -67,12 +77,12 @@ class BasicPipeline(nn.Module):
         zero-padded on the host past the pair's own flush frame."""
         k = self.consts
         settings = self.settings
-        dtype = k.hann.dtype
+        sdtype = k.hann.dtype                      # the spectrum dtype
         ref_sig = framing.dequantize(ref_sig)
         test_sig = framing.dequantize(test_sig)
         n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
         above = framing.above_threshold_signal(
-            ref_sig.to(dtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
+            ref_sig.to(sdtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
         _, active, committed = accum.activity(above)
         ref_blocks = framing.blocks_hop(ref_sig, n_frames)   # [CH, F+1, 1024]
         test_blocks = framing.blocks_hop(test_sig, n_frames)
@@ -149,8 +159,8 @@ class BasicPipeline(nn.Module):
 
         # totalsnr bookkeeping; src/gstpeaq.c:913-918: the first half of
         # frame f is hop block f
-        rhalf = ref_blocks[..., :-1, :].to(dtype)
-        nhalf = rhalf - test_blocks[..., :-1, :].to(dtype)
+        rhalf = ref_blocks[..., :-1, :].to(sdtype)
+        nhalf = rhalf - test_blocks[..., :-1, :].to(sdtype)
         return BasicOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
                             total_signal_energy=torch.sum(rhalf ** 2),
                             total_noise_energy=torch.sum(nhalf ** 2))

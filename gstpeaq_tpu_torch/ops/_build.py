@@ -46,7 +46,7 @@ _RECURRENCE = (_P, _P, _P, _P, _I64, _I32, _I64, _P)
 _FUSED_MOD = (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _F64, _P)
 _SPREAD = (_P, _P, _P, _P, _F64, _P, _P, _I64, _I32, _P)
 _SLOPE = (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P, _P)
-_SPREAD_FB = (_P, _P, _P, _P, _P, _I64, _I64, _P)
+_SPREAD_FB = (_P, _P, _P, _F64, _P, _I64, _I64, _P)
 _DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,

@@ -16,6 +16,14 @@ and makes two CUDA launches per call (csrc/fb_spread.cu); the launch plan
 (ops/tile_scan.py) and every power a^n of the smoother's decay are computed
 on the host, in float64.
 
+D2 stages tiles of consecutive instants of the flat leads x instants axis
+in shared memory (any number of leads) and runs one thread per part (real,
+imaginary) of each instant.  Its lower table is Toeplitz, lower[j, c] = CL^(j-c) for j >= c,
+and the kernel runs the backward recurrence B_c = A_c + CL B_{c+1}; so the
+wrapper takes CL (FBEarConsts.cl) alone, and on the CPU the plain version
+reads the table cuda_spread_fft.lower_table forms from it, so both paths
+compute one function of one input.
+
 Each wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  Each
 counts its launches in a module-level int (`slope_state_launches`,
@@ -33,6 +41,7 @@ from .. import constants as C
 from . import _build
 from . import iir
 from . import tile_scan
+from .cuda_spread_fft import lower_table
 
 BANDS = C.FB_BAND_COUNT   # a compile-time constant of spread_fb_kernel
 # destination bands per step of spread_fb_plain's upper part: bounds its
@@ -131,27 +140,26 @@ def spread_fb_plain(fb_re: torch.Tensor, fb_im: torch.Tensor,
 
 
 def spread_fb(fb_re: torch.Tensor, fb_im: torch.Tensor, cu: torch.Tensor,
-              lower_matrix: torch.Tensor) -> torch.Tensor:
-    """D2: see spread_fb_plain.  fb_re/fb_im/cu: contiguous [..., 40, I];
-    lower_matrix: [40, 40].  Returns E0 with fb_re's shape and dtype."""
+              cl: float) -> torch.Tensor:
+    """D2: spread_fb_plain with the lower table CL^(j-c) given by its ratio
+    cl.  fb_re/fb_im/cu: contiguous [..., 40, I], any number of leads.
+    Returns E0 with fb_re's shape and dtype."""
     global spread_fb_launches
     if fb_re.device.type == "cpu":
-        return spread_fb_plain(fb_re, fb_im, cu, lower_matrix)
+        return spread_fb_plain(fb_re, fb_im, cu, lower_table(
+            BANDS, cl, fb_re.dtype, fb_re.device))
     if (fb_re.dim() < 2 or fb_re.shape[-2] != BANDS
-            or fb_im.shape != fb_re.shape or cu.shape != fb_re.shape
-            or lower_matrix.shape != (BANDS, BANDS)):
+            or fb_im.shape != fb_re.shape or cu.shape != fb_re.shape):
         raise ValueError(f"spread_fb: fb_re {tuple(fb_re.shape)}, fb_im "
                          f"{tuple(fb_im.shape)}, cu {tuple(cu.shape)} must "
-                         f"be [..., {BANDS}, I] and lower_matrix "
-                         f"{tuple(lower_matrix.shape)} [{BANDS}, {BANDS}]")
-    _build.require("spread_fb", fb_re, fb_re=fb_re, fb_im=fb_im, cu=cu,
-                   lower_matrix=lower_matrix)
+                         f"be [..., {BANDS}, I]")
+    _build.require("spread_fb", fb_re, fb_re=fb_re, fb_im=fb_im, cu=cu)
     n = fb_re.shape[-1]
     e0 = torch.empty_like(fb_re)
     if fb_re.numel() == 0:
         return e0
     _build.launch("spread_fb", fb_re, fb_re.data_ptr(), fb_im.data_ptr(),
-                  cu.data_ptr(), lower_matrix.data_ptr(), e0.data_ptr(),
+                  cu.data_ptr(), float(cl), e0.data_ptr(),
                   fb_re.numel() // (BANDS * n), n)
     spread_fb_launches += 1
     return e0

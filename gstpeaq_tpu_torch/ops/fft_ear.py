@@ -28,9 +28,15 @@ CONST_FIELDS = (
 _NUMPY_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+# the bin-domain fields, in the spectrum dtype (JAX's `fs(...)`); the others
+# are in the band dtype
+SPECTRUM_FIELDS = ("hann", "level_factor", "group_matrix")
+
+
 class FFTEarConsts(nn.Module):
-    """Constants of the FFT ear model as buffers (CONST_FIELDS), in the
-    working dtype but ehs_zero, which is bool.
+    """Constants of the FFT ear model as buffers (CONST_FIELDS): the
+    bin-domain SPECTRUM_FIELDS in the spectrum dtype, ehs_zero as bool, the
+    rest in the band dtype.
 
     group_matrix [1025, Z] carries the outer/middle-ear weight folded into
     its rows, so the weighted spectrum never forms; ehs_zero [512] marks
@@ -38,8 +44,8 @@ class FFTEarConsts(nn.Module):
     is fed plain power where the reference fed it weighted power (see
     gstpeaq_tpu/ops/fft_ear.py, FFTEarConsts.ehs_zero).  group_bin_hi is
     the last bin the grouping reads, plus one; dz02 = 0.2 * delta_z,
-    rounded in the working dtype; a_le = lower_matrix[1, 0], the ratio aLe
-    of the lower table lower[i, j] = aLe^(i-j) in the working dtype, which
+    rounded in the band dtype; a_le = lower_matrix[1, 0], the ratio aLe
+    of the lower table lower[i, j] = aLe^(i-j) in the band dtype, which
     K3's wrapper takes in place of the table (0.0 for one band)."""
 
     def __init__(self, tensors: dict[str, torch.Tensor], group_bin_hi: int):
@@ -55,10 +61,12 @@ class FFTEarConsts(nn.Module):
 
 
 def build_consts(params: EP.FFTEarParams, dtype=torch.float64,
-                 device="cpu") -> FFTEarConsts:
-    """The constants the basic path reads, from EP.fft_ear_params, in
-    `dtype` on `device`.  This is gstpeaq_tpu/ops/fft_ear.py::build_consts
-    without the TPU's DFT-GEMM and Cooley-Tukey tables."""
+                 device="cpu", spectrum_dtype=None) -> FFTEarConsts:
+    """The constants the basic path reads, from EP.fft_ear_params, on
+    `device`: SPECTRUM_FIELDS in `spectrum_dtype` (default `dtype`), the
+    band-domain rest in `dtype`.  This is gstpeaq_tpu/ops/fft_ear.py::
+    build_consts without the TPU's DFT-GEMM and Cooley-Tukey tables."""
+    spectrum_dtype = spectrum_dtype or dtype
     z = params.band_count
     idx = np.arange(z)
     expo = idx[None, :] - idx[:, None]  # [i, j] -> j - i
@@ -84,9 +92,10 @@ def build_consts(params: EP.FFTEarParams, dtype=torch.float64,
         "excitation_threshold": params.excitation_threshold,
         "loudness_factor": params.loudness_factor,
     }
-    tensors = {name: torch.as_tensor(np.asarray(v), dtype=dtype,
-                                     device=device)
-               for name, v in values.items()}
+    tensors = {name: torch.as_tensor(
+        np.asarray(v), device=device,
+        dtype=spectrum_dtype if name in SPECTRUM_FIELDS else dtype)
+        for name, v in values.items()}
     tensors["ehs_zero"] = torch.as_tensor(
         om_weight[:2 * C.MAXLAG] == 0.0, device=device)
     return FFTEarConsts(tensors, group_bin_hi)
@@ -128,6 +137,11 @@ def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
         pr - pt = level * (Dre * Sre + Dim * Sim),   S = R + T
     (gstpeaq_tpu/ops/fft_ear.py:484-493, :537-544).
 
+    The frames, the rDFT, power, delta_power and the energy gate are in the
+    spectrum dtype (k.hann's); the band powers are cast to the band dtype
+    before the internal noise and K3, as gstpeaq_tpu/ops/fft_ear.py:551
+    does.
+
     Returns (power [2, ..., CH, F, 1025], unsmeared [2, ..., CH, F, Z],
     energy_threshold [2, ..., CH, F] bool, delta_power [..., CH, F, hi])
     with hi = k.group_bin_hi.  With spread_ref_only (the advanced path,
@@ -145,7 +159,8 @@ def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
     delta_power = ((d_re[..., :hi] * (r_re[..., :hi] + t_re[..., :hi])
                     + d_im[..., :hi] * (r_im[..., :hi] + t_im[..., :hi]))
                    * k.level_factor)
-    band_power = group_into_bands(k, power[0] if spread_ref_only else power)
+    band_power = group_into_bands(
+        k, power[0] if spread_ref_only else power).to(k.internal_noise.dtype)
     unsmeared = spread(k, band_power + k.internal_noise)
     energy = torch.sum(torch.stack([ref, test])[..., 1:, :] ** 2, dim=-1)
     threshold_reached = energy >= C.EHS_ENERGY_THRESHOLD

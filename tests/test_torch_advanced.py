@@ -124,16 +124,26 @@ def test_stereo_duplicate_channels_match_mono():
             1 + abs(mono.movs[name]))
 
 
+# each tier's spectrum dtype: the FFT path's spectra, the FB path's DC
+# stage and FIR bank
+SPECTRUM = {"float64": torch.float64, "float32": torch.float32,
+            "accurate": torch.float64, "mixed": torch.float32}
+
+
 @pytest.mark.parametrize("tier,dtype", [
     ("float64", torch.float64), ("float32", torch.float32),
-    ("accurate", torch.float32)])
+    ("accurate", torch.float32), ("mixed", torch.float32)])
 def test_tier_dtypes(tier, dtype):
-    """Each tier runs both ear models in the dtype it names, and float32
-    stays within 2e-3 ODG of float64 on saw/triangle."""
+    """Each tier runs both ear models' front ends in its spectrum dtype
+    and their band chains in its band dtype `dtype`, and stays within 2e-3
+    ODG of float64 on saw/triangle."""
     pipe = api.advanced_pipeline(92.0, PC.DEFAULT_SETTINGS, tier,
                                  torch.device("cpu"))
-    assert pipe.fft.hann.dtype == pipe.fb.fir_weight.dtype == dtype
-    assert pipe.fb.internal_noise.dtype == dtype
+    assert (pipe.fft.hann.dtype == pipe.fb.fir_weight.dtype
+            == pipe.fb.level_factor.dtype == pipe.ehs_window.dtype
+            == SPECTRUM[tier])
+    assert (pipe.fb.internal_noise.dtype == pipe.fft.internal_noise.dtype
+            == pipe.fb.lower_matrix.dtype == pipe.avg_matrix.dtype == dtype)
     ref, test = TS.saw(N), TS.triangle(N)
     got = api.peaq(ref, test, advanced=True, dtype=tier, device="cpu")
     f64 = api.peaq(ref, test, advanced=True, dtype="float64", device="cpu")

@@ -11,6 +11,8 @@ float64.  The CUDA kernels themselves are held against the plain versions
 on the card by chip_smoke.py.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from gstpeaq_tpu_torch import convert
 from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
+from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu_torch.ops import iir
@@ -453,6 +456,154 @@ def test_slope_state_constants_are_the_kernels():
     assert f"constexpr int kZ = {cuda_fb.BANDS};" in src
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spread_fb_lower_table_is_cl_powers(params, dtype):
+    """The FB lower table is CL^(j-c) (j >= c) in the band dtype, and
+    FBEarConsts.cl, which D2's wrapper takes in place of it, is CL in that
+    dtype, also under a float64 spectrum.  The table the wrapper forms from
+    cl on the CPU is that table, bit for bit in float64, and within the
+    rounding of CL to float32 (1e-5 relative, powers up to 39) in float32."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    k = FB.build_consts(params, dtype, spectrum_dtype=torch.float64)
+    j, c = np.indices((40, 40))
+    want = np.where(j >= c, C.CL ** np.maximum(j - c, 0), 0.0)
+    np.testing.assert_array_equal(k.lower_matrix.numpy(),
+                                  want.astype(np_dtype))
+    assert k.cl == float(np_dtype(C.CL))
+    table = cuda_spread_fft.lower_table(40, k.cl, dtype, "cpu")
+    if dtype == torch.float64:
+        assert torch.equal(table, k.lower_matrix)
+    else:
+        np.testing.assert_allclose(table.numpy(), k.lower_matrix.numpy(),
+                                   rtol=1e-5, atol=1e-44)
+
+
+def _upper_walk(part, cu, group=None):
+    """D2's upper slope on one part [..., 40, I] in its dtype: the
+    shift-multiply walk w_i *= cu_i, A_{i+s} += w_i.  group None: source by
+    source from the top down; else fb_spread.cu's order, `group` sources
+    [lo, top] in lockstep, groups from the top down."""
+    a = list(part.unbind(-2))
+    groups = ([(i, i) for i in range(38, -1, -1)] if group is None else
+              [(max(top - group + 1, 0), top)
+               for top in range(38, -1, -group)])
+    for lo, top in groups:
+        w = {i: a[i] for i in range(lo, top + 1)}
+        for step in range(1, 40 - lo):
+            for i in range(lo, top + 1):
+                if i + step < 40:
+                    w[i] = w[i] * cu[..., i, :]
+                    a[i + step] = a[i + step] + w[i]
+    return a
+
+
+def _spread_fb_on_host(fb_re, fb_im, cu, cl, group):
+    """csrc/fb_spread.cu's D2 re-enacted in torch, in the inputs' dtype:
+    each part (real, imaginary) on its own, the upper slope as the grouped
+    lockstep walk, the lower slope as the backward recurrence
+    B_c = A_c + CL B_{c+1}, and the two parts' B_c^2 joined (the kernel's
+    __shfl_xor_sync)."""
+    e0 = torch.zeros_like(fb_re)
+    for part in (fb_re, fb_im):
+        a = _upper_walk(part, cu, group)
+        b = a[39]
+        e0[..., 39, :] += b * b
+        for c in range(38, -1, -1):
+            b = a[c] + cl * b
+            e0[..., c, :] += b * b
+    return e0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spread_fb_parts_and_recurrence_match_plain(params, dtype):
+    """D2's design re-enacted on the host equals spread_fb_plain's [40, 40]
+    product of the table: within 1e-12 in float64 and 1e-5 in float32 (the
+    bars chip_smoke.py holds the kernel to), on 3 leads with a silent
+    instant.  Its grouped lockstep walk (fb_spread.cu's kWalkGroup, and 4
+    and 16) gives the per-source walk's bits."""
+    rng = np.random.default_rng(41)
+    k = FB.build_consts(params, dtype)
+    re, im = fb_inputs(rng, (3, 40, 257), 10.0)
+    cu = rng.uniform(0.2, 0.9, (3, 40, 257))
+    re, im, cu = (torch.as_tensor(x, dtype=dtype) for x in (re, im, cu))
+    cl = torch.tensor(k.cl, dtype=dtype)
+    group = _spread_fb_constants()["kWalkGroup"]
+    per_source = _upper_walk(re, cu)
+    for g in (group, 4, 16):
+        assert all(torch.equal(x, y) for x, y in zip(
+            _upper_walk(re, cu, g), per_source)), g
+    got = _spread_fb_on_host(re, im, cu, cl, group)
+    want = cuda_fb.spread_fb_plain(re, im, cu, k.lower_matrix)
+    assert got.dtype == dtype
+    assert rel(got, want) < (1e-12 if dtype == torch.float64 else 1e-5)
+    assert np.all(got.numpy()[..., 3] == 0.0)
+
+
+def _spread_fb_constants() -> dict:
+    """fb_spread.cu's D2 layout constants: the rows a tile stages and their
+    shift, the sources the walk moves at once, and the instants a tile per
+    type (two threads an instant, one a part)."""
+    src = (_build.CSRC / "fb_spread.cu").read_text()
+    out = {name: int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+           for name in ("kRowShift", "kWalkGroup")}
+    assert "constexpr int kTileRows = 3 * kZ - 1;" in src
+    assert "constexpr int kSpreadThreads = 2 * kTileInstants<T>;" in src
+    tile = re.search(r"constexpr int kTileInstants = "
+                     r"sizeof\(T\) == 4 \? (\d+) : (\d+);", src)
+    out["kTileInstants"] = {torch.float32: int(tile[1]),
+                            torch.float64: int(tile[2])}
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("leads,n", [(4, 15000), (70000, 3), (3, 37),
+                                     (5, 7), (1, 1)])
+def test_spread_fb_tiles_store_each_value_once(leads, n, dtype):
+    """D2's persistent tiling (fb_spread.cu's launch_spread, stage_tile and
+    spread_tile, re-enacted): blocks walk every tile once; a tile's copies,
+    of 1, 2 or 4 instants, fill each (row, instant) slot of its buffer
+    once, with no two rows overlapping; and every (lead, instant, band) of
+    E0 is stored exactly once, by a live lane whose shuffle partner
+    (lane ^ 16) works on the
+    same instant and the other part; for lead counts past 65,535 and
+    instant counts that are not a multiple of a tile's."""
+    k = _spread_fb_constants()
+    tile_i = k["kTileInstants"][dtype]
+    threads, warp, span, rows, z = 2 * tile_i, 32, 16, 3 * 40 - 1, 40
+    total = leads * n
+    tiles = -(-total // tile_i)
+    blocks = min(tiles, 132 * 3)
+    walked = np.concatenate([np.arange(b, tiles, blocks)
+                             for b in range(blocks)])
+    assert np.array_equal(np.sort(walked), np.arange(tiles))
+    # staging, copies of vec instants: thread t copies rows t // chunks,
+    # + stride, ... at instants vec (t % chunks) ..
+    for vec in ((1, 2, 4) if dtype == torch.float32 else (1, 2)):
+        chunks = tile_i // vec
+        stride = threads // chunks
+        slots = np.array([
+            r * tile_i + (r >= z) * k["kRowShift"] + t % chunks * vec + e
+            for t in range(threads) for r in range(t // chunks, rows, stride)
+            for e in range(vec)])
+        assert len(slots) == len(set(slots)) == rows * tile_i, vec
+        assert slots.max() < rows * tile_i + k["kRowShift"]
+    # compute: warp w, lane l -> instant 16 w + l % 16, part l // 16
+    tid = np.arange(threads)
+    lane = tid % warp
+    instant = tid // warp * span + lane % span
+    part = lane // span
+    partner = tid // warp * warp + (lane ^ span)
+    assert np.all(instant[partner] == instant)
+    assert np.all(part[partner] == 1 - part)
+    g = (np.arange(tiles)[:, None] * tile_i + instant[None, :]).ravel()
+    part = np.tile(part, tiles)
+    live = g < total
+    stores = np.zeros((total, z), np.int64)
+    for c in range(z):
+        np.add.at(stores[:, c], g[live & (part == c % 2)], 1)
+    assert np.all(stores == 1)
+
+
 def test_linear_recurrence_complex_matches_jax():
     rng = np.random.default_rng(17)
     lam = complex(0.9989, 0.0021)
@@ -564,8 +715,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch, params):
     # the plain versions hand on contiguous tensors, as the kernels do
     assert cu.is_contiguous()
     assert cuda_dc.dc_chain_plain(tt(np.ones((2, 9))), LF)[0].is_contiguous()
+    # D2 takes the lower table by its ratio CL, whose float64 powers are
+    # the table's
     np.testing.assert_array_equal(
-        cuda_fb.spread_fb(re, im, cu, k.lower_matrix),
+        cuda_fb.spread_fb(re, im, cu, k.cl),
         cuda_fb.spread_fb_plain(re, im, cu, k.lower_matrix))
     x = tt(rng.standard_normal((2, 500)))
     np.testing.assert_array_equal(cuda_dc.dc_chain(x, LF)[0],
@@ -582,6 +735,6 @@ def test_other_devices_raise_without_fallback():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fb.slope_state(fb, fb, z, 0.5)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_fb.spread_fb(fb, fb, fb, torch.ones(40, 40, device="meta"))
+        cuda_fb.spread_fb(fb, fb, fb, 0.08)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_dc.dc_chain(torch.ones(2, 64, device="meta"), LF)

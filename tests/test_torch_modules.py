@@ -363,7 +363,7 @@ def test_port_imports_no_jax():
         "assert len(names) >= 23, names\n"
         "for n in ('models.advanced', 'ops.fb_ear', 'ops.cuda_fb',\n"
         "          'ops.cuda_dc', 'constants', 'earparams',\n"
-        "          'utils.testsignals'):\n"
+        "          'utils.testsignals', 'utils.corpus'):\n"
         "    assert 'gstpeaq_tpu_torch.' + n in names, n\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules\n"

@@ -12,6 +12,7 @@ of the spec or of the pair:
 """
 
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import sys
@@ -26,9 +27,11 @@ from gstpeaq_tpu.utils import numpy_ref
 from gstpeaq_tpu.utils import testsignals as JTS
 from gstpeaq_tpu_torch import constants as PC
 from gstpeaq_tpu_torch import earparams as PEP
+from gstpeaq_tpu_torch.utils import corpus as PCORPUS
 from gstpeaq_tpu_torch.utils import testsignals as PTS
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "torch_pair10_spec.json"
+DRIFT = pathlib.Path(__file__).resolve().parents[1] / "tools" / "tpu_drift.py"
 
 
 def public(module) -> dict:
@@ -111,6 +114,26 @@ def test_testsignals_are_the_jax_packages():
         for args in ((1000,), (4096, 660.0), (777, 100.0, 44100, 0.5)):
             assert_same(getattr(PTS, name)(*args), getattr(JTS, name)(*args),
                         f"{name}{args}")
+
+
+def drift_module():
+    """tools/tpu_drift.py, loaded by its path: tools/ is not a package."""
+    spec = importlib.util.spec_from_file_location("tpu_drift", DRIFT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("n,seconds,seed", [(20, 1.0, 3), (3, 2.5, 5)])
+def test_corpus_is_tpu_drifts(n, seconds, seed):
+    """The port's drift corpus v2 equals tools/tpu_drift.py's bit for bit:
+    every item type (n = 20), and another length and seed."""
+    want = drift_module().realistic_pairs(n, seconds, seed=seed)
+    got = PCORPUS.realistic_pairs(n, seconds, seed=seed)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert len(g) == len(w) == n
+        for k in range(n):
+            assert_same(g[k], w[k], f"realistic_pairs[{i}][{k}]")
 
 
 def fingerprint(pair) -> dict:
