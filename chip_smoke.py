@@ -15,9 +15,11 @@ Phases, each on its own lines and ending with its seconds:
               with and without y0 and on an all-zero row, K2 with uns
               jumping at every run edge; D1 and D3: their tile edges; K3:
               band counts 1..128; D2: I = 1, 37, 10, 70,000 leads, counts
-              off its tiles, rows off their 16-byte boundary), in float32
-              and float64, the float32 DC cascade's own rounding against
-              float64, and two launches of every kernel bit for bit
+              off its tiles, rows off their 16-byte boundary) and at the
+              batch path's shapes (64 pairs basic, 32 advanced, 10 s
+              stereo, in their buckets), in float32 and float64, the
+              float32 DC cascade's own rounding against float64, and two
+              launches of every kernel bit for bit, at batch shapes too
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
               (stereo upmix), and a 10 s stereo pair against the NumPy
               spec's float64 results, frozen with the pair's fingerprint in
@@ -35,16 +37,28 @@ Phases, each on its own lines and ending with its seconds:
               within 1e-5, a bar that float32 (the control) must miss
   6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
               each with the counts set to 0 just before it: the advanced
-              call goes through all six kernels
+              call goes through all six kernels; then one peaq_batch()
+              microbatch of 8 and of 32 pairs per mode and tier, which
+              launches each kernel as often as one peaq() does
   7 times     CUDA-event medians of each kernel and its plain version in
               float32 and float64, each kernel's share of its bound (also
-              at the advanced path's other call-site shapes), K1's library
-              call (a grouped causal conv1d) at each K1 call site, the FB
-              ear's FIR bank, and peaq() wall time per 10 s stereo pair per
-              mode and tier
+              at the advanced path's other call-site shapes and at the
+              batch shapes), K1's library call (a grouped causal conv1d)
+              at each K1 call site, the FB ear's FIR bank with a bound of
+              its own (per pair and at the batch shape), and peaq() wall
+              time per 10 s stereo pair per mode and tier
   8 profile   torch.profiler over five peaq() calls per mode and tier:
               device time per call, its share of the wall time, each hand
               kernel's share of it, and time by kernel
+  9 batch     parallel/batch.py's peaq_batch(): 8 corpus v2 pairs cut to
+              6-10 s against per-pair peaq() per mode and tier, the int16
+              ship against the float one, then 64 x 10 s stereo pairs
+              (bench.py's make_pairs; basic in microbatches of 64,
+              advanced of 32) per mode and tier: audio-seconds per second
+              (gstpeaq_tpu_torch/tools/bench.py), the phases' wall times,
+              peak device memory, and from the profiler over one batch the
+              device's busy share and the shares of the FIR bank, the
+              hand kernels and the copies to the card
 
 Two lines before the last is one JSON object with each kernel's error,
 times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
@@ -55,12 +69,16 @@ operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64), counted from
 this run's main-shape inputs; `library_ms` is K1's grouped causal conv1d
 at its main shape, and null for the other kernels, since no single PyTorch
 call computes their functions; `launches_by_path` holds phase 6's
-float32 count per path (basic, advanced; 0 where a path does not launch
-the kernel), `launches` their sum.  The line before the last is the card's
-name and power limit; the last line is {"ok": true, "device": {...}}.  Any
-failed check exits non-zero without that last line.  Without CUDA the
-script exits non-zero at once and prints no result.  Nothing of JAX or of
-the JAX package gstpeaq_tpu is imported.
+float32 count per path (basic, advanced, and one microbatch of 32 of
+each batch path; 0 where a path does not launch the kernel), `launches`
+their sum; `batch` lists the kernel's batch shapes, each with its
+`max_abs_err`, `ms`, `plain_ms`, `bound_ms`, `bound_by` and
+`library_ms` (K1's conv1d there; null for the others), and the same with
+`_f64`.  The line before the last is the card's name and power limit;
+the last line is {"ok": true, "device": {...}}.  Any failed check exits
+non-zero without that last line.  Without CUDA the script exits non-zero
+at once and prints no result.  Nothing of JAX or of the JAX package
+gstpeaq_tpu is imported.
 """
 
 from __future__ import annotations
@@ -89,8 +107,11 @@ from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu_torch.ops import tile_scan
+from gstpeaq_tpu_torch.parallel import batch as PB
+from gstpeaq_tpu_torch.tools import bench as TB
 from gstpeaq_tpu_torch.utils import corpus
 from gstpeaq_tpu_torch.utils import testsignals as TS
+from gstpeaq_tpu_torch.utils.benchpairs import make_pairs
 
 # the NumPy spec's float64 results on ten_second_pair(), frozen with the
 # pair's fingerprint by tests/test_torch_standalone.py
@@ -99,6 +120,10 @@ SPEC = pathlib.Path(__file__).resolve().parent / "tests" / "golden" / \
 
 MAIN = (2, 2, 109, 468)      # [sig, CH, Z, F] of a 10 s stereo pair
 FB_MAIN = (2, 2, 40, 15000)  # [sig, CH, Z, I] of its FB ear
+# the batch path: bench.py's 64 pairs of 10 s stereo, basic in microbatches
+# of 64 and advanced of 32, each in its bucket (batch_shapes)
+BATCH_PAIRS = 64
+MICROBATCH = {"basic": 64, "advanced": 32}
 TIERS = ("float64", "float32", "accurate")
 DTYPES = (torch.float32, torch.float64)
 MODES = ("basic", "advanced")
@@ -146,6 +171,15 @@ DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
 # tensor cores at its full 700 W (NVIDIA's data sheet)
 MEMORY_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# the FIR bank's operations can run on the tensor cores in double (FP64
+# tensor cores: 67 TFLOP/s on an H100 SXM); float32 runs outside them, TF32
+# being off
+FIR_PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
+# peaq_batch() against per-pair peaq() on the card (phase 9): float64
+# within 1e-9 in ODG and 1e-9 (1 + |w|) per MOV; float32 and accurate
+# within 1e-4 ODG of the same tier's per-pair result
+BATCH_BAR = 1e-9
+BATCH_TIER_BAR = 1e-4
 # corpus v2's worst |dODG| against float64 (phase 5c): the conformance gate
 # JAX's "accurate" is held to, and accurate's own bar, which sits between
 # its readings on an H100 (4.4e-7 basic, 1.0e-6 advanced) and float32's
@@ -199,6 +233,37 @@ def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
     by_ops = ops_of(name, inputs) / PEAK_OPS_PER_S[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def fir_bound(dtype, hp2, out) -> tuple[float, str]:
+    """The FIR bank's bound in ms, as bound() gives a kernel's: its bytes
+    (hp2 and the weight read once, re and im written once) over the memory
+    rate, or its operations over FIR_PEAK_OPS_PER_S: a multiply-add (2) per
+    band (40 complex = 80 real outputs) and tap (1,456 lags) an instant."""
+    weight = 2 * C.FB_BAND_COUNT * FB.SUB * FB.FIR_BLOCKS
+    moved = (hp2.numel() + weight + sum(o.numel() for o in out)) \
+        * hp2.element_size()
+    by_bytes = moved / MEMORY_BYTES_PER_S * 1e3
+    instants = out[0].numel() // C.FB_BAND_COUNT        # over every row
+    ops = 2 * (2 * C.FB_BAND_COUNT) * FB.TAPS * instants
+    by_ops = ops / FIR_PEAK_OPS_PER_S[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def batch_shapes() -> dict:
+    """The batch path's buckets for 10 s pairs (compute_buckets, default
+    granularity 64) as the kernels' shapes: K1/K2/K3 on the basic batch,
+    K2 on the advanced batch's FB frames, D1/D2 on its instants, D3 on its
+    rows of 192 n_fb samples."""
+    sig = np.zeros((10 * C.SAMPLING_RATE, 2), np.float32)
+    n_fft, n_fb = PB.compute_buckets([sig], [sig], advanced=True)
+    b, a = MICROBATCH["basic"], MICROBATCH["advanced"]
+    return {"basic": (2, b, 2, C.BASIC_BAND_COUNT, n_fft),
+            "fb_frames": (2, a, 2, C.FB_BAND_COUNT, n_fb),
+            "fb_instants": (2, a, 2, C.FB_BAND_COUNT,
+                            n_fb * C.FB_FRAMESIZE // FB.SUB),
+            "dc": (2, a, 2, n_fb * C.FB_FRAMESIZE)}
 
 
 @dataclasses.dataclass
@@ -578,13 +643,102 @@ def kernel_cases(dtype, rng, pair10):
             + fb_cases(dtype, rng, pair10, t))
 
 
-def phase_kernels(rng, pair10) -> dict:
+def batch_fb_pair(pair10, k, shape) -> torch.Tensor:
+    """An FB-path input of the advanced batch, [2(ref, test), B, CH, T] on
+    the card in k's spectrum dtype: the 10 s pair's FB rows rolled by B
+    distinct offsets from a generator of its own (one pair per offset, so
+    no two pairs of the batch are alike) and zero-padded to the bucket's
+    T samples, as the batch pads them."""
+    x = fb_rows(pair10, k)                              # [2, CH, 480000]
+    offsets = np.random.default_rng(9).integers(1, x.shape[-1], shape[1])
+    rolled = torch.stack([torch.roll(x, int(o), dims=-1) for o in offsets],
+                         dim=1)
+    return torch.nn.functional.pad(rolled, (0, shape[-1] - x.shape[-1]))
+
+
+def batch_cases(dtype, rng, pair10):
+    """Each kernel at the batch path's shapes (batch_shapes), the batch in
+    the row count: K1, K2 and K3 on random inputs at the basic batch, K1
+    and K2 also at the advanced batch's FB frames and K3 on its reference
+    alone; D3 on batch_fb_pair's rows, D1 and D2 on the FIR bank's outputs
+    of their plain DC stage.  Returns the
+    cases and the FIR bank's input (that plain DC stage's output)."""
+    shapes = batch_shapes()
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device="cuda")
+
+    cases = []
+    basic = shapes["basic"]
+    for label, shape, step in (("basic", basic, C.FFT_STEPSIZE),
+                               ("advanced", shapes["fb_frames"],
+                                C.FB_FRAMESIZE)):
+        az = t(np.exp(-rng.uniform(0.01, 0.5, shape[-2])))
+        b = t(rng.standard_normal(shape))
+        cases.append(Case("recurrence_banded", f"batch {label} {list(shape)}",
+                          lambda az=az, b=b: cuda_iir.recurrence_banded(az, b),
+                          lambda az=az, b=b:
+                          cuda_iir.recurrence_banded_plain(az, b),
+                          (az, b)))
+        exc2, uns2 = (t(rng.uniform(0.01, 10.0, shape)) for _ in range(2))
+        scale = C.SAMPLING_RATE / step
+        cases.append(Case("fused_mod_smoothers",
+                          f"batch {label} {list(shape)}",
+                          lambda az=az, e=exc2, u=uns2, sc=scale:
+                          cuda_iir.fused_mod_smoothers(az, e, u, sc),
+                          lambda az=az, e=exc2, u=uns2, sc=scale:
+                          cuda_iir.fused_mod_smoothers_plain(az, e, u, sc),
+                          (az, exc2, uns2)))
+    # K3 on both signals of the basic batch, and on the advanced batch's
+    # reference alone (55 bands)
+    for label, lead, z in (("basic", basic[:3], basic[-2]),
+                           ("advanced ref only",
+                            shapes["fb_frames"][1:3],
+                            C.ADVANCED_FFT_BAND_COUNT)):
+        c, cp = spread_consts(z, dtype)
+        p = t(rng.uniform(1e-6, 1e4, (*lead, basic[-1], z)))
+        cases.append(Case("spread_fft", f"batch {label} {list(p.shape)}",
+                          lambda p=p, c=c: cuda_spread_fft.spread_fft(p, *c),
+                          lambda p=p, cp=cp:
+                          cuda_spread_fft.spread_fft_plain(p, *cp),
+                          (p, c[0], c[1], c[3])))
+    k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+    x = batch_fb_pair(pair10, k, shapes["dc"])
+    cases.append(Case("dc_chain", f"batch {list(x.shape)}",
+                      lambda: dc_out(cuda_dc.dc_chain(x, k.level)),
+                      lambda: dc_out(cuda_dc.dc_chain_plain(x, k.level)),
+                      (x,)))
+    hp2, _ = cuda_dc.dc_chain_plain(x, k.level)
+    with api.full_precision_matmuls():
+        re, im = FB.filter_bank(k, hp2)
+    check(re.shape == shapes["fb_instants"], f"FB batch shape {re.shape}")
+    c1 = 24.0 + 230.0 / k.fc
+    cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a)
+    cases.append(Case("slope_state", f"batch {list(re.shape)}",
+                      lambda: cuda_fb.slope_state(re, im, c1, k.slope_a),
+                      lambda: cuda_fb.slope_state_plain(re, im, c1,
+                                                        k.slope_a),
+                      (re, im, c1)))
+    cases.append(Case("spread_fb", f"batch {list(re.shape)}",
+                      lambda: cuda_fb.spread_fb(re, im, cu, k.cl),
+                      lambda: cuda_fb.spread_fb_plain(re, im, cu,
+                                                      k.lower_matrix),
+                      (re, im, cu)))
+    return cases, hp2
+
+
+def phase_kernels(rng, pair10) -> tuple[dict, dict]:
     """Each kernel against its plain version; returns the main-shape
-    error and the (kernel, plain) functions per kernel and dtype."""
+    error and the (kernel, plain) functions per kernel and dtype, and per
+    dtype the batch-shape cases (each with its error and bound) and the
+    FIR bank's batch input."""
     print("phase 3 kernels against their plain versions", flush=True)
     main = {name: {} for name in KERNELS}
+    batch = {}
     for dtype in DTYPES:
-        for c in kernel_cases(dtype, rng, pair10):
+        cases, hp2 = batch_cases(dtype, rng, pair10)
+        batch[dtype] = {"cases": [], "hp2": hp2}
+        for c in kernel_cases(dtype, rng, pair10) + cases:
             name, case = c.name, c.case
             bar = (DC_BARS if name == "dc_chain" else BARS)[dtype]
             got = stacked(c.kernel())
@@ -609,9 +763,24 @@ def phase_kernels(rng, pair10) -> dict:
                                          plain=c.plain, inputs=c.inputs,
                                          bound_ms=bound_ms,
                                          bound_by=bound_by)
+            elif case.startswith("batch"):
+                bound_ms, bound_by = bound(name, dtype, c.inputs, got)
+                batch[dtype]["cases"].append(dict(
+                    name=name, case=case, kernel=c.kernel, plain=c.plain,
+                    inputs=c.inputs, max_abs_err=err, bound_ms=bound_ms,
+                    bound_by=bound_by))
+            del got, want
     dc_float32_rounding(rng, pair10)
     determinism(main)
-    return main
+    for dtype, entry in batch.items():
+        for c in entry["cases"]:
+            first, second = (stacked(c["kernel"]()) for _ in range(2))
+            same = torch.equal(first, second)
+            print(f"  {c['name']} {c['case']} {dtype}: two launches "
+                  f"bit-identical: {same}", flush=True)
+            check(same, f"{c['name']} {c['case']} {dtype}: two launches "
+                  "differ")
+    return main, batch
 
 
 def dc_float32_rounding(rng, pair10) -> None:
@@ -844,12 +1013,25 @@ def phase_corpus(items: int = 20, seconds: float = 10.0) -> dict:
     return worst
 
 
-def phase_counters(pair10) -> dict:
+def reset_counts() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr)
+            for name, (module, attr) in COUNTERS.items()}
+
+
+def phase_counters(pair10, pairs) -> dict:
     """Each mode's peaq() of the 10 s pair in each tier, with every count
     set to 0 just before it and read just after.  Each tier makes the same
     launches: 3/1/1/0/0/0 (basic) and 4/1/1/1/1/1 (advanced) of K1, K2,
-    K3, D1, D2, D3.  Returns each kernel's counts per mode in float32 (0
-    where a mode does not launch it)."""
+    K3, D1, D2, D3.  Then one peaq_batch() of the first 8 and of the first
+    32 of `pairs` (one microbatch each) per mode and tier, counted the
+    same way: a microbatch launches each kernel as often as one pair does.
+    Returns each kernel's counts per path in float32 (0 where a path does
+    not launch it; the batch paths at microbatch 32)."""
     print("phase 6 launch counters", flush=True)
     want = {"basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
                       "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
@@ -860,12 +1042,10 @@ def phase_counters(pair10) -> dict:
     counts = {name: {} for name in COUNTERS}
     for tier in TIERS:
         for mode in MODES:
-            for module, attr in COUNTERS.values():
-                setattr(module, attr, 0)
+            reset_counts()
             result = api.peaq(*pair10, advanced=mode == "advanced",
                               dtype=tier)
-            got = {name: getattr(module, attr)
-                   for name, (module, attr) in COUNTERS.items()}
+            got = read_counts()
             print(f"  {tier} {mode} peaq() of the 10 s pair: ODG "
                   f"{result.odg:.6f}, launches {got}")
             check(np.isfinite(result.odg), f"{tier} {mode} ODG is not finite")
@@ -874,6 +1054,24 @@ def phase_counters(pair10) -> dict:
             if tier == "float32":
                 for name, n in got.items():
                     counts[name][mode] = n
+    for mb in (8, 32):
+        refs, tests = (x[:mb] for x in pairs)
+        for tier in TIERS:
+            for mode in MODES:
+                reset_counts()
+                out = PB.peaq_batch(refs, tests, advanced=mode == "advanced",
+                                    dtype=tier, microbatch=mb)
+                got = read_counts()
+                print(f"  {tier} {mode} peaq_batch() of {mb} pairs in one "
+                      f"microbatch: ODGs {out['odg'].min():.6f}.."
+                      f"{out['odg'].max():.6f}, launches {got}")
+                check(np.isfinite(out["odg"]).all(),
+                      f"{tier} {mode} batch ODG is not finite")
+                check(got == want[mode], f"{tier} {mode} batch of {mb}: "
+                      f"launches {got}, expected {want[mode]}")
+                if tier == "float32" and mb == 32:
+                    for name, n in got.items():
+                        counts[name][f"batch_{mode}"] = n
     return counts
 
 
@@ -901,7 +1099,9 @@ def site_cases(dtype) -> list:
         cases.append(Case("recurrence_banded", f"advanced {label} "
                           f"{list(shape)}",
                           lambda a=a, b=b: cuda_iir.recurrence_banded(a, b),
-                          None, (a, b)))
+                          lambda a=a, b=b:
+                          cuda_iir.recurrence_banded_plain(a, b),
+                          (a, b)))
     a = t(np.exp(-srng.uniform(0.01, 0.5, 40)))
     exc2, uns2 = (t(srng.uniform(0.01, 10.0, (2, 2, 40, 2500)))
                   for _ in range(2))
@@ -909,12 +1109,15 @@ def site_cases(dtype) -> list:
     cases.append(Case("fused_mod_smoothers", "advanced [2, 2, 40, 2500]",
                       lambda: cuda_iir.fused_mod_smoothers(a, exc2, uns2,
                                                            scale),
-                      None, (a, exc2, uns2)))
-    c, _ = spread_consts(55, dtype)
+                      lambda: cuda_iir.fused_mod_smoothers_plain(
+                          a, exc2, uns2, scale),
+                      (a, exc2, uns2)))
+    c, cp = spread_consts(55, dtype)
     p = t(srng.uniform(1e-6, 1e4, (2, 468, 55)))
     cases.append(Case("spread_fft", "advanced ref only [2, 468, 55]",
                       lambda: cuda_spread_fft.spread_fft(p, *c),
-                      None, (p, c[0], c[1], c[3])))
+                      lambda: cuda_spread_fft.spread_fft_plain(p, *cp),
+                      (p, c[0], c[1], c[3])))
     return cases
 
 
@@ -946,12 +1149,14 @@ def k1_library(a, b, label: str) -> float:
     return ms
 
 
-def phase_times(main: dict, pair10, reps: int = 30) -> dict:
-    """Kernel and plain device times (cuda_ms), the FB ear's FIR bank
-    (plain PyTorch, a conv1d) per tier, then peaq() host wall time per 10 s
-    stereo pair: `reps` calls per mode and tier, the tiers in turn, each
-    call ending in the copy of its results to the host.  Returns the median
-    wall ms per (mode, tier)."""
+def phase_times(main: dict, batch: dict, pair10, reps: int = 30) -> dict:
+    """Kernel and plain device times (cuda_ms), each kernel at its batch
+    shapes (phase 3's batch cases), the FB ear's FIR bank (plain PyTorch, a
+    conv1d) per pair and at the advanced batch's shape, each beside its
+    bound, then peaq() host wall time per 10 s stereo pair: `reps` calls
+    per mode and tier, the tiers in turn, each call ending in the copy of
+    its results to the host.  Returns the median wall ms per (mode,
+    tier)."""
     print("phase 7 times", flush=True)
     for name, by_dtype in main.items():
         for dtype, entry in by_dtype.items():
@@ -969,20 +1174,44 @@ def phase_times(main: dict, pair10, reps: int = 30) -> dict:
     for dtype in DTYPES:
         for c in site_cases(dtype):
             ms, _ = cuda_ms(c.kernel, calls=20, cover_host=True)
+            plain_ms, _ = cuda_ms(c.plain, calls=1, rounds=3)
             bound_ms, bound_by = bound(c.name, dtype, c.inputs,
                                        stacked(c.kernel()))
             print(f"  {c.name} {c.case} {dtype}: kernel {ms:.4f} ms, "
                   f"{bound_ms / ms:.1%} of its bound {bound_ms:.5f} ms "
-                  f"({bound_by})")
+                  f"({bound_by}), plain {plain_ms:.4f} ms (median of 3)")
             if c.name == "recurrence_banded":
                 k1_library(*c.inputs, c.case)
+    for dtype, entry in batch.items():
+        for c in entry["cases"]:
+            c["ms"], host = cuda_ms(c.pop("kernel"), calls=5,
+                                    cover_host=True)
+            c["plain_ms"], _ = cuda_ms(c.pop("plain"), calls=1, rounds=3)
+            inputs = c.pop("inputs")
+            if c["name"] == "recurrence_banded":
+                c["library_ms"] = k1_library(*inputs, c["case"])
+            print(f"  {c['name']} {c['case']} {dtype}: kernel "
+                  f"{c['ms']:.4f} ms (host enqueue {host:.4f} ms), "
+                  f"{c['bound_ms'] / c['ms']:.1%} of its bound "
+                  f"{c['bound_ms']:.5f} ms ({c['bound_by']}), plain "
+                  f"{c['plain_ms']:.4f} ms (median of 3)")
     for dtype in DTYPES:      # the tiers' spectrum dtypes
         k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
         hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
-        with api.full_precision_matmuls():
-            fir, _ = cuda_ms(lambda: FB.filter_bank(k, hp2), calls=5)
-        print(f"  FIR bank (conv1d, 32 in-channels, window 47, 80 out) on "
-              f"{tuple(hp2.shape)} {dtype}: {fir:.4f} ms (median of 10)")
+        for label, x in (("per pair", hp2),
+                         ("batch", batch[dtype].pop("hp2"))):
+            with api.full_precision_matmuls():
+                fir, _ = cuda_ms(lambda: FB.filter_bank(k, x), calls=2,
+                                 rounds=5)
+                bound_ms, bound_by = fir_bound(dtype, x,
+                                               FB.filter_bank(k, x))
+            if label == "batch":
+                batch[dtype].update(fir_ms=fir, fir_bound_ms=bound_ms,
+                                    fir_bound_by=bound_by)
+            print(f"  FIR bank (conv1d, 32 in-channels, window 47, 80 out) "
+                  f"{label} on {tuple(x.shape)} {dtype}: {fir:.4f} ms "
+                  f"(median of 5), {bound_ms / fir:.1%} of its bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
     medians = {}
     for mode in MODES:
         walls = {tier: [] for tier in TIERS}
@@ -1056,6 +1285,166 @@ def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
                                row_limit=12))
 
 
+def deviation(got: dict, want: dict) -> tuple[float, float]:
+    """The worst |dODG| and |dMOV| / (1 + |w|) of one peaq_batch() result
+    dict against another; a NaN in both counts as agreement, in one alone
+    as inf."""
+    def dev(g, w, scale):
+        both = np.isnan(g) & np.isnan(w)
+        d = np.abs(g - w) / (1.0 + scale * np.abs(w))
+        return float(np.max(np.where(both, 0.0, np.nan_to_num(d, nan=np.inf))))
+    return dev(got["odg"], want["odg"], 0.0), dev(got["movs"], want["movs"],
+                                                  1.0)
+
+
+def mixed_lengths(items: int = 8):
+    """Corpus v2 items (10 s stereo) cut to 6..10 s."""
+    refs, tests = corpus.realistic_pairs(items, 10.0)
+    cut = [int(C.SAMPLING_RATE * (6.0 + 4.0 * i / (items - 1)))
+           for i in range(items)]
+    return ([r[:n] for r, n in zip(refs, cut)],
+            [t[:n] for t, n in zip(tests, cut)])
+
+
+def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
+    """One peaq_batch() of `pairs` under torch.profiler: device ms (the
+    device rows), the FIR bank's (aten::conv1d with its kernels), the hand
+    kernels' and the copies to the card's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        PB.peaq_batch(*pairs, advanced=advanced, dtype=tier, microbatch=mb)
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    hand = sum(e.self_device_time_total for e in device
+               if re.search(rf"\b({'|'.join(KERNELS)})(_\w+)?_kernel",
+                            e.key))
+    return {"device_ms": sum(e.self_device_time_total for e in device) / 1e3,
+            "fir_ms": sum(e.device_time_total for e in events
+                          if e.key == "aten::conv1d") / 1e3,
+            "hand_ms": hand / 1e3,
+            "h2d_ms": sum(e.self_device_time_total for e in device
+                          if "HtoD" in e.key) / 1e3,
+            "copies": [(e.key, e.count, e.self_device_time_total / 1e3)
+                       for e in device if "Memcpy" in e.key],
+            "table": events.table(sort_by="self_device_time_total",
+                                  row_limit=8)}
+
+
+def copy_ms(pairs, advanced: bool, mb: int) -> tuple[float, int]:
+    """The device time (cuda_ms) of one chunk's copy to the card from
+    page-locked memory (PB.stage of the first `mb` pairs), and its
+    bytes."""
+    refs, tests = pairs
+    chunk = PB.prepare_chunk(refs[:mb], tests[:mb],
+                             PB.compute_buckets(refs, tests, advanced),
+                             pin=True)
+    ms, _ = cuda_ms(lambda: PB.stage(chunk, "cuda"), calls=3, rounds=3)
+    return ms, sum(a.numel() * a.element_size() for a in chunk)
+
+
+def phase_batch(pairs, card: str) -> dict:
+    """parallel/batch.py on the card.  (1) Eight corpus pairs of mixed
+    lengths through peaq_batch() in microbatches of 3 (the last padded
+    with a duplicate) against per-pair peaq(), per mode and tier: float64
+    within BATCH_BAR, float32 and accurate within BATCH_TIER_BAR ODG.  (2)
+    Four of them quantized to int16: the int16 ship equal to the float one
+    bit for bit.  (3) `pairs`, 64 x 10 s stereo, per mode (basic in
+    microbatches of 64, advanced of 32) and tier: tools/bench.py's rate
+    (3 repeats of 2 batches, staged before the clock), one timed
+    peaq_batch() with its `timings` and peak device memory, and one under
+    the profiler.  Returns the readings per (mode, tier)."""
+    print("phase 9 batch", flush=True)
+    refs, tests = mixed_lengths()
+    for mode in MODES:
+        advanced = mode == "advanced"
+        for tier in TIERS:
+            got = PB.peaq_batch(refs, tests, advanced=advanced, dtype=tier,
+                                microbatch=3)
+            singles = [api.peaq(r, t, advanced=advanced, dtype=tier)
+                       for r, t in zip(refs, tests)]
+            names = C.MOV_ADVANCED_NAMES if advanced else C.MOV_BASIC_NAMES
+            want = {"odg": np.array([x.odg for x in singles]),
+                    "movs": np.array([[x.movs[n] for n in names]
+                                      for x in singles])}
+            odg, mov = deviation(got, want)
+            print(f"  {mode} {tier}, 8 pairs of 6-10 s in microbatches of "
+                  f"3: ODGs {np.nanmin(got['odg']):.4f}.."
+                  f"{np.nanmax(got['odg']):.4f}; against per-pair peaq(): "
+                  f"|dODG| {odg:.3e}, MOVs |d|/(1 + |w|) {mov:.3e}",
+                  flush=True)
+            if tier == "float64":
+                check(odg <= BATCH_BAR and mov <= BATCH_BAR,
+                      f"{mode} float64 batch against per pair: {odg}, {mov}")
+            else:
+                check(odg <= BATCH_TIER_BAR,
+                      f"{mode} {tier} batch against per pair: {odg}")
+        q = [np.clip(np.round(x * 32768.0), -32768, 32767)
+             for x in (*refs[:4], *tests[:4])]
+        as_float = [np.float32(x / 32768.0) for x in q]
+        as_int16 = [x.astype(np.int16) for x in q]
+        out_f = PB.peaq_batch(as_float[:4], as_float[4:], advanced=advanced)
+        out_i = PB.peaq_batch(as_int16[:4], as_int16[4:], advanced=advanced)
+        same = all(np.array_equal(out_i[k], out_f[k], equal_nan=True)
+                   for k in ("odg", "di", "movs"))
+        print(f"  {mode} float64, 4 pairs: int16 ship equal to float: "
+              f"{same}", flush=True)
+        check(same, f"{mode}: the int16 ship differs from the float one")
+    readings = {}
+    audio = sum(r.shape[0] for r in pairs[0]) / C.SAMPLING_RATE
+    for mode in MODES:
+        advanced, mb = mode == "advanced", MICROBATCH[mode]
+        ms, nbytes = copy_ms(pairs, advanced, mb)
+        print(f"  {mode}: one chunk of {mb} pairs to the card from "
+              f"page-locked memory: {ms:.3f} ms for {nbytes / 1e6:.1f} MB "
+              f"({nbytes / ms / 1e6:.1f} GB/s), {len(pairs[0]) // mb} "
+              f"chunk(s) a batch", flush=True)
+        for tier in TIERS:
+            rates = TB.bench(advanced, dtype=tier, microbatch=mb, iters=2,
+                             repeats=3, pairs=pairs)
+            timings = {}
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            out = PB.peaq_batch(*pairs, advanced=advanced, dtype=tier,
+                                microbatch=mb, timings=timings)
+            wall = time.perf_counter() - start
+            peak = torch.cuda.max_memory_allocated()
+            check(np.isfinite(out["odg"]).all(),
+                  f"{mode} {tier} batch of {len(out['odg'])}: ODG not finite")
+            prof = batch_profile(pairs, advanced, tier, mb)
+            dev = prof["device_ms"]
+            check(dev > 0, "the profiler saw no device time")
+            readings[mode, tier] = dict(rates=rates, wall=wall, peak=peak,
+                                        **prof)
+            print(f"  {mode} {tier}, {len(out['odg'])} pairs, {audio:.0f} "
+                  f"audio-s, microbatch {mb} ({card}): "
+                  f"{statistics.median(rates):.1f} audio-s/s (min "
+                  f"{min(rates):.1f}, max {max(rates):.1f}, 3 repeats of 2 "
+                  f"batches, staged); peaq_batch() {wall * 1e3:.1f} ms = "
+                  f"{audio / wall:.1f} audio-s/s, timings "
+                  + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                              for k, v in timings.items())
+                  + f"; peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f}"
+                  f" GiB before)", flush=True)
+            staged_ms = audio / statistics.median(rates) * 1e3
+            print(f"    profiled peaq_batch(): device {dev:.1f} ms, busy "
+                  f"{dev / (wall * 1e3):.1%} of the unprofiled call and, "
+                  f"without the copies to the card, "
+                  f"{(dev - prof['h2d_ms']) / staged_ms:.1%} of a staged "
+                  f"batch ({staged_ms:.1f} ms); FIR "
+                  f"bank {prof['fir_ms']:.1f} ms ({prof['fir_ms'] / dev:.1%}"
+                  f"), hand kernels {prof['hand_ms']:.1f} ms "
+                  f"({prof['hand_ms'] / dev:.1%}), the profiler's rows of "
+                  f"copies to the card {prof['h2d_ms']:.1f} ms "
+                  f"({prof['h2d_ms'] / dev:.1%}); copy rows "
+                  f"{prof['copies']}", flush=True)
+            print(prof["table"])
+    return readings
+
+
 def timed(phase, *args):
     """Run one phase and print its seconds."""
     start = time.perf_counter()
@@ -1072,15 +1461,17 @@ def main() -> None:
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()
     spec = load_spec(pair10)
-    main_kernels = timed(phase_kernels, rng, pair10)
+    main_kernels, batch_kernels = timed(phase_kernels, rng, pair10)
     odg64 = timed(phase_float64, pair10, spec)
     adv64 = timed(phase_adv_float64, pair10, spec)
     timed(phase_tiers, pair10, odg64)
     timed(phase_adv_float32, pair10, adv64)
     timed(phase_corpus)
-    counts = timed(phase_counters, pair10)
-    walls = timed(phase_times, main_kernels, pair10)
+    pairs = make_pairs(BATCH_PAIRS, 10.0)
+    counts = timed(phase_counters, pair10, pairs)
+    walls = timed(phase_times, main_kernels, batch_kernels, pair10)
     timed(phase_profile, pair10, walls)
+    timed(phase_batch, pairs, card)
     check(not any(m == "jax" or m.split(".")[0] == "gstpeaq_tpu"
                   for m in sys.modules),
           "JAX or the JAX package was imported")
@@ -1096,7 +1487,19 @@ def main() -> None:
             max_abs_err_f64=f64["max_abs_err"],
             ms_f64=f64["ms"], plain_ms_f64=f64["plain_ms"],
             bound_ms_f64=f64["bound_ms"], bound_by_f64=f64["bound_by"],
-            library_ms_f64=f64.get("library_ms")))
+            library_ms_f64=f64.get("library_ms"),
+            batch=[dict(case=b32["case"], max_abs_err=b32["max_abs_err"],
+                        ms=b32["ms"], plain_ms=b32["plain_ms"],
+                        bound_ms=b32["bound_ms"], bound_by=b32["bound_by"],
+                        library_ms=b32.get("library_ms"),
+                        max_abs_err_f64=b64["max_abs_err"],
+                        ms_f64=b64["ms"], plain_ms_f64=b64["plain_ms"],
+                        bound_ms_f64=b64["bound_ms"],
+                        bound_by_f64=b64["bound_by"],
+                        library_ms_f64=b64.get("library_ms"))
+                   for b32, b64 in zip(*(
+                       [c for c in batch_kernels[dtype]["cases"]
+                        if c["name"] == name] for dtype in DTYPES))]))
     print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,10 @@
 CUDA kernels for Hopper.
 
 The port of the JAX package `gstpeaq_tpu`, which stays the reference.  So
-far it computes the basic and the advanced version for one pair:
-`gstpeaq_tpu_torch.api.peaq(ref, test, advanced=False, device="cuda")`.
+far it computes the basic and the advanced version for one pair,
+`gstpeaq_tpu_torch.api.peaq(ref, test, advanced=False, device="cuda")`,
+and for a batch of pairs,
+`gstpeaq_tpu_torch.parallel.batch.peaq_batch(refs, tests, ...)`.
 The kernels are built from `csrc/` with nvcc at first use.  The port imports
 nothing of the JAX package: `constants`, `earparams` and
 `utils.testsignals` are its own copies of that package's framework-free

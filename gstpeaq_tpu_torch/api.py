@@ -1,10 +1,10 @@
 """Public API: peaq(ref, test) -> ODG, DI and MOVs for one 48 kHz pair.
 
-The host pads each pair to its own frame count (the GstAdapter drain and
-flush semantics, src/gstpeaq.c:596-611,715-745) and hands the [CH, T]
-signals to a BasicPipeline on the device, or with advanced=True an FFT copy
-and an FB copy, each padded to its own path's frame count, to an
-AdvancedPipeline.
+The host pads the pair to its own frame count of each path (the
+GstAdapter drain and flush semantics, src/gstpeaq.c:596-611,715-745) into
+one [2(ref, test), 1, CH, T] array, as parallel/batch.py pads a batch, and
+copies it to the device once; the batched pipelines (BasicPipeline,
+AdvancedPipeline.unified_input) score it as a batch of one.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from . import constants as C
 from .models.advanced import AdvancedPipeline
 from .models.basic import BasicPipeline
 from .ops import framing
+from .parallel import batch as PB
 
 # precision tiers -> (band dtype, spectrum dtype), the pair that
 # gstpeaq_tpu/api.py::resolve_dtypes returns; TF32 is off in every tier.
@@ -96,14 +97,6 @@ def advanced_pipeline(playback_level: float, settings: C.Settings,
     return AdvancedPipeline(playback_level, settings, band, device, spectrum)
 
 
-def _padded(sig: np.ndarray, n_frames: int, frame_size: int,
-            step_size: int, dev: torch.device) -> torch.Tensor:
-    """[T, CH] -> the channel-major [CH, T'] copy padded for n_frames
-    frames, on `dev`."""
-    return torch.from_numpy(np.ascontiguousarray(framing.pad_signal(
-        sig, n_frames, frame_size, step_size).T)).to(dev)
-
-
 def _as_2d_f32(x) -> np.ndarray:
     x = np.asarray(x, dtype=np.float32)
     if x.ndim == 1:
@@ -140,16 +133,12 @@ def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
         raise ValueError("band_count must be in 55..109")
     dev = resolve_device(device)
 
-    n_fft = framing.num_frames(ref.shape[0], test.shape[0], C.FFT_FRAMESIZE,
-                               C.FFT_STEPSIZE)
-    signals = [_padded(sig, n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE, dev)
-               for sig in (ref, test)]
+    buckets = tuple(
+        framing.num_frames(ref.shape[0], test.shape[0], size, step)
+        for size, step in ((C.FFT_FRAMESIZE, C.FFT_STEPSIZE),
+                           (C.FB_FRAMESIZE, C.FB_FRAMESIZE))[:1 + advanced])
+    sig, _ = PB.prepare_chunk([ref], [test], buckets)
     if advanced:
-        n_fb = framing.num_frames(ref.shape[0], test.shape[0],
-                                  C.FB_FRAMESIZE, C.FB_FRAMESIZE)
-        signals.append(torch.stack([
-            _padded(sig, n_fb, C.FB_FRAMESIZE, C.FB_FRAMESIZE, dev)
-            for sig in (ref, test)]))
         pipe = advanced_pipeline(float(playback_level), settings, dtype, dev)
         names = C.MOV_ADVANCED_NAMES
     else:
@@ -157,11 +146,12 @@ def peaq(ref, test, advanced: bool = False, playback_level: float = 92.0,
                         dev)
         names = C.MOV_BASIC_NAMES
     with full_precision_matmuls(), torch.inference_mode():
-        out = pipe(*signals)
+        # the buckets are the pair's own frame counts: nothing to mask
+        out = PB.dispatch(pipe, buckets, sig.to(dev))
         values = torch.cat([
             torch.stack([out.odg, out.di, out.total_signal_energy,
-                         out.total_noise_energy]).to(torch.float64),
-            out.movs.to(torch.float64)]).cpu().numpy()
+                         out.total_noise_energy], -1).to(torch.float64),
+            out.movs.to(torch.float64)], -1)[0].cpu().numpy()
     odg, di, signal_energy, noise_energy = values[:4]
     snr = (float(10 * np.log10(signal_energy / noise_energy))
            if return_snr else None)

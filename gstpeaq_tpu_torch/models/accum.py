@@ -21,17 +21,19 @@ from ..ops import iir
 
 
 def activity(above: torch.Tensor):
-    """above: [F] bool -> (has_any, active [F], committed [F]).
+    """above: [F, ...] bool, one column per pair (and channel) ->
+    (has_any [...], active [F, ...], committed [F, ...]), each column on
+    its own.
 
     active[t]:    the accumulator has left INIT at frame t
     committed[t]: frame t's contribution is visible in the final value
     """
-    has = torch.any(above)
+    has = torch.any(above, dim=0)
     f = above.shape[0]
-    t = torch.arange(f, device=above.device)
+    t = torch.arange(f, device=above.device).view(f, *[1] * (above.dim() - 1))
     ints = above.to(torch.int32)          # argmax takes no bool tensor
-    t_first = torch.argmax(ints)
-    t_last = f - 1 - torch.argmax(torch.flip(ints, dims=(0,)))
+    t_first = torch.argmax(ints, dim=0)
+    t_last = f - 1 - torch.argmax(torch.flip(ints, dims=(0,)), dim=0)
     active = has & (t >= t_first)
     committed = active & (t <= t_last)
     return has, active, committed
@@ -67,7 +69,7 @@ def rms_asym(v, w, mask):
 
 
 def adb(v, mask):
-    """MODE_ADB; src/movaccum.c:471-476.  v/mask: [F]."""
+    """MODE_ADB; src/movaccum.c:471-476.  v/mask: [F, ...]."""
     num = _msum(v, mask)
     den = _msum(torch.ones_like(v), mask)
     value = torch.where(num == 0.0, -0.5,
@@ -92,14 +94,15 @@ def avg_window(v, called, committed):
     """MODE_AVG_WINDOW (4-frame sliding window of sqrt, NaN-primed warmup);
     src/movaccum.c:392-413.
 
-    `called` frames must form one contiguous block (true for its only
-    user, WinModDiff1B, gated on frame >= 24): the j-th call contributes
-    ((sum of the last 4 sqrt values)/4)^4 once j >= 3.  A block with gaps
-    would silently mix non-adjacent frames, so it gives NaN instead.
+    `called` frames must form one contiguous block in each column (true
+    for its only user, WinModDiff1B, gated on frame >= 24): the j-th call
+    contributes ((sum of the last 4 sqrt values)/4)^4 once j >= 3.  A
+    column whose block has gaps would silently mix non-adjacent frames, so
+    it gives NaN instead.  v/called/committed: [F, ...].
     """
     rising = (torch.sum((called[1:] & ~called[:-1]).to(torch.int32), dim=0)
               + called[0].to(torch.int32))
-    contiguous = torch.all(rising <= 1)
+    contiguous = rising <= 1
     sq = torch.sqrt(torch.where(called, v, 0.0))
 
     def shift(x, k):

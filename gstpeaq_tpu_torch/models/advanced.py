@@ -1,5 +1,5 @@
 """Advanced-version PEAQ pipeline (FFT and filter-bank ear models, 5 MOVs)
-for one pair.
+over a batch of pairs (one pair is a batch of one).
 
 Two paths over the same audio, each with its own frame count and
 data-boundary gating, as in the reference (src/gstpeaq.c:923-1010):
@@ -13,6 +13,9 @@ data-boundary gating, as in the reference (src/gstpeaq.c:923-1010):
             K1), feeding RmsModDiffA, RmsNoiseLoudAsymA and AvgLinDistA.
 
 The five MOVs go through the advanced cognitive network to DI and ODG.
+Pairs of one batch share each path's frame count (its bucket); each pair's
+frames past its own count of that path are masked out (basic.py).
+`AdvancedPipeline.unified_input` takes both paths' audio as one array.
 """
 
 from __future__ import annotations
@@ -31,14 +34,16 @@ from . import accum
 from . import level_adapt as LA
 from . import movs as MOVS
 from . import nn as NN
+from .basic import (channel_mean, energy_totals, frame_major,
+                    loudness_gates, valid_mask)
 
 
 class AdvancedOutputs(NamedTuple):
-    odg: torch.Tensor
-    di: torch.Tensor
-    movs: torch.Tensor          # [5] in MOV_ADVANCED_NAMES order
-    total_signal_energy: torch.Tensor
-    total_noise_energy: torch.Tensor
+    odg: torch.Tensor           # [B]
+    di: torch.Tensor            # [B]
+    movs: torch.Tensor          # [B, 5] in MOV_ADVANCED_NAMES order
+    total_signal_energy: torch.Tensor   # [B]
+    total_noise_energy: torch.Tensor    # [B]
 
 
 class AdvancedPipeline(nn.Module):
@@ -76,18 +81,36 @@ class AdvancedPipeline(nn.Module):
         self.cognitive = NN.CognitiveModel.standard(
             True, torch.promote_types(dtype, sdtype), device)
 
+    def unified_input(self, sig_pair: torch.Tensor, n_fft: int, n_fb: int,
+                      valid_fft: torch.Tensor | None = None,
+                      valid_fb: torch.Tensor | None = None) -> AdvancedOutputs:
+        """forward on ONE array of both paths' audio (gstpeaq_tpu/models/
+        advanced.py::unified_input, flat form): sig_pair [2(ref, test), B,
+        CH, Tmax] with Tmax = max((n_fft + 1) * 1024, 192 n_fb), each
+        pair's audio truncated at min(Tmax, its length) and zero-padded.
+        Each path reads its prefix as a view; frames past a pair's own
+        flush frame may carry its audio, and valid_fft / valid_fb (each
+        pair's own frame counts) mask them out; every consumer is gated
+        and every recurrence causal, so they reach no unmasked frame."""
+        sig_pair = framing.dequantize(sig_pair)
+        t_fft = (n_fft + 1) * C.FFT_STEPSIZE
+        return self(sig_pair[0, ..., :t_fft], sig_pair[1, ..., :t_fft],
+                    sig_pair[..., :n_fb * C.FB_FRAMESIZE], valid_fft,
+                    valid_fb)
+
     def forward(self, ref_fft: torch.Tensor, test_fft: torch.Tensor,
-                fb_pair: torch.Tensor) -> AdvancedOutputs:
-        """ref/test_fft: [CH, T] with T = (F_fft + 1) * 1024; fb_pair:
-        [2(ref, test), CH, 192 F_fb]; each zero-padded on the host past the
-        pair's own flush frame of its path."""
+                fb_pair: torch.Tensor, valid_fft: torch.Tensor | None = None,
+                valid_fb: torch.Tensor | None = None) -> AdvancedOutputs:
+        """ref/test_fft: [B, CH, T] with T = (F_fft + 1) * 1024; fb_pair:
+        [2(ref, test), B, CH, 192 F_fb]; each zero-padded on the host past
+        each pair's own flush frame of its path; valid_fft / valid_fb: [B]
+        int, each pair's own frame count of the path, or None when it is
+        the bucket's for every pair."""
         kf, kb = self.fft, self.fb
         settings = self.settings
         sdtype = kf.hann.dtype                     # the spectrum dtype
-
-        def fm(x):
-            """[CH, F] -> the accumulators' [F, CH]."""
-            return x.transpose(-1, -2)
+        fm = frame_major                           # [B, CH, F] -> [F, B, CH]
+        ch_mean = channel_mean                     # [B, CH] -> [B]
 
         # ------------------ FFT path: SegmentalNMR + EHS ------------------
         ref_fft = framing.dequantize(ref_fft)
@@ -95,8 +118,11 @@ class AdvancedPipeline(nn.Module):
         n_fft = ref_fft.shape[-1] // C.FFT_STEPSIZE - 1
         above_fft = framing.above_threshold_signal(
             ref_fft.to(sdtype), n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
-        _, _, committed_fft = accum.activity(above_fft)
-        rblocks = framing.blocks_hop(ref_fft, n_fft)       # [CH, F+1, 1024]
+        fft_valid = valid_mask(n_fft, valid_fft, ref_fft.device)
+        if fft_valid is not None:
+            above_fft = above_fft & fft_valid
+        _, _, committed_fft = accum.activity(above_fft.T)   # [F, B]
+        rblocks = framing.blocks_hop(ref_fft, n_fft)   # [B, CH, F+1, 1024]
         tblocks = framing.blocks_hop(test_fft, n_fft)
         power, ref_uns, thresh, delta_p = FE.stateless_pair_hop(
             kf, rblocks, tblocks, spread_ref_only=True)
@@ -109,32 +135,29 @@ class AdvancedPipeline(nn.Module):
         ehs_val, ehs_valid = MOVS.ehs(
             power[0], power[1], thresh[0], thresh[1], settings,
             self.ehs_window, delta_p, kf.ehs_zero)
-        cmf = committed_fft[:, None]
+        cmf = committed_fft[..., None]
         one = torch.ones_like(fm(nmr_mean))
-        seg_nmr = torch.mean(accum.avg(10.0 * torch.log10(fm(nmr_mean)), one,
-                                       cmf))
-        ehs_mov = torch.mean(accum.avg(fm(ehs_val), one,
-                                       cmf & ehs_valid[:, None]))
+        seg_nmr = ch_mean(accum.avg(10.0 * torch.log10(fm(nmr_mean)), one,
+                                    cmf))
+        ehs_mov = ch_mean(accum.avg(fm(ehs_val), one,
+                                    cmf & ehs_valid.T[..., None]))
 
         # ------------- FB path: ModDiff / NoiseLoudAsym / LinDist ----------
         fb_pair = framing.dequantize(fb_pair).to(sdtype)
         n_fb = fb_pair.shape[-1] // C.FB_FRAMESIZE
         above_fb = framing.above_threshold_signal(
             fb_pair[0], n_fb, C.FB_FRAMESIZE, C.FB_FRAMESIZE)
-        _, _, committed_fb = accum.activity(above_fb)
-        exc2, uns2 = FB.process_signal(kb, fb_pair, n_fb)   # [2, CH, 40, F]
+        fb_valid = valid_mask(n_fb, valid_fb, fb_pair.device)
+        if fb_valid is not None:
+            above_fb = above_fb & fb_valid
+        _, _, committed_fb = accum.activity(above_fb.T)     # [F, B]
+        exc2, uns2 = FB.process_signal(kb, fb_pair, n_fb)  # [2,B,CH,40,F]
         ref_e = exc2[0]
         adapted_ref, adapted_test, mod2, avg_loud2 = LA.level_adapt_fused_mod(
             kb.adapt_a, self.avg_matrix, exc2, uns2, C.FB_FRAMESIZE)
         mod_ref, mod_test = mod2[0], mod2[1]
-
-        # loudness gate; src/gstpeaq.c:988,996-997
-        loud2 = FE.loudness(kb, exc2, axis=-2)             # [2, CH, F]
-        loud_ok = torch.any((loud2[0] > 0.1) & (loud2[1] > 0.1), dim=-2)
-        f_idx = torch.arange(n_fb, device=loud_ok.device)
-        loud_frame = torch.argmax(loud_ok.to(torch.int32))  # first reached
-        md_gate = f_idx >= 125
-        nl_gate = md_gate & torch.any(loud_ok) & (f_idx - 13 >= loud_frame)
+        md_gate, nl_gate = loudness_gates(FE.loudness(kb, exc2, axis=-2),
+                                          125, 13)
 
         md1, _, temp_wt = (fm(x) for x in MOVS.modulation_difference(
             kb.internal_noise, mod_ref, mod_test, avg_loud2[0],
@@ -158,24 +181,23 @@ class AdvancedPipeline(nn.Module):
                 noise, 1.5, 0.15, 1.0, 0.0, mod_ref, mod_test, adapted_ref,
                 ref_e))
 
-        cmb = committed_fb[:, None]
-        nl_mask = cmb & nl_gate[:, None]
+        cmb = committed_fb[..., None]
+        nl_mask = cmb & nl_gate.T[..., None]
         mov = {
-            "RmsModDiffA": torch.mean(
-                accum.rms(md1, temp_wt, cmb & md_gate[:, None])),
-            "RmsNoiseLoudAsymA": torch.mean(
+            "RmsModDiffA": ch_mean(
+                accum.rms(md1, temp_wt, cmb & md_gate[:, None, None])),
+            "RmsNoiseLoudAsymA": ch_mean(
                 accum.rms_asym(nl_asym, missing, nl_mask)),
             "SegmentalNMRB": seg_nmr,
             "EHSB": ehs_mov,
-            "AvgLinDistA": torch.mean(
+            "AvgLinDistA": ch_mean(
                 accum.avg(lin_dist, torch.ones_like(md1), nl_mask)),
         }
-        mov_vec = torch.stack([mov[name] for name in C.MOV_ADVANCED_NAMES])
+        mov_vec = torch.stack([mov[name] for name in C.MOV_ADVANCED_NAMES],
+                              -1)
         di = self.cognitive(mov_vec, settings.clamp_movs)
-
-        # totalsnr bookkeeping: the first half of FFT frame f is hop block f
-        rhalf = rblocks[..., :-1, :].to(sdtype)
-        nhalf = rhalf - tblocks[..., :-1, :].to(sdtype)
+        signal_energy, noise_energy = energy_totals(rblocks, tblocks,
+                                                    fft_valid, sdtype)
         return AdvancedOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
-                               total_signal_energy=torch.sum(rhalf ** 2),
-                               total_noise_energy=torch.sum(nhalf ** 2))
+                               total_signal_energy=signal_energy,
+                               total_noise_energy=noise_energy)

@@ -1,7 +1,8 @@
-"""Basic-version PEAQ pipeline (FFT ear model, 11 MOVs) for one pair.
+"""Basic-version PEAQ pipeline (FFT ear model, 11 MOVs) over a batch of
+pairs.
 
-`BasicPipeline.forward` maps a padded 48 kHz signal pair [CH, T] to ODG, DI
-and the MOVs in three stages:
+`BasicPipeline.forward` maps padded 48 kHz signals [B, CH, T] (a batch of B
+pairs; one pair is B = 1) to ODG, DI and the MOVs per pair in three stages:
 
   A  the stateless ear model over all frames and channels (rDFT, grouping,
      spreading: kernel K3);
@@ -13,6 +14,9 @@ and the MOVs in three stages:
 The orchestration follows src/gstpeaq.c:849-921: the frame >= 24 gates, the
 loudness-reached +3 delay, the data-boundary masks (accum.py), binaural
 ADB/MFPD and the trailing zero-padded flush frame (padded on the host).
+Pairs of one batch share a frame count (a bucket, parallel/batch.py); each
+pair's frames past its own count are masked out as the reference never
+processes them, so a batch gives each pair what it gives alone.
 """
 
 from __future__ import annotations
@@ -33,11 +37,61 @@ from . import nn as NN
 
 
 class BasicOutputs(NamedTuple):
-    odg: torch.Tensor
-    di: torch.Tensor
-    movs: torch.Tensor          # [11] in MOV_BASIC_NAMES order
-    total_signal_energy: torch.Tensor
-    total_noise_energy: torch.Tensor
+    odg: torch.Tensor           # [B]
+    di: torch.Tensor            # [B]
+    movs: torch.Tensor          # [B, 11] in MOV_BASIC_NAMES order
+    total_signal_energy: torch.Tensor   # [B]
+    total_noise_energy: torch.Tensor    # [B]
+
+
+def frame_major(x: torch.Tensor) -> torch.Tensor:
+    """[B, CH, F] -> the accumulators' [F, B, CH]."""
+    return x.movedim(-1, 0)
+
+
+def channel_mean(x: torch.Tensor) -> torch.Tensor:
+    """An accumulated MOV [B, CH] -> [B], the mean over each pair's
+    channels (the reference's multichannel average)."""
+    return torch.mean(x, dim=-1)
+
+
+def loudness_gates(loud2: torch.Tensor, start: int, delay: int):
+    """The MOV gates per frame from the overall loudness loud2 [2, B, CH, F]
+    of (ref, test): md_gate [F], frames >= start, and nl_gate [B, F], which
+    also needs the pair's loudness reached in both signals of some channel
+    `delay` frames before; src/gstpeaq.c:841-845,880-886 (basic: start 24,
+    delay 3) and :988,996-997 (advanced: 125, 13)."""
+    loud_ok = torch.any((loud2[0] > 0.1) & (loud2[1] > 0.1), dim=-2)
+    f_idx = torch.arange(loud_ok.shape[-1], device=loud_ok.device)
+    # the first frame where reached, per pair
+    loud_frame = torch.argmax(loud_ok.to(torch.int32), dim=-1, keepdim=True)
+    md_gate = f_idx >= start
+    nl_gate = (md_gate & torch.any(loud_ok, dim=-1, keepdim=True)
+               & (f_idx - delay >= loud_frame))
+    return md_gate, nl_gate
+
+
+def valid_mask(n_frames: int, valid, device):
+    """[B, F] bool: frame < the pair's own frame count, or None when every
+    frame of the bucket is the pair's own (valid is None)."""
+    if valid is None:
+        return None
+    return torch.arange(n_frames, device=device) < valid[:, None]
+
+
+def energy_totals(ref_blocks: torch.Tensor, test_blocks: torch.Tensor,
+                  frame_valid, dtype):
+    """totalsnr bookkeeping per pair (src/gstpeaq.c:913-918) from hop blocks
+    [B, CH, F + 1, 1024]: the first half of frame f is hop block f; frames
+    past a pair's own count are left out."""
+    rhalf = ref_blocks[..., :-1, :].to(dtype)
+    nhalf = rhalf - test_blocks[..., :-1, :].to(dtype)
+    if frame_valid is not None:
+        sel = frame_valid[:, None, :, None]
+        rhalf = torch.where(sel, rhalf, 0.0)
+        nhalf = torch.where(sel, nhalf, 0.0)
+    return (torch.sum(rhalf ** 2, dim=(1, 2, 3)),
+            torch.sum(nhalf ** 2, dim=(1, 2, 3)))
 
 
 class BasicPipeline(nn.Module):
@@ -71,10 +125,12 @@ class BasicPipeline(nn.Module):
         self.cognitive = NN.CognitiveModel.standard(
             False, torch.promote_types(dtype, sdtype), device)
 
-    def forward(self, ref_sig: torch.Tensor,
-                test_sig: torch.Tensor) -> BasicOutputs:
-        """ref/test_sig: [CH, T] float (or PCM16) with T = (F + 1) * 1024,
-        zero-padded on the host past the pair's own flush frame."""
+    def forward(self, ref_sig: torch.Tensor, test_sig: torch.Tensor,
+                valid_frames: torch.Tensor | None = None) -> BasicOutputs:
+        """ref/test_sig: [B, CH, T] float (or PCM16) with T = (F + 1) * 1024,
+        zero-padded on the host past each pair's own flush frame;
+        valid_frames: [B] int, each pair's own frame count (<= F), or None
+        when it is F for every pair."""
         k = self.consts
         settings = self.settings
         sdtype = k.hann.dtype                      # the spectrum dtype
@@ -83,8 +139,13 @@ class BasicPipeline(nn.Module):
         n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
         above = framing.above_threshold_signal(
             ref_sig.to(sdtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
-        _, active, committed = accum.activity(above)
-        ref_blocks = framing.blocks_hop(ref_sig, n_frames)   # [CH, F+1, 1024]
+        frame_valid = valid_mask(n_frames, valid_frames, ref_sig.device)
+        if frame_valid is not None:
+            # frames past a pair's own flush frame can still overlap its
+            # audio (50% overlap): leave them out as the reference does
+            above = above & frame_valid
+        _, active, committed = accum.activity(above.T)       # [F, B]
+        ref_blocks = framing.blocks_hop(ref_sig, n_frames)   # [B,CH,F+1,1024]
         test_blocks = framing.blocks_hop(test_sig, n_frames)
 
         # ---- stage A: stateless ear model on both signals ----
@@ -92,27 +153,18 @@ class BasicPipeline(nn.Module):
             k, ref_blocks, test_blocks)
         ref_p, test_p = power[0], power[1]
 
-        # ---- stage B: recurrences over frames, in [2, CH, Z, F] ----
+        # ---- stage B: recurrences over frames, in [2, B, CH, Z, F] ----
         uns_t = unsmeared.transpose(-1, -2).contiguous()
         exc = FE.time_smear(k, uns_t, axis=-1)
-        ref_e, test_e = exc[0], exc[1]                     # [CH, Z, F]
+        ref_e, test_e = exc[0], exc[1]                     # [B, CH, Z, F]
         adapted_ref, adapted_test, mod2, avg_loud2 = LA.level_adapt_fused_mod(
             k.adapt_a, self.avg_matrix, exc, uns_t, C.FFT_STEPSIZE)
         mod_ref, mod_test = mod2[0], mod2[1]
+        md_gate, nl_gate = loudness_gates(FE.loudness(k, exc, axis=-2),
+                                          24, 3)
 
-        # loudness gate; src/gstpeaq.c:841-845,880-886
-        loud2 = FE.loudness(k, exc, axis=-2)               # [2, CH, F]
-        loud_ok = torch.any((loud2[0] > 0.1) & (loud2[1] > 0.1), dim=-2)
-        f_idx = torch.arange(n_frames, device=loud_ok.device)
-        loud_frame = torch.argmax(loud_ok.to(torch.int32))  # first reached
-        nl_gate = ((f_idx >= 24) & torch.any(loud_ok)
-                   & (f_idx - 3 >= loud_frame))
-        md_gate = f_idx >= 24
-
-        # ---- stage C: per-frame MOV terms, then [CH, F] -> [F, CH] ----
-        def fm(x):
-            return x.transpose(-1, -2)
-
+        # ---- stage C: per-frame MOV terms, then [B, CH, F] -> [F, B, CH] ----
+        fm = frame_major
         md1, md2, temp_wt = (fm(x) for x in MOVS.modulation_difference(
             k.internal_noise, mod_ref, mod_test, avg_loud2[0],
             rms_mode=False, lev_wt=100.0))
@@ -124,43 +176,39 @@ class BasicPipeline(nn.Module):
         hi = k.group_bin_hi
         nmr_mean, disturbed = (fm(x) for x in MOVS.nmr(
             k.group_matrix[:hi], k.masking_difference, ref_p[..., :hi],
-            test_p[..., :hi], fm(ref_e), delta_p))
-        p_bin, steps_bin = MOVS.prob_detect(
-            ref_e, test_e, settings.use_floor_for_steps_above_threshold)
+            test_p[..., :hi], ref_e.transpose(-1, -2), delta_p))
+        p_bin, steps_bin = (x.T for x in MOVS.prob_detect(
+            ref_e, test_e, settings.use_floor_for_steps_above_threshold))
         ehs_val, ehs_valid = MOVS.ehs(
             ref_p, test_p, thresh[0], thresh[1], settings, self.ehs_window,
             delta_p, k.ehs_zero)
         ehs_val = fm(ehs_val)
 
-        # ---- accumulate (channel means where multichannel) ----
-        cm = committed[:, None]
-        gm = md_gate[:, None]
+        # ---- accumulate, [F, B, CH] -> [B] ----
+        cm = committed[..., None]
+        gm = md_gate[:, None, None]
         one = torch.ones_like(md1)
+        ch_mean = channel_mean
         mov = {
-            "BandwidthRefB": torch.mean(
-                accum.avg(bw_ref, one, cm & bw_valid)),
-            "BandwidthTestB": torch.mean(
-                accum.avg(bw_test, one, cm & bw_valid)),
-            "TotalNMRB": torch.mean(accum.avg_log(nmr_mean, one, cm)),
-            "WinModDiff1B": torch.mean(accum.avg_window(
-                md1, active[:, None] & gm, cm)),
+            "BandwidthRefB": ch_mean(accum.avg(bw_ref, one, cm & bw_valid)),
+            "BandwidthTestB": ch_mean(accum.avg(bw_test, one, cm & bw_valid)),
+            "TotalNMRB": ch_mean(accum.avg_log(nmr_mean, one, cm)),
+            "WinModDiff1B": ch_mean(accum.avg_window(
+                md1, active[..., None] & gm, cm)),
             "ADBB": accum.adb(steps_bin, committed & (p_bin > 0.5)),
-            "EHSB": torch.mean(
-                accum.avg(ehs_val, one, cm & ehs_valid[:, None])),
-            "AvgModDiff1B": torch.mean(accum.avg(md1, temp_wt, cm & gm)),
-            "AvgModDiff2B": torch.mean(accum.avg(md2, temp_wt, cm & gm)),
-            "RmsNoiseLoudB": torch.mean(
-                accum.rms(nl, one, cm & nl_gate[:, None])),
+            "EHSB": ch_mean(accum.avg(ehs_val, one,
+                                      cm & ehs_valid.T[..., None])),
+            "AvgModDiff1B": ch_mean(accum.avg(md1, temp_wt, cm & gm)),
+            "AvgModDiff2B": ch_mean(accum.avg(md2, temp_wt, cm & gm)),
+            "RmsNoiseLoudB": ch_mean(accum.rms(nl, one,
+                                               cm & nl_gate.T[..., None])),
             "MFPDB": accum.filtered_max(p_bin, active, committed),
-            "RelDistFramesB": torch.mean(accum.avg(disturbed, one, cm)),
+            "RelDistFramesB": ch_mean(accum.avg(disturbed, one, cm)),
         }
-        mov_vec = torch.stack([mov[name] for name in C.MOV_BASIC_NAMES])
+        mov_vec = torch.stack([mov[name] for name in C.MOV_BASIC_NAMES], -1)
         di = self.cognitive(mov_vec, settings.clamp_movs)
-
-        # totalsnr bookkeeping; src/gstpeaq.c:913-918: the first half of
-        # frame f is hop block f
-        rhalf = ref_blocks[..., :-1, :].to(sdtype)
-        nhalf = rhalf - test_blocks[..., :-1, :].to(sdtype)
+        signal_energy, noise_energy = energy_totals(
+            ref_blocks, test_blocks, frame_valid, sdtype)
         return BasicOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
-                            total_signal_energy=torch.sum(rhalf ** 2),
-                            total_noise_energy=torch.sum(nhalf ** 2))
+                            total_signal_energy=signal_energy,
+                            total_noise_energy=noise_energy)

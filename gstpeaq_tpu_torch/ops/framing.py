@@ -1,10 +1,11 @@
 """Framing and the data-boundary threshold test.
 
-Frames are views of the padded [CH, T] signal: the host pads each pair to
-its own frame count (the GstAdapter drain semantics, src/gstpeaq.c:596-611,
-with the final zero-padded flush frame of src/gstpeaq.c:715-745), and the
-device cuts [CH, F + 1, 1024] hop blocks with a free view; frame f is
-blocks[:, f] | blocks[:, f + 1].
+Frames are views of the padded [..., CH, T] signals (any leading axes, a
+batch of pairs among them): the host pads each pair to the frame count of
+its bucket (the GstAdapter drain semantics, src/gstpeaq.c:596-611, with
+the final zero-padded flush frame of src/gstpeaq.c:715-745), and the
+device cuts [..., CH, F + 1, 1024] hop blocks with a free view; frame f is
+blocks[..., f, :] | blocks[..., f + 1, :].
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ def pad_signal(sig: np.ndarray, n_frames: int, frame_size: int,
 
 
 def blocks_hop(sig: torch.Tensor, n_frames: int) -> torch.Tensor:
-    """[CH, T] -> [CH, F + 1, 1024] hop blocks, a view."""
+    """[..., T] -> [..., F + 1, 1024] hop blocks, a view."""
     hop = C.FFT_STEPSIZE
-    return sig[:, :(n_frames + 1) * hop].view(sig.shape[0], n_frames + 1, hop)
+    return sig[..., :(n_frames + 1) * hop].unflatten(-1, (n_frames + 1, hop))
 
 
 def above_threshold_signal(sig: torch.Tensor, n_frames: int, frame_size: int,
@@ -65,19 +66,20 @@ def above_threshold_signal(sig: torch.Tensor, n_frames: int, frame_size: int,
     i >= 5 (frame-local) in any channel sums to >= 200/32768.  One 5-term
     shifted sum over |sig|, then per-hop-block maxima: no frame is cut out.
 
-    sig: [CH, T] with T = (n_frames - 1) * step_size + frame_size and
-    frame_size in {step_size, 2 * step_size}.  Returns bool [n_frames].
+    sig: [..., CH, T] with T = (n_frames - 1) * step_size + frame_size and
+    frame_size in {step_size, 2 * step_size}; the channels of each pair
+    are reduced.  Returns bool [..., n_frames].
     """
     t = sig.shape[-1]
     a = torch.abs(sig)
     w = (a[..., 4:] + a[..., 3:-1] + a[..., 2:-2] + a[..., 1:-3]
          + a[..., :-4])                                # ends at j = 4..T-1
-    m = torch.amax(w, dim=0)                           # [T-4]
-    g = torch.cat([m.new_zeros(4), m])                 # G[j], j = 0..T-1
+    m = torch.amax(w, dim=-2)                          # [..., T-4]
+    g = torch.cat([m.new_zeros((*m.shape[:-1], 4)), m], dim=-1)  # G[j]
     n_hops = t // step_size
-    blocks = g[:n_hops * step_size].view(n_hops, step_size)
-    tail_any = torch.amax(blocks[:, 5:], dim=1) >= C.FRAME_THRESHOLD
+    blocks = g[..., :n_hops * step_size].unflatten(-1, (n_hops, step_size))
+    tail_any = torch.amax(blocks[..., 5:], dim=-1) >= C.FRAME_THRESHOLD
     if frame_size == step_size:
-        return tail_any[:n_frames]
-    full_any = torch.amax(blocks, dim=1) >= C.FRAME_THRESHOLD
-    return tail_any[:n_frames] | full_any[1:n_frames + 1]
+        return tail_any[..., :n_frames]
+    full_any = torch.amax(blocks, dim=-1) >= C.FRAME_THRESHOLD
+    return tail_any[..., :n_frames] | full_any[..., 1:n_frames + 1]

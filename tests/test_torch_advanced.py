@@ -157,10 +157,12 @@ def test_pipeline_outputs():
     pipe = AdvancedPipeline()
     n_fft = framing.num_frames(N, N, 2048, 1024)
     n_fb = framing.num_frames(N, N, 192, 192)
-    pad = lambda x, t: torch.from_numpy(np.pad(x, (0, t - len(x)))[None])
+    # a batch of one mono pair: [B, CH, T], the FB pair [2, B, CH, T]
+    pad = lambda x, t: torch.from_numpy(                      # noqa: E731
+        np.pad(x, (0, t - len(x)))[None, None])
     out = pipe(pad(ref, (n_fft + 1) * 1024), pad(test, (n_fft + 1) * 1024),
                torch.stack([pad(ref, 192 * n_fb), pad(test, 192 * n_fb)]))
-    assert out.movs.shape == (5,) and out.movs.dtype == torch.float64
+    assert out.movs.shape == (1, 5) and out.movs.dtype == torch.float64
     assert torch.isfinite(out.movs).all() and torch.isfinite(out.odg)
     assert (api.advanced_pipeline(92.0, PC.DEFAULT_SETTINGS, "float64",
                                   torch.device("cpu"))

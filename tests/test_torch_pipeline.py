@@ -110,8 +110,8 @@ def test_tier_dtypes(tier, band, spectrum):
     so the MOV vector, come out in the wider, as JAX promotes them), and
     stays within 2e-3 ODG of float64 on saw/triangle."""
     n = 40 * 1024
-    ref = torch.from_numpy(np.stack([TS.saw(n + 1024)]))
-    test = torch.from_numpy(np.stack([TS.triangle(n + 1024)]))
+    ref = torch.from_numpy(np.stack([TS.saw(n + 1024)]))[None]    # [1, 1, T]
+    test = torch.from_numpy(np.stack([TS.triangle(n + 1024)]))[None]
     pipe = api.pipeline(109, 92.0, PC.DEFAULT_SETTINGS, tier,
                         torch.device("cpu"))
     assert api.DTYPES[tier] == (band, spectrum)

@@ -20,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 
+import bench
 import chip_smoke
 from gstpeaq_tpu import constants as JC
 from gstpeaq_tpu import earparams as JEP
@@ -27,6 +28,7 @@ from gstpeaq_tpu.utils import numpy_ref
 from gstpeaq_tpu.utils import testsignals as JTS
 from gstpeaq_tpu_torch import constants as PC
 from gstpeaq_tpu_torch import earparams as PEP
+from gstpeaq_tpu_torch.utils import benchpairs as PBENCH
 from gstpeaq_tpu_torch.utils import corpus as PCORPUS
 from gstpeaq_tpu_torch.utils import testsignals as PTS
 
@@ -146,6 +148,20 @@ def fingerprint(pair) -> dict:
                        for s in pair],
             "picks": picks,
             "samples": [s[picks].astype(np.float64).tolist() for s in pair]}
+
+
+@pytest.mark.parametrize("batch,seconds,channels,seed",
+                         [(13, 0.05, 2, 0), (3, 0.1, 1, 5)])
+def test_benchpairs_are_bench_make_pairs(batch, seconds, channels, seed):
+    """The port's make_pairs equals bench.py's, array for array (dtype,
+    shape, strides and bits), past the 11 harmonic stacks' wrap."""
+    want = bench.make_pairs(batch, seconds, channels, seed)
+    got = PBENCH.make_pairs(batch, seconds, channels, seed)
+    for g_list, w_list in zip(got, want):
+        assert len(g_list) == len(w_list) == batch
+        for g, w in zip(g_list, w_list):
+            assert g.strides == w.strides
+            assert_same(g, w, "make_pairs")
 
 
 def spec_record() -> dict:

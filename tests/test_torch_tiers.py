@@ -89,6 +89,17 @@ def advanced_inputs(ref, test):
     return basic_inputs(ref, test) + [fb]
 
 
+def batch_of_one(inputs):
+    """The pipelines' batched inputs for one pair: [CH, T] -> [1, CH, T],
+    the FB pair [2, CH, T] -> [2, 1, CH, T]."""
+    return [torch.from_numpy(x).unsqueeze(-3) for x in inputs]
+
+
+def first_pair(out):
+    """A batch-of-one output tuple -> that pair's values."""
+    return type(out)(*(x[0] for x in out))
+
+
 def assert_close(got, want, names):
     """got: the port's outputs; want: JAX's, each with odg and movs (the
     noisy pair's bandwidth MOVs, and so its ODG, are NaN in both)."""
@@ -113,7 +124,7 @@ def test_basic_band_f32_spectrum_f64_matches_jax(pair):
     want = jax.jit(fn)(consts, *map(jnp.asarray, inputs))
     pipe = BasicPipeline(dtype=torch.float32, spectrum_dtype=torch.float64)
     with torch.inference_mode():
-        got = pipe(*map(torch.from_numpy, inputs))
+        got = first_pair(pipe(*batch_of_one(inputs)))
     assert got.movs.dtype == torch.float64
     assert_close(got, want, C.MOV_BASIC_NAMES)
 
@@ -130,7 +141,7 @@ def test_advanced_band_f32_spectrum_f64_matches_jax(pair):
     pipe = AdvancedPipeline(dtype=torch.float32,
                             spectrum_dtype=torch.float64)
     with torch.inference_mode():
-        got = pipe(*map(torch.from_numpy, inputs))
+        got = first_pair(pipe(*batch_of_one(inputs)))
     assert got.movs.dtype == torch.float64
     assert_close(got, want, C.MOV_ADVANCED_NAMES)
 
