@@ -17,9 +17,13 @@ Phases, each on its own lines and ending with its seconds:
               band counts 1..128; D2: I = 1, 37, 10, 70,000 leads, counts
               off its tiles, rows off their 16-byte boundary) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
-              stereo, in their buckets), in float32 and float64, the
-              float32 DC cascade's own rounding against float64, and two
-              launches of every kernel bit for bit, at batch shapes too
+              stereo, in their buckets) and the streams' chunk shapes (64
+              FFT frames, 1,024 FB frames, at one stream and at the pool's
+              16) with their carried states (K1 and D1 with y0, D3 with
+              its state, D1 and D2 on a second FB chunk of the pair's own
+              rows), in float32 and float64, the float32 DC cascade's own
+              rounding against float64, and two launches of every kernel
+              bit for bit, at batch and chunk shapes too
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
               (stereo upmix), and a 10 s stereo pair against the NumPy
               spec's float64 results, frozen with the pair's fingerprint in
@@ -39,14 +43,18 @@ Phases, each on its own lines and ending with its seconds:
               each with the counts set to 0 just before it: the advanced
               call goes through all six kernels; then one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
-              launches each kernel as often as one peaq() does
+              launches each kernel as often as one peaq() does, and one
+              chunk step of each stream path (basic, advanced FFT,
+              advanced FB) per tier, at one stream and at 16
   7 times     CUDA-event medians of each kernel and its plain version in
               float32 and float64, each kernel's share of its bound (also
               at the advanced path's other call-site shapes and at the
               batch shapes), K1's library call (a grouped causal conv1d)
               at each K1 call site, the FB ear's FIR bank with a bound of
-              its own (per pair and at the batch shape), and peaq() wall
-              time per 10 s stereo pair per mode and tier
+              its own (per pair and at the batch shape), each kernel at
+              the streams' chunk shapes, K1 and K2 on a 10-minute
+              program's one-shot FB rows [2, 1, 2, 40, 150000], and peaq()
+              wall time per 10 s stereo pair per mode and tier
   8 profile   torch.profiler over five peaq() calls per mode and tier:
               device time per call, its share of the wall time, each hand
               kernel's share of it, and time by kernel
@@ -59,6 +67,20 @@ Phases, each on its own lines and ending with its seconds:
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank, the
               hand kernels and the copies to the card
+  10 streams  parallel/stream.py on a 10-minute stereo program (drift
+              corpus v2's 20 items at 30 s, end to end) fed in 1 s pieces
+              at chunk_frames 64: PeaqStream and PeaqStreamAdvanced per
+              tier against the same tier's one-shot peaq() (float64 within
+              1e-9 ODG and DI and 1e-8 (1 + |w|) per MOV, float32 and
+              accurate 5e-4 ODG), current() after minute 1, wall time,
+              audio-s/s, the median wall of a chunk step, the device's
+              busy share over a few steps, peak memory over minute 1 and
+              minute 10 (within 5%) beside the one-shot call's, and each
+              kernel's launches (steps x phase 6's counts); a float64
+              checkpoint at 5 minutes (utils/checkpoint.py's npz) resumed
+              in a fresh stream, bit for bit; PeaqStreamPool of 16 stereo
+              60 s streams per mode in float64 against peaq_batch() of the
+              same pairs (1e-9 ODG, 1e-9 (1 + |w|) per MOV)
 
 Two lines before the last is one JSON object with each kernel's error,
 times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
@@ -74,16 +96,22 @@ each batch path; 0 where a path does not launch the kernel), `launches`
 their sum; `batch` lists the kernel's batch shapes, each with its
 `max_abs_err`, `ms`, `plain_ms`, `bound_ms`, `bound_by` and
 `library_ms` (K1's conv1d there; null for the others), and the same with
-`_f64`.  The line before the last is the card's name and power limit;
-the last line is {"ok": true, "device": {...}}.  Any failed check exits
-non-zero without that last line.  Without CUDA the script exits non-zero
-at once and prints no result.  Nothing of JAX or of the JAX package
-gstpeaq_tpu is imported.
+`_f64`; `stream` the same at the streams' chunk shapes (`library_ms`
+null); `stream_steps` the kernel's launches per chunk step of each stream
+path (phase 6) and `chunk_shapes` those steps' shapes of its calls;
+`launches_by_path` also holds phase 10's float64 10-minute streams
+(`stream_basic`, `stream_advanced`), and K1 and K2 carry `long_row`,
+phase 7's reading at [2, 1, 2, 40, 150000].  The line before the last is
+the card's name and power limit; the last line is {"ok": true, "device":
+{...}}.  Any failed check exits non-zero without that last line.  Without
+CUDA the script exits non-zero at once and prints no result.  Nothing of
+JAX or of the JAX package gstpeaq_tpu is imported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -91,6 +119,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,9 +135,12 @@ from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
+from gstpeaq_tpu_torch.ops import framing
 from gstpeaq_tpu_torch.ops import tile_scan
 from gstpeaq_tpu_torch.parallel import batch as PB
+from gstpeaq_tpu_torch.parallel import stream as PS
 from gstpeaq_tpu_torch.tools import bench as TB
+from gstpeaq_tpu_torch.utils import checkpoint as CK
 from gstpeaq_tpu_torch.utils import corpus
 from gstpeaq_tpu_torch.utils import testsignals as TS
 from gstpeaq_tpu_torch.utils.benchpairs import make_pairs
@@ -188,6 +220,37 @@ BATCH_TIER_BAR = 1e-4
 # control that must fail it.
 CONFORMANCE_BAR = 1e-3
 ACCURATE_BAR = 1e-5
+# the streams (parallel/stream.py): chunks of 64 FFT frames (16 x 64 FB
+# frames), one stream and the pool's 16 (phases 3, 6, 7 and 10)
+STREAM_CHUNK = 64
+POOL = 16
+# each kernel's launches in one chunk step of each stream path, from the
+# code: basic, K1 for the time smear, the level adapter's three stacked
+# pairs and the modulation of both signals, K3 once on both signals;
+# advanced FFT, K1 for the time smear of both signals and K3; advanced FB,
+# D3, D1 and D2 once on both signals, K1 for the forward masking, the
+# level adapter's three and the modulation; K2 never (its kernel takes no
+# state)
+STREAM_STEP_LAUNCHES = {
+    "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
+              "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
+              "dc_chain": 0},
+    "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
+                     "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
+                     "dc_chain": 0},
+    "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
+                    "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
+                    "dc_chain": 1}}
+# phase 10's bars: a float64 stream against the one-shot peaq() of the same
+# program, and the float32 / accurate streams against their own one-shot
+# (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
+# against peaq_batch() of the same pairs
+STREAM_BAR = 1e-9
+STREAM_MOV_BAR = 1e-8
+STREAM_TIER_BAR = 5e-4
+POOL_BAR = 1e-9
+# a 10-minute program's one-shot FB rows for K1 and K2 (phase 7)
+LONG_ROW = (2, 1, 2, C.FB_BAND_COUNT, 150000)
 
 
 def ops_of(name: str, inputs) -> float:
@@ -727,18 +790,131 @@ def batch_cases(dtype, rng, pair10):
     return cases, hp2
 
 
-def phase_kernels(rng, pair10) -> tuple[dict, dict]:
+def stream_shapes(n: int) -> dict:
+    """The stream path's chunk shapes at n streams of stereo (STREAM_CHUNK
+    FFT frames, 16 x STREAM_CHUNK FB frames): K1 and K3 on the basic
+    step's [2, n, CH, 109, 64] and the advanced FFT step's 55 bands, K1 on
+    the FB step's frames, D1 and D2 on its instants, D3 on its samples."""
+    fb = 16 * STREAM_CHUNK
+    return {"basic": (2, n, 2, C.BASIC_BAND_COUNT, STREAM_CHUNK),
+            "advanced_fft": (2, n, 2, C.ADVANCED_FFT_BAND_COUNT,
+                             STREAM_CHUNK),
+            "fb_frames": (2, n, 2, C.FB_BAND_COUNT, fb),
+            "fb_instants": (2, n, 2, C.FB_BAND_COUNT,
+                            fb * C.FB_FRAMESIZE // FB.SUB),
+            "dc": (2, n, 2, fb * C.FB_FRAMESIZE)}
+
+
+def chunk_shapes(name: str) -> dict:
+    """The shapes of kernel `name`'s calls in one chunk step of each stream
+    path, at one stream (K3's [..., F, Z], the others' band or sample
+    layouts)."""
+    sh = stream_shapes(1)
+    fb = {"advanced_fb": sh["fb_instants"]}
+    return {"recurrence_banded": {"basic": sh["basic"],
+                                  "advanced_fft": sh["advanced_fft"],
+                                  "advanced_fb": sh["fb_frames"]},
+            "fused_mod_smoothers": {},
+            "spread_fft": {path: (*sh[path][:3], sh[path][4], sh[path][3])
+                           for path in ("basic", "advanced_fft")},
+            "slope_state": fb, "spread_fb": fb,
+            "dc_chain": {"advanced_fb": sh["dc"]}}[name]
+
+
+def stream_cases(dtype, pair10) -> list:
+    """Each kernel of the stream path at its chunk shapes, at one stream and
+    at the pool's POOL, from a generator of their own: K1 with y0 at the
+    basic, advanced FFT and FB sites, K3 on both signals (109 and 55
+    bands); the FB chunk on the 10 s pair's own rows (batch_fb_pair, cut to
+    two chunks): D3 on the second chunk with the state the first leaves,
+    D1 on the second chunk's FIR outputs (the first's samples as history)
+    with y0 = the first chunk's last cu, D2 on them."""
+    srng = np.random.default_rng(10)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device="cuda")
+
+    cases = []
+    k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+    c1 = 24.0 + 230.0 / k.fc
+    for n in (1, POOL):
+        shapes = stream_shapes(n)
+        label = f"stream N={n}"
+        for site in ("basic", "advanced_fft", "fb_frames"):
+            shape = shapes[site]
+            a = t(np.exp(-srng.uniform(0.01, 0.5, shape[-2])))
+            b = t(srng.standard_normal(shape))
+            y0 = t(srng.standard_normal(shape[:-1]))
+            cases.append(Case("recurrence_banded",
+                              f"{label} {site} {list(shape)} y0",
+                              lambda a=a, b=b, y0=y0:
+                              cuda_iir.recurrence_banded(a, b, y0),
+                              lambda a=a, b=b, y0=y0:
+                              cuda_iir.recurrence_banded_plain(a, b, y0),
+                              (a, b, y0)))
+        for site in ("basic", "advanced_fft"):
+            shape = shapes[site]
+            c, cp = spread_consts(shape[-2], dtype)
+            p = t(srng.uniform(1e-6, 1e4, (*shape[:3], shape[-1],
+                                            shape[-2])))
+            cases.append(Case("spread_fft", f"{label} {site} "
+                              f"{list(p.shape)}",
+                              lambda p=p, c=c:
+                              cuda_spread_fft.spread_fft(p, *c),
+                              lambda p=p, cp=cp:
+                              cuda_spread_fft.spread_fft_plain(p, *cp),
+                              (p, c[0], c[1], c[3])))
+        t_fb = shapes["dc"][-1]
+        x = batch_fb_pair(pair10, k, (*shapes["dc"][:-1], 2 * t_fb))
+        first, second = (x[..., :t_fb].contiguous(),
+                         x[..., t_fb:].contiguous())
+        hp1, st = cuda_dc.dc_chain_plain(first, k.level)
+        cases.append(Case("dc_chain", f"{label} {list(second.shape)} state",
+                          lambda x=second, st=st:
+                          dc_out(cuda_dc.dc_chain(x, k.level, st)),
+                          lambda x=second, st=st:
+                          dc_out(cuda_dc.dc_chain_plain(x, k.level, st)),
+                          (second, *st)))
+        hp2, _ = cuda_dc.dc_chain_plain(second, k.level, st)
+        with api.full_precision_matmuls():
+            re1, im1 = FB.filter_bank(k, hp1)
+            re, im = FB.filter_bank(k, hp2, hp1[..., -FB.HIST_LEN:])
+        check(re.shape == shapes["fb_instants"], f"FB chunk {re.shape}")
+        y0 = cuda_fb.slope_state_plain(re1, im1, c1,
+                                       k.slope_a)[..., -1].contiguous()
+        cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a, y0)
+        cases.append(Case("slope_state", f"{label} {list(re.shape)} y0",
+                          lambda re=re, im=im, y0=y0:
+                          cuda_fb.slope_state(re, im, c1, k.slope_a, y0),
+                          lambda re=re, im=im, y0=y0:
+                          cuda_fb.slope_state_plain(re, im, c1, k.slope_a,
+                                                    y0),
+                          (re, im, c1, y0)))
+        cases.append(Case("spread_fb", f"{label} {list(re.shape)}",
+                          lambda re=re, im=im, cu=cu:
+                          cuda_fb.spread_fb(re, im, cu, k.cl),
+                          lambda re=re, im=im, cu=cu:
+                          cuda_fb.spread_fb_plain(re, im, cu,
+                                                  k.lower_matrix),
+                          (re, im, cu)))
+    return cases
+
+
+def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
     """Each kernel against its plain version; returns the main-shape
-    error and the (kernel, plain) functions per kernel and dtype, and per
+    error and the (kernel, plain) functions per kernel and dtype, per
     dtype the batch-shape cases (each with its error and bound) and the
-    FIR bank's batch input."""
+    FIR bank's batch input, and per dtype the chunk-shape cases of the
+    streams."""
     print("phase 3 kernels against their plain versions", flush=True)
     main = {name: {} for name in KERNELS}
-    batch = {}
+    batch, stream = {}, {}
     for dtype in DTYPES:
         cases, hp2 = batch_cases(dtype, rng, pair10)
         batch[dtype] = {"cases": [], "hp2": hp2}
-        for c in kernel_cases(dtype, rng, pair10) + cases:
+        stream[dtype] = []
+        for c in (kernel_cases(dtype, rng, pair10) + cases
+                  + stream_cases(dtype, pair10)):
             name, case = c.name, c.case
             bar = (DC_BARS if name == "dc_chain" else BARS)[dtype]
             got = stacked(c.kernel())
@@ -763,24 +939,25 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict]:
                                          plain=c.plain, inputs=c.inputs,
                                          bound_ms=bound_ms,
                                          bound_by=bound_by)
-            elif case.startswith("batch"):
+            elif case.startswith(("batch", "stream")):
                 bound_ms, bound_by = bound(name, dtype, c.inputs, got)
-                batch[dtype]["cases"].append(dict(
+                (batch[dtype]["cases"] if case.startswith("batch")
+                 else stream[dtype]).append(dict(
                     name=name, case=case, kernel=c.kernel, plain=c.plain,
                     inputs=c.inputs, max_abs_err=err, bound_ms=bound_ms,
                     bound_by=bound_by))
             del got, want
     dc_float32_rounding(rng, pair10)
     determinism(main)
-    for dtype, entry in batch.items():
-        for c in entry["cases"]:
+    for dtype in DTYPES:
+        for c in batch[dtype]["cases"] + stream[dtype]:
             first, second = (stacked(c["kernel"]()) for _ in range(2))
             same = torch.equal(first, second)
             print(f"  {c['name']} {c['case']} {dtype}: two launches "
                   f"bit-identical: {same}", flush=True)
             check(same, f"{c['name']} {c['case']} {dtype}: two launches "
                   "differ")
-    return main, batch
+    return main, batch, stream
 
 
 def dc_float32_rounding(rng, pair10) -> None:
@@ -959,6 +1136,13 @@ def phase_adv_float32(pair10, adv64) -> None:
               f"advanced float32 {label} ODG {f32.odg} against {f64.odg}")
 
 
+@functools.cache
+def corpus_v2(items: int = 20, seconds: float = 10.0):
+    """corpus.realistic_pairs(items, seconds), made once (phases 5c and
+    10)."""
+    return corpus.realistic_pairs(items, seconds)
+
+
 def phase_corpus(items: int = 20, seconds: float = 10.0) -> dict:
     """Drift corpus v2 (realistic_pairs(20, 10.0): seed 3, stereo 10 s)
     through float64, float32 and accurate in both modes.  Per tier and mode:
@@ -970,7 +1154,7 @@ def phase_corpus(items: int = 20, seconds: float = 10.0) -> dict:
     inf.  "mixed" equals float32 on the first item.  Returns the worst
     |dODG| per (mode, tier)."""
     print("phase 5c drift corpus v2", flush=True)
-    refs, tests = corpus.realistic_pairs(items, seconds)
+    refs, tests = corpus_v2(items, seconds)
     worst = {}
     for mode in MODES:
         advanced = mode == "advanced"
@@ -1072,7 +1256,46 @@ def phase_counters(pair10, pairs) -> dict:
                 if tier == "float32" and mb == 32:
                     for name, n in got.items():
                         counts[name][f"batch_{mode}"] = n
+    stream_step_counts(pair10)
     return counts
+
+
+def stream_step_counts(pair10) -> None:
+    """One chunk step of each stream path per tier, at one stream and at
+    POOL, each counted from 0 as a call is: a pool fed (STREAM_CHUNK + 1)
+    x 1024 samples of the 10 s pair runs one step (basic) or one FFT step
+    (advanced); an advanced pool then fed up to 16 STREAM_CHUNK FB frames
+    runs one more FFT step and one FB step, whose counts less the first
+    feed's are the FB step's.  Each is held to STREAM_STEP_LAUNCHES."""
+    fft_need = (STREAM_CHUNK + 1) * C.FFT_STEPSIZE
+    fb_need = 16 * STREAM_CHUNK * C.FB_FRAMESIZE
+    for tier in TIERS:
+        for n in (1, POOL):
+            def piece(lo, hi):
+                return tuple(np.broadcast_to(x[lo:hi], (n, hi - lo, 2))
+                             for x in pair10)
+            for mode in MODES:
+                pool = PS.PeaqStreamPool(n, chunk_frames=STREAM_CHUNK,
+                                         dtype=tier,
+                                         advanced=mode == "advanced")
+                reset_counts()
+                pool.feed(*piece(0, fft_need))
+                first = read_counts()
+                if mode == "basic":
+                    got = {"basic": first}
+                else:
+                    reset_counts()
+                    pool.feed(*piece(fft_need, fb_need))
+                    second = read_counts()
+                    got = {"advanced_fft": first,
+                           "advanced_fb": {name: second[name] - first[name]
+                                           for name in second}}
+                for path, counts in got.items():
+                    print(f"  {tier} stream {path} chunk step, {n} "
+                          f"stream(s): launches {counts}")
+                    check(counts == STREAM_STEP_LAUNCHES[path],
+                          f"{tier} stream {path} at {n}: launches {counts}, "
+                          f"expected {STREAM_STEP_LAUNCHES[path]}")
 
 
 def peaq_call(pair10, mode: str, tier: str):
@@ -1149,14 +1372,60 @@ def k1_library(a, b, label: str) -> float:
     return ms
 
 
-def phase_times(main: dict, batch: dict, pair10, reps: int = 30) -> dict:
+def long_rows() -> dict:
+    """K1 and K2 at LONG_ROW, the one-shot FB rows of a 10-minute program
+    (59 tiles a row), beside their bounds, in both dtypes, on inputs from a
+    generator of their own; K1 over the row equals K1 over its two halves
+    carried by y0 within BARS.  Returns ms, bound_ms and bound_by per
+    kernel and dtype."""
+    lrng = np.random.default_rng(11)
+    out = {"recurrence_banded": {}, "fused_mod_smoothers": {}}
+    scale = C.SAMPLING_RATE / C.FB_FRAMESIZE
+    half = LONG_ROW[-1] // 2
+    for dtype in DTYPES:
+        def t(x):
+            return torch.as_tensor(x, dtype=dtype, device="cuda")
+        a = t(np.exp(-lrng.uniform(0.01, 0.5, LONG_ROW[-2])))
+        b = t(lrng.standard_normal(LONG_ROW))
+        exc2, uns2 = (t(lrng.uniform(0.01, 10.0, LONG_ROW))
+                      for _ in range(2))
+        whole = cuda_iir.recurrence_banded(a, b)
+        first = cuda_iir.recurrence_banded(a, b[..., :half].contiguous())
+        halves = torch.cat([first, cuda_iir.recurrence_banded(
+            a, b[..., half:].contiguous(), first[..., -1])], -1)
+        err = ((halves - whole).abs().max() / whole.abs().max()).item()
+        print(f"  recurrence_banded {list(LONG_ROW)} {dtype}: two halves "
+              f"carried by y0 against the whole row: max|d|/max|ref| "
+              f"{err:.3e}")
+        check(err < BARS[dtype], f"K1 long row {dtype}: halves differ")
+        del whole, first, halves
+        for name, fn, inputs in (
+                ("recurrence_banded",
+                 lambda: cuda_iir.recurrence_banded(a, b), (a, b)),
+                ("fused_mod_smoothers",
+                 lambda: cuda_iir.fused_mod_smoothers(a, exc2, uns2, scale),
+                 (a, exc2, uns2))):
+            ms, _ = cuda_ms(fn, calls=5, rounds=5, cover_host=True)
+            bound_ms, bound_by = bound(name, dtype, inputs, stacked(fn()))
+            out[name][dtype] = dict(ms=ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+            print(f"  {name} {list(LONG_ROW)} (a 10-minute program's "
+                  f"one-shot FB rows) {dtype}: kernel {ms:.4f} ms, "
+                  f"{bound_ms / ms:.1%} of its bound {bound_ms:.5f} ms "
+                  f"({bound_by})")
+    return out
+
+
+def phase_times(main: dict, batch: dict, stream: dict, pair10,
+                reps: int = 30) -> tuple[dict, dict]:
     """Kernel and plain device times (cuda_ms), each kernel at its batch
-    shapes (phase 3's batch cases), the FB ear's FIR bank (plain PyTorch, a
-    conv1d) per pair and at the advanced batch's shape, each beside its
-    bound, then peaq() host wall time per 10 s stereo pair: `reps` calls
-    per mode and tier, the tiers in turn, each call ending in the copy of
-    its results to the host.  Returns the median wall ms per (mode,
-    tier)."""
+    shapes (phase 3's batch cases) and at the streams' chunk shapes (its
+    stream cases), the FB ear's FIR bank (plain PyTorch, a conv1d) per pair
+    and at the advanced batch's shape, each beside its bound, K1 and K2 on
+    long rows (long_rows), then peaq() host wall time per 10 s stereo
+    pair: `reps` calls per mode and tier, the tiers in turn, each call
+    ending in the copy of its results to the host.  Returns the median
+    wall ms per (mode, tier) and long_rows' readings."""
     print("phase 7 times", flush=True)
     for name, by_dtype in main.items():
         for dtype, entry in by_dtype.items():
@@ -1195,6 +1464,21 @@ def phase_times(main: dict, batch: dict, pair10, reps: int = 30) -> dict:
                   f"{c['bound_ms'] / c['ms']:.1%} of its bound "
                   f"{c['bound_ms']:.5f} ms ({c['bound_by']}), plain "
                   f"{c['plain_ms']:.4f} ms (median of 3)")
+    for dtype, cases in stream.items():
+        for c in cases:
+            c["ms"], host = cuda_ms(c.pop("kernel"), calls=20,
+                                    cover_host=True)
+            c["plain_ms"], _ = cuda_ms(c.pop("plain"), calls=1, rounds=3)
+            # K1's conv1d computes y0 = 0 only: no library call for a
+            # carried state
+            c["library_ms"] = None
+            del c["inputs"]
+            print(f"  {c['name']} {c['case']} {dtype}: kernel "
+                  f"{c['ms']:.4f} ms (host enqueue {host:.4f} ms), "
+                  f"{c['bound_ms'] / c['ms']:.1%} of its bound "
+                  f"{c['bound_ms']:.5f} ms ({c['bound_by']}), plain "
+                  f"{c['plain_ms']:.4f} ms (median of 3)")
+    long = long_rows()
     for dtype in DTYPES:      # the tiers' spectrum dtypes
         k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
         hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
@@ -1228,7 +1512,7 @@ def phase_times(main: dict, batch: dict, pair10, reps: int = 30) -> dict:
             print(f"  {mode} peaq() 10 s stereo pair, {tier}: median "
                   f"{med:.3f} ms (quartiles {q1:.3f}..{q3:.3f}, {reps} "
                   f"calls), {1e4 / med:.1f}x realtime")
-    return medians
+    return medians, long
 
 
 def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
@@ -1445,6 +1729,249 @@ def phase_batch(pairs, card: str) -> dict:
     return readings
 
 
+def stream_program() -> tuple[np.ndarray, np.ndarray]:
+    """A 10-minute stereo program, [T, 2] ref and test: drift corpus v2's
+    20 items of 10 s (phase 5c's) three times over, each pass its own
+    audio: the items in order, then each item reversed in time, then the
+    items in reverse order with the channels swapped at 0.7 of the level.
+    So it carries 60 distinct 10 s pairs, with the corpus's quiet tail,
+    true-stereo and DC items among them."""
+    refs, tests = corpus_v2()
+    passes = [list(zip(refs, tests)),
+              [(r[::-1], t[::-1]) for r, t in zip(refs, tests)],
+              [(0.7 * r[:, ::-1], 0.7 * t[:, ::-1])
+               for r, t in zip(refs[::-1], tests[::-1])]]
+    pairs = [pair for one in passes for pair in one]
+    return tuple(np.ascontiguousarray(np.concatenate(x), dtype=np.float32)
+                 for x in zip(*pairs))
+
+
+def stream_deviation(got, want) -> tuple[float, float, float]:
+    """|dODG|, |dDI| and the worst |dMOV| / (1 + |w|) of one result
+    against another (NaN in both agrees, in one alone is inf)."""
+    def dev(g, w, scale=0.0):
+        if np.isnan(g) or np.isnan(w):
+            return 0.0 if np.isnan(g) and np.isnan(w) else math.inf
+        return abs(g - w) / (1.0 + scale * abs(w))
+    return (dev(got.odg, want.odg), dev(got.di, want.di),
+            max(dev(got.movs[n], w, 1.0) for n, w in want.movs.items()))
+
+
+def same_result(got, want) -> bool:
+    """ODG, DI and every MOV equal bit for bit (NaN equal to NaN)."""
+    def vec(r):
+        return np.array([r.odg, r.di, *r.movs.values()])
+    return (list(got.movs) == list(want.movs)
+            and np.array_equal(vec(got), vec(want), equal_nan=True))
+
+
+def stream_run(cls, tier: str, ref, test, checkpoint_dir=None) -> dict:
+    """One stream of `cls` in `tier` over the whole program, fed in 1 s
+    pieces, the launch counts set to 0 just before and read just after:
+    its result, wall seconds (current() and the checkpoint left out), peak
+    memory over minute 1 and over minute 10, current() after minute 1, the
+    launch counts, and with checkpoint_dir a checkpoint after minute 5
+    (utils/checkpoint.py's npz there, and the pending host samples)."""
+    sr = C.SAMPLING_RATE
+    seconds = ref.shape[0] // sr
+    stream = cls(chunk_frames=STREAM_CHUNK, dtype=tier)
+    out, aside = {}, 0.0
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    for i in range(seconds):
+        if i in (0, seconds - 60, 60, seconds // 2):
+            pause = time.perf_counter()
+            torch.cuda.synchronize()
+            if i == 60:
+                out["peak_minute_1"] = torch.cuda.max_memory_allocated()
+                out["minute_1"] = stream.current()
+            if i in (0, seconds - 60):
+                torch.cuda.reset_peak_memory_stats()
+            if i == seconds // 2 and checkpoint_dir is not None:
+                CK.save_state(str(checkpoint_dir / "stream"), stream.state)
+                out["pending"] = [[b.copy() for b in bufs]
+                                  for bufs in stream.pending]
+            aside += time.perf_counter() - pause
+        stream.feed(ref[i * sr:(i + 1) * sr], test[i * sr:(i + 1) * sr])
+    torch.cuda.synchronize()
+    out["peak_minute_10"] = torch.cuda.max_memory_allocated()
+    out["result"] = stream.finalize()
+    out["wall"] = time.perf_counter() - start - aside
+    out["launches"] = read_counts()
+    return out
+
+
+def stream_launches(n_samples: int, advanced: bool) -> dict:
+    """Each kernel's launches over a stream of n_samples per signal: each
+    path runs ceil(frames / chunk frames) steps (the full chunks, then the
+    flush of the rest), each as STREAM_STEP_LAUNCHES counts."""
+    paths = {"basic": (C.FFT_FRAMESIZE, C.FFT_STEPSIZE, STREAM_CHUNK)}
+    if advanced:
+        paths = {"advanced_fft": paths["basic"],
+                 "advanced_fb": (C.FB_FRAMESIZE, C.FB_FRAMESIZE,
+                                 16 * STREAM_CHUNK)}
+    out = dict.fromkeys(KERNELS, 0)
+    for path, (frame, hop, chunk) in paths.items():
+        steps = -(-framing.num_frames(n_samples, n_samples, frame, hop)
+                  // chunk)
+        for name in KERNELS:
+            out[name] += steps * STREAM_STEP_LAUNCHES[path][name]
+    return out
+
+
+def step_walls(cls, ref, test, seconds: int = 30) -> tuple[float, float]:
+    """The median wall of one chunk step (the card synchronized after
+    each) over `seconds` of the program fed in 1 s pieces, and the device's
+    busy share over the next `seconds` (profiled device time over the
+    unprofiled wall of the same feeds, the second time round), float64."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sr = C.SAMPLING_RATE
+    stream = cls(chunk_frames=STREAM_CHUNK, dtype="float64")
+    walls = []
+    step = stream._step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+
+    stream._step = timed_step
+    for i in range(seconds):
+        stream.feed(ref[i * sr:(i + 1) * sr], test[i * sr:(i + 1) * sr])
+    stream._step = step
+    pieces = [(ref[i * sr:(i + 1) * sr], test[i * sr:(i + 1) * sr])
+              for i in range(seconds, 2 * seconds)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r, t in pieces:
+            stream.feed(r, t)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    again = cls(chunk_frames=STREAM_CHUNK, dtype="float64")
+    for i in range(seconds):
+        again.feed(ref[i * sr:(i + 1) * sr], test[i * sr:(i + 1) * sr])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for r, t in pieces:
+        again.feed(r, t)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    return statistics.median(walls), device_ms / wall_ms
+
+
+def phase_streams(card: str) -> dict:
+    """parallel/stream.py on the card (see the module's docstring, phase
+    10).  Returns each mode's float64 launch counts."""
+    print("phase 10 streams", flush=True)
+    ref, test = stream_program()
+    audio = ref.shape[0] / C.SAMPLING_RATE
+    launches = {}
+    for mode in MODES:
+        advanced = mode == "advanced"
+        cls = PS.PeaqStreamAdvanced if advanced else PS.PeaqStream
+        for tier in TIERS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            want = api.peaq(ref, test, advanced=advanced, dtype=tier)
+            one_wall = time.perf_counter() - start
+            one_peak = torch.cuda.max_memory_allocated()
+            with tempfile.TemporaryDirectory() as tmp:
+                keep = pathlib.Path(tmp) if tier == "float64" else None
+                run = stream_run(cls, tier, ref, test, keep)
+                got = run["result"]
+                d_odg, d_di, d_mov = stream_deviation(got, want)
+                peaks = run["peak_minute_1"], run["peak_minute_10"]
+                spread = abs(peaks[1] - peaks[0]) / max(peaks)
+                print(f"  {mode} {tier}, {audio:.0f} s stereo program in 1 s "
+                      f"pieces, chunk_frames {STREAM_CHUNK} ({card}): ODG "
+                      f"{got.odg:.9f}, one-shot {want.odg:.9f}; |dODG| "
+                      f"{d_odg:.3e}, |dDI| {d_di:.3e}, MOVs |d|/(1 + |w|) "
+                      f"{d_mov:.3e}; stream {run['wall']:.2f} s = "
+                      f"{audio / run['wall']:.1f} audio-s/s, one-shot "
+                      f"{one_wall:.2f} s; peak memory minute 1 "
+                      f"{peaks[0] / 2**20:.1f} MiB, minute 10 "
+                      f"{peaks[1] / 2**20:.1f} MiB ({spread:.2%} apart), "
+                      f"one-shot {one_peak / 2**20:.1f} MiB; current() "
+                      f"after minute 1: ODG {run['minute_1'].odg:.6f}; "
+                      f"launches {run['launches']}", flush=True)
+                check(np.isfinite(run["minute_1"].odg)
+                      and np.isfinite(got.odg),
+                      f"{mode} {tier} stream: ODG not finite")
+                if tier == "float64":
+                    check(d_odg <= STREAM_BAR and d_di <= STREAM_BAR
+                          and d_mov <= STREAM_MOV_BAR,
+                          f"{mode} float64 stream against one shot: "
+                          f"{d_odg}, {d_di}, {d_mov}")
+                else:
+                    check(d_odg <= STREAM_TIER_BAR,
+                          f"{mode} {tier} stream against one shot: {d_odg}")
+                check(spread < 0.05, f"{mode} {tier} stream memory grows: "
+                      f"{peaks}")
+                expected = stream_launches(ref.shape[0], advanced)
+                check(run["launches"] == expected,
+                      f"{mode} {tier} stream: launches {run['launches']}, "
+                      f"expected {expected}")
+                if tier == "float64":
+                    launches[mode] = run["launches"]
+                    resumed = cls(chunk_frames=STREAM_CHUNK, dtype=tier)
+                    resumed.state = CK.load_state(str(keep / "stream"),
+                                                  resumed.state)
+                    resumed.pending = run["pending"]
+                    sr = C.SAMPLING_RATE
+                    for i in range(ref.shape[0] // sr // 2,
+                                   ref.shape[0] // sr):
+                        resumed.feed(ref[i * sr:(i + 1) * sr],
+                                     test[i * sr:(i + 1) * sr])
+                    same = same_result(resumed.finalize(), got)
+                    print(f"  {mode} float64: checkpoint after minute 5 "
+                          f"(npz) resumed in a fresh stream: bit for bit "
+                          f"{same}", flush=True)
+                    check(same, f"{mode}: the resumed stream differs")
+        step_ms, busy = step_walls(cls, ref, test)
+        print(f"  {mode} float64 ({card}): median wall of a chunk step "
+              f"{step_ms * 1e3:.3f} ms (synchronized), device busy "
+              f"{busy:.1%} of 30 s of feeds", flush=True)
+        pool_run(mode, ref, test, card)
+    return launches
+
+
+def pool_run(mode: str, ref, test, card: str) -> None:
+    """PeaqStreamPool of POOL stereo streams of 60 s (program windows 36 s
+    apart) in float64, fed in lockstep 1 s pieces, against peaq_batch() of
+    the same pairs within POOL_BAR (ODG; MOVs times 1 + |w|)."""
+    sr = C.SAMPLING_RATE
+    starts = [36 * sr * i for i in range(POOL)]
+    refs = np.stack([ref[s:s + 60 * sr] for s in starts])
+    tests = np.stack([test[s:s + 60 * sr] for s in starts])
+    advanced = mode == "advanced"
+    pool = PS.PeaqStreamPool(POOL, chunk_frames=STREAM_CHUNK,
+                             dtype="float64", advanced=advanced)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(60):
+        pool.feed(refs[:, i * sr:(i + 1) * sr], tests[:, i * sr:(i + 1) * sr])
+    got = pool.finalize()
+    wall = time.perf_counter() - start
+    want = PB.peaq_batch(list(refs), list(tests), advanced=advanced,
+                         dtype="float64")
+    names = C.MOV_ADVANCED_NAMES if advanced else C.MOV_BASIC_NAMES
+    odg, mov = deviation(
+        {"odg": got.odg, "movs": np.stack([got.movs[n] for n in names], 1)},
+        want)
+    print(f"  {mode} float64 pool of {POOL} stereo streams x 60 s in "
+          f"lockstep 1 s pieces ({card}): {POOL * 60 / wall:.1f} audio-s/s "
+          f"({wall:.2f} s); against peaq_batch() of the same pairs: |dODG| "
+          f"{odg:.3e}, MOVs |d|/(1 + |w|) {mov:.3e}", flush=True)
+    check(odg <= POOL_BAR and mov <= POOL_BAR,
+          f"{mode} pool against peaq_batch: {odg}, {mov}")
+
+
 def timed(phase, *args):
     """Run one phase and print its seconds."""
     start = time.perf_counter()
@@ -1461,7 +1988,8 @@ def main() -> None:
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()
     spec = load_spec(pair10)
-    main_kernels, batch_kernels = timed(phase_kernels, rng, pair10)
+    main_kernels, batch_kernels, stream_kernels = timed(phase_kernels, rng,
+                                                        pair10)
     odg64 = timed(phase_float64, pair10, spec)
     adv64 = timed(phase_adv_float64, pair10, spec)
     timed(phase_tiers, pair10, odg64)
@@ -1469,9 +1997,13 @@ def main() -> None:
     timed(phase_corpus)
     pairs = make_pairs(BATCH_PAIRS, 10.0)
     counts = timed(phase_counters, pair10, pairs)
-    walls = timed(phase_times, main_kernels, batch_kernels, pair10)
+    walls, long = timed(phase_times, main_kernels, batch_kernels,
+                        stream_kernels, pair10)
     timed(phase_profile, pair10, walls)
     timed(phase_batch, pairs, card)
+    for mode, got in timed(phase_streams, card).items():
+        for name, n in got.items():
+            counts[name][f"stream_{mode}"] = n
     check(not any(m == "jax" or m.split(".")[0] == "gstpeaq_tpu"
                   for m in sys.modules),
           "JAX or the JAX package was imported")
@@ -1499,7 +2031,26 @@ def main() -> None:
                         library_ms_f64=b64.get("library_ms"))
                    for b32, b64 in zip(*(
                        [c for c in batch_kernels[dtype]["cases"]
-                        if c["name"] == name] for dtype in DTYPES))]))
+                        if c["name"] == name] for dtype in DTYPES))],
+            stream=[dict(case=s32["case"], max_abs_err=s32["max_abs_err"],
+                         ms=s32["ms"], plain_ms=s32["plain_ms"],
+                         bound_ms=s32["bound_ms"], bound_by=s32["bound_by"],
+                         library_ms=None,
+                         max_abs_err_f64=s64["max_abs_err"],
+                         ms_f64=s64["ms"], plain_ms_f64=s64["plain_ms"],
+                         bound_ms_f64=s64["bound_ms"],
+                         bound_by_f64=s64["bound_by"], library_ms_f64=None)
+                    for s32, s64 in zip(*(
+                        [c for c in stream_kernels[dtype]
+                         if c["name"] == name] for dtype in DTYPES))],
+            stream_steps={path: launches[name]
+                          for path, launches in STREAM_STEP_LAUNCHES.items()},
+            chunk_shapes=chunk_shapes(name),
+            **({"long_row": dict(
+                shape=LONG_ROW, **long[name][torch.float32],
+                **{f"{key}_f64": v for key, v in
+                   long[name][torch.float64].items()})}
+               if name in long else {})))
     print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""Carry settings, constants and weights across from the JAX package.
+"""Carry settings, constants, weights and stream states across from the JAX
+package.
 
 Each takes plain numpy arrays (`np.asarray` of each JAX leaf) or plain
 fields, so this module imports nothing of the JAX package.
@@ -15,6 +16,7 @@ from . import constants as C
 from .models.nn import WEIGHT_NAMES, CognitiveModel
 from .ops import fb_ear as FB
 from .ops.fft_ear import CONST_FIELDS, FFTEarConsts
+from .utils.checkpoint import tree_map
 
 # JAX FBEarConsts.h_phase [13, 128, 320]: phase 0's 80 channels hold the
 # lag-reversed taps behind this many leading zeros (gstpeaq_tpu/ops/
@@ -67,3 +69,18 @@ def fb_consts_from_jax(leaves: dict[str, np.ndarray], swap_slope=False,
     spectrum_dtype = getattr(torch, values["level_factor"].dtype.name)
     return FB.consts_from_taps(h_rev[:, ::-1], values, dtype, device,
                                swap_slope, spectrum_dtype)
+
+
+def stream_state_from_jax(tree, device="cpu"):
+    """A JAX stream's state (`jax.tree.map(np.asarray, stream.state)`: dicts
+    and tuples of numpy arrays) as the port's: the same tree of tensors on
+    `device`, in the same dtypes.  The layouts are the same, so nothing is
+    converted but the arrays."""
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device),
+                    tree)
+
+
+def stream_state_to_numpy(state):
+    """A port stream's state as the same tree of numpy arrays (on the host),
+    which a JAX stream takes as its `state`."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), state)

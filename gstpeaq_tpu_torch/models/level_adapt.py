@@ -3,8 +3,10 @@
 last, frames last.
 
 Every per-band state of the reference is a first-order linear recurrence
-over frames, so the adapter is three banded recurrence calls (kernels K2
-and K1) plus elementwise math and one [Z, Z] band average.
+over frames, so the adapter is three banded recurrence calls plus
+elementwise math and one [Z, Z] band average: K2 and K1 twice in the
+one-shot pipelines (level_adapt_fused_mod), K1 three times with carried
+state in the streams (level_adapt).
 """
 
 from __future__ import annotations
@@ -30,12 +32,23 @@ def sliding_average_matrix(band_count: int) -> np.ndarray:
     return mat
 
 
+def _pair(state, i: int, dtype):
+    """The stacked (state[i], state[i + 1]) as a recurrence's y0, or
+    None."""
+    if state is None:
+        return None
+    return torch.stack([state[i], state[i + 1]]).to(dtype)
+
+
 def adapt_stage2(a: torch.Tensor, avg_matrix: torch.Tensor,
                  ref_excitation: torch.Tensor, test_excitation: torch.Tensor,
-                 ref_filt: torch.Tensor, test_filt: torch.Tensor):
+                 ref_filt: torch.Tensor, test_filt: torch.Tensor,
+                 state2=None):
     """The adapter after its stage-1 smoothing (src/leveladapter.c:260-340):
-    level correction, the num/den smoothers and the pattern correction,
-    from fresh state.  Returns (adapted_ref, adapted_test)."""
+    level correction, the num/den smoothers and the pattern correction.
+    state2: (filt_num, filt_den, pattcorr_ref, pattcorr_test), each
+    [..., Z], or None for a fresh state.  Returns (adapted_ref,
+    adapted_test, new_state2)."""
     num = torch.sum(torch.sqrt(ref_filt * test_filt), dim=-2)
     den = torch.sum(test_filt, dim=-2)
     lev_corr = (num * num / (den * den))[..., None, :]   # [..., 1, F]
@@ -48,14 +61,41 @@ def adapt_stage2(a: torch.Tensor, avg_matrix: torch.Tensor,
     # src/leveladapter.c:291-298
     nd = iir.linear_recurrence_banded(
         a, torch.stack([levcorr_test * levcorr_ref,
-                        levcorr_ref * levcorr_ref]), axis=-1)
+                        levcorr_ref * levcorr_ref]), axis=-1,
+        y0=_pair(state2, 0, levcorr_ref.dtype))
     filt_num, filt_den = nd[0], nd[1]
     num_ge = filt_num >= filt_den
     pattadapt_ref = torch.where(num_ge, 1.0, filt_num / filt_den)
     pattadapt_test = torch.where(num_ge, filt_den / filt_num, 1.0)
     ra = avg_matrix.T @ torch.stack([pattadapt_ref, pattadapt_test])
-    pc = iir.linear_recurrence_banded(a, (1.0 - a[:, None]) * ra, axis=-1)
-    return levcorr_ref * pc[0], levcorr_test * pc[1]
+    pc = iir.linear_recurrence_banded(a, (1.0 - a[:, None]) * ra, axis=-1,
+                                      y0=_pair(state2, 2, ra.dtype))
+    new_state2 = (filt_num[..., -1], filt_den[..., -1], pc[0][..., -1],
+                  pc[1][..., -1])
+    return levcorr_ref * pc[0], levcorr_test * pc[1], new_state2
+
+
+def level_adapt(a: torch.Tensor, avg_matrix: torch.Tensor,
+                ref_excitation: torch.Tensor, test_excitation: torch.Tensor,
+                state=None):
+    """The whole adapter with its state carried, as the streams run it:
+    three K1 calls, each on a stacked pair.
+
+    a: [Z]; avg_matrix: [Z, Z] from sliding_average_matrix; ref/test
+    excitation: [..., Z, F]; state: the six per-band states (ref_filt,
+    test_filt, filt_num, filt_den, pattcorr_ref, pattcorr_test), each
+    [..., Z], or None for a fresh state.  Returns (adapted_ref,
+    adapted_test, new_state)."""
+    filt = iir.linear_recurrence_banded(
+        a, (1.0 - a[:, None]) * torch.stack([ref_excitation,
+                                             test_excitation]),
+        axis=-1, y0=_pair(state, 0, ref_excitation.dtype))
+    ref_filt, test_filt = filt[0], filt[1]
+    adapted_ref, adapted_test, state2 = adapt_stage2(
+        a, avg_matrix, ref_excitation, test_excitation, ref_filt, test_filt,
+        None if state is None else state[2:])
+    return (adapted_ref, adapted_test,
+            (ref_filt[..., -1], test_filt[..., -1]) + state2)
 
 
 def level_adapt_fused_mod(a: torch.Tensor, avg_matrix: torch.Tensor,
@@ -70,6 +110,6 @@ def level_adapt_fused_mod(a: torch.Tensor, avg_matrix: torch.Tensor,
     scale = SAMPLING_RATE / step_size
     exc_filt, mod2, filt_loud = cuda_iir.fused_mod_smoothers(
         a, exc2.contiguous(), uns2.contiguous(), scale)
-    adapted_ref, adapted_test = adapt_stage2(
+    adapted_ref, adapted_test, _ = adapt_stage2(
         a, avg_matrix, exc2[0], exc2[1], exc_filt[0], exc_filt[1])
     return adapted_ref, adapted_test, mod2, filt_loud

@@ -18,6 +18,14 @@ are [..., 40, F], the MOV tail's layout.
 The reference's ring-buffer quirk (the lag-1456 tap reads the newest sample,
 gstpeaq_tpu/utils/numpy_ref.py::fb_apply_filter_bank) is kept by folding
 that tap into lag 0.
+
+The streams (parallel/stream.py) carry the ear's state between chunks in
+the JAX package's tuple (dc_state, hp2_history, cu, (e0_tail, exc)), laid
+out as that package lays it out (gstpeaq_tpu/ops/fb_ear.py:757-856), so a
+state crosses between the packages unchanged: the DC cascade's D3 state,
+the last HIST_LEN samples of hp2, the slope state cu [..., 40] at the last
+instant, the last 10 instants of E0 [..., 40, 10] and the forward-masked
+excitation [..., 40] at the last frame.
 """
 
 from __future__ import annotations
@@ -49,6 +57,13 @@ TAPS = C.FB_BUFFER_LENGTH       # 1456 lags, 0..1455
 # blocks of window behind FIR_PAD leading zero samples (see fir_weight)
 FIR_BLOCKS = 47
 FIR_PAD = SUB * (FIR_BLOCKS - 1)
+# the carried FIR history: the JAX package's 1,536 samples (12 blocks of
+# 128 for its TPU convs; gstpeaq_tpu/ops/fb_ear.py:72-78), of which the
+# bank reads the last FIR_PAD, lags past 1,455 having zero weight
+HIST_LEN = 1536
+# instants of one FB frame, and of the e0 tail the backward masking carries
+INSTANTS = C.FB_FRAMESIZE // SUB
+E0_TAIL = 10
 
 
 def folded_taps(params: EP.FBEarParams) -> np.ndarray:
@@ -160,13 +175,20 @@ def build_consts(params: EP.FBEarParams, dtype=torch.float64, device="cpu",
                             swap_slope, spectrum_dtype)
 
 
-def filter_bank(k: FBEarConsts, hp2: torch.Tensor):
+def filter_bank(k: FBEarConsts, hp2: torch.Tensor,
+                history: torch.Tensor | None = None):
     """The complex FIR bank at every 32nd sample; src/fbearmodel.c:398-435.
-    hp2: [..., T], T divisible by 32.  Returns (re, im), each [..., 40, I]
-    with I = T / 32: fb[i] = sum_lag h[lag] hp2[32 i - lag], zero history.
-    A stride-1 conv1d over 32-sample blocks (see fir_weight)."""
+    hp2: [..., T], T divisible by 32; history: [..., HIST_LEN], the samples
+    before hp2, or None for zeros.  Returns (re, im), each [..., 40, I]
+    with I = T / 32: fb[i] = sum_lag h[lag] hp2[32 i - lag].  A stride-1
+    conv1d over 32-sample blocks (see fir_weight): the history's last
+    FIR_PAD samples take the place of the leading zeros."""
     lead, t = hp2.shape[:-1], hp2.shape[-1]
-    x = F.pad(hp2.reshape(-1, t), (FIR_PAD, 0))
+    if history is None:
+        x = F.pad(hp2.reshape(-1, t), (FIR_PAD, 0))
+    else:
+        x = torch.cat([history[..., -FIR_PAD:].to(hp2.dtype), hp2],
+                      dim=-1).reshape(-1, FIR_PAD + t)
     blocks = x.view(x.shape[0], -1, SUB).transpose(1, 2)   # [n, 32, M]
     out = F.conv1d(blocks, k.fir_weight)                   # [n, 80, I]
     out = out.reshape(*lead, 2, C.FB_BAND_COUNT, t // SUB)
@@ -190,41 +212,79 @@ def spread(k: FBEarConsts, fb_re: torch.Tensor, fb_im: torch.Tensor,
 
 
 def back_and_forward_masking(k: FBEarConsts, e0: torch.Tensor,
-                             n_frames: int):
+                             n_frames: int, state=None,
+                             return_state: bool = False):
     """Backward masking (11-tap FIR sampled at each frame's last instant,
     src/fbearmodel.c:371-383) as two 6-tap frame sums, the internal noise,
     and forward masking over frames (src/fbearmodel.c:388-395): kernel K1.
-    e0: [..., 40, I] with I = 6 F.  Returns (excitation, unsmeared), each
-    [..., 40, F]."""
-    e0f = e0.reshape(*e0.shape[:-1], n_frames, C.FB_FRAMESIZE // SUB)
+    e0: [..., 40, I] with I = 6 F; state: (e0_tail [..., 40, 10], the
+    instants before e0, and exc [..., 40], the excitation before the first
+    frame), or None for zeros.  Returns (excitation, unsmeared), each
+    [..., 40, F], and with return_state the new state."""
+    e0f = e0.reshape(*e0.shape[:-1], n_frames, INSTANTS)
     wa, wb = k.back_mask_w[0], k.back_mask_w[1]
     sb = torch.sum(e0f * wb, dim=-1)
     sa = torch.sum(e0f * wa, dim=-1)
-    e1 = sb + torch.cat([torch.zeros_like(sa[..., :1]), sa[..., :-1]], -1)
+    if state is None:
+        e0_tail, exc0 = None, None
+        prev = torch.zeros_like(sa[..., :1])
+    else:
+        # the previous frame's instants 1..5 (wa[0] = 0)
+        e0_tail, exc0 = (s.to(e0.dtype) for s in state)
+        prev = torch.sum(e0_tail[..., -5:] * wa[1:], dim=-1, keepdim=True)
+    e1 = sb + torch.cat([prev, sa[..., :-1]], -1)
     unsmeared = e1 + k.internal_noise[:, None]
     excitation = iir.linear_recurrence_banded(
-        k.ear_a, (1.0 - k.ear_a)[:, None] * unsmeared, axis=-1)
-    return excitation, unsmeared
+        k.ear_a, (1.0 - k.ear_a)[:, None] * unsmeared, axis=-1, y0=exc0)
+    if not return_state:
+        return excitation, unsmeared
+    if e0.shape[-1] < E0_TAIL:      # a flush of one frame: 6 instants
+        base = (e0_tail if e0_tail is not None
+                else e0.new_zeros((*e0.shape[:-1], E0_TAIL)))
+        e0 = torch.cat([base, e0], dim=-1)
+    return excitation, unsmeared, (e0[..., -E0_TAIL:], excitation[..., -1])
 
 
-def band_chain(k: FBEarConsts, hp2: torch.Tensor, n_frames: int):
+def band_chain(k: FBEarConsts, hp2: torch.Tensor, n_frames: int,
+               state=None, return_state: bool = False):
     """Everything after the DC stage: FIR bank, slope filter, spreading and
     masking.  hp2: [..., 192 F] in the spectrum dtype.  The FIR bank's
     outputs are cast to the band dtype before D1, D2 and K1, as
-    gstpeaq_tpu/ops/fb_ear.py:845 does.  Returns (excitation, unsmeared),
-    each [..., 40, F]."""
+    gstpeaq_tpu/ops/fb_ear.py:845 does.  state: (hp2_history, cu,
+    masking_state) as process_signal's, or None.  Returns (excitation,
+    unsmeared), each [..., 40, F], and with return_state the new state."""
     band = k.internal_noise.dtype
-    fb_re, fb_im = (x.to(band) for x in filter_bank(k, hp2))
-    cu = slope_state(k, fb_re, fb_im)
-    return back_and_forward_masking(k, spread(k, fb_re, fb_im, cu),
-                                    n_frames)
+    history, cu0, mask_state = state if state is not None else (None,) * 3
+    fb_re, fb_im = (x.to(band) for x in filter_bank(k, hp2, history))
+    cu = slope_state(k, fb_re, fb_im,
+                     None if cu0 is None else cu0.to(band))
+    out = back_and_forward_masking(k, spread(k, fb_re, fb_im, cu), n_frames,
+                                   mask_state, return_state)
+    if not return_state:
+        return out
+    if history is None:
+        history = hp2.new_zeros((*hp2.shape[:-1], HIST_LEN))
+    history = torch.cat([history.to(hp2.dtype), hp2],
+                        dim=-1)[..., -HIST_LEN:]
+    return out[0], out[1], (history, cu[..., -1], out[2])
 
 
-def process_signal(k: FBEarConsts, signal: torch.Tensor, n_frames: int):
+def process_signal(k: FBEarConsts, signal: torch.Tensor, n_frames: int,
+                   state=None, return_state: bool = False):
     """The whole FB ear model on [..., 192 F] signals: the DC-rejection
     cascade of the level-scaled signal (src/fbearmodel.c:291-303, kernel
-    D3) in the spectrum dtype, then band_chain.  Returns (excitation,
-    unsmeared), each [..., 40, F], in the band dtype."""
-    hp2, _ = cuda_dc.dc_chain(
-        signal.to(k.level_factor.dtype).contiguous(), k.level)
-    return band_chain(k, hp2, n_frames)
+    D3) in the spectrum dtype, then band_chain.  state: the JAX package's
+    (dc_state, hp2_history, cu, (e0_tail, exc)) of the samples before
+    `signal` (see the module's docstring), or None for a fresh state.
+    Returns (excitation, unsmeared), each [..., 40, F], in the band dtype,
+    and with return_state the new state."""
+    sdtype = k.level_factor.dtype
+    dc_state = None if state is None else tuple(
+        s.to(sdtype).contiguous() for s in state[0])
+    hp2, dc_new = cuda_dc.dc_chain(signal.to(sdtype).contiguous(), k.level,
+                                   dc_state)
+    out = band_chain(k, hp2, n_frames, None if state is None else state[1:],
+                     return_state)
+    if not return_state:
+        return out
+    return out[0], out[1], (dc_new, *out[2])

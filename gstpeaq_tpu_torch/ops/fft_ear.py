@@ -167,16 +167,26 @@ def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
     return power, unsmeared, threshold_reached, delta_power
 
 
-def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor,
-               axis: int = 0) -> torch.Tensor:
+def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor, axis: int = 0,
+               state: torch.Tensor | None = None,
+               return_state: bool = False):
     """Time-domain smearing E = max(filtered, unsmeared);
     src/fftearmodel.c:496-504.  With axis = -1 the input is the [..., Z, F]
-    layout (bands second to last); otherwise the band axis is last."""
+    layout (bands second to last); otherwise the band axis is last.
+
+    state: the filtered excitation before the first frame (unsmeared's
+    shape without `axis`), None for zeros; with return_state, also returns
+    the filtered excitation at the last frame, the next chunk's state."""
     transposed = axis in (-1, unsmeared.dim() - 1)
     one_minus_a = 1.0 - k.ear_a
     drive = (one_minus_a[:, None] if transposed else one_minus_a) * unsmeared
-    filtered = iir.linear_recurrence_banded(k.ear_a, drive, axis=axis)
-    return torch.maximum(filtered, unsmeared)
+    filtered = iir.linear_recurrence_banded(
+        k.ear_a, drive, axis=axis,
+        y0=None if state is None else state.to(drive.dtype))
+    out = torch.maximum(filtered, unsmeared)
+    if return_state:
+        return out, torch.select(filtered, axis, -1)
+    return out
 
 
 def loudness(k: FFTEarConsts, excitation: torch.Tensor,

@@ -361,11 +361,13 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "import gstpeaq_tpu_torch.tools.bench\n"
-        "assert len(names) >= 26, names\n"
+        "assert P.PeaqStream is P.parallel.stream.PeaqStream\n"
+        "assert len(names) >= 29, names\n"
         "for n in ('models.advanced', 'ops.fb_ear', 'ops.cuda_fb',\n"
         "          'ops.cuda_dc', 'constants', 'earparams',\n"
         "          'utils.testsignals', 'utils.corpus', 'parallel.batch',\n"
-        "          'utils.benchpairs'):\n"
+        "          'utils.benchpairs', 'parallel.stream',\n"
+        "          'models.modulation', 'utils.checkpoint'):\n"
         "    assert 'gstpeaq_tpu_torch.' + n in names, n\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "bad = [m for m in sys.modules\n"
