@@ -81,6 +81,25 @@ Phases, each on its own lines and ending with its seconds:
               in a fresh stream, bit for bit; PeaqStreamPool of 16 stereo
               60 s streams per mode in float64 against peaq_batch() of the
               same pairs (1e-9 ODG, 1e-9 (1 + |w|) per MOV)
+  11 CLI      cli.main() in-process on WAVs the port's wavio wrote, counted
+              from 0 per call: the pinned float64 ODGs 0.171 / -2.007 and
+              an advanced call, each launching one peaq()'s kernels; `python
+              -m gstpeaq_tpu_torch` as a subprocess on the 10 s stereo WAV
+              pair per mode, cold (a fresh copy: the kernels build first)
+              and warm, wall from process start to exit, sine/sine (0.171)
+              and --precision accurate --totalsnr, each in the CLI's line
+              format; conformance.run() on a synthetic two-item dataset per
+              mode, conformance.main() without the dataset (exit 77); WAV
+              read and resample times, the native library against wavio
+  12 shard    peaq_sharded() over every CUDA device against peaq_batch()
+              (8 corpus pairs: float64 within 1e-12 ODG and (1 + |w|) MOV,
+              counted from 0; float32 1e-4 ODG), and both on bench.py's 64
+              pairs (audio-s/s); train_cognitive_sharded() of 4,096 MOV
+              vectors on the card against the CPU (each step's loss within
+              1e-12 relative, the loss falling), a step's wall; a
+              PeaqStreamPool of 4 x 20 s over ["cuda:0", "cuda:0"] against
+              the pool on one device (1e-12) and its checkpoint, leaf for
+              leaf within 1e-12 of each leaf's largest value
 
 Two lines before the last is one JSON object with each kernel's error,
 times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
@@ -100,7 +119,9 @@ their sum; `batch` lists the kernel's batch shapes, each with its
 null); `stream_steps` the kernel's launches per chunk step of each stream
 path (phase 6) and `chunk_shapes` those steps' shapes of its calls;
 `launches_by_path` also holds phase 10's float64 10-minute streams
-(`stream_basic`, `stream_advanced`), and K1 and K2 carry `long_row`,
+(`stream_basic`, `stream_advanced`), phase 11's in-process CLI calls
+(`cli_basic`, `cli_advanced`) and phase 12's float64 sharded calls
+(`sharded_basic`, `sharded_advanced`), and K1 and K2 carry `long_row`,
 phase 7's reading at [2, 1, 2, 40, 150000].  The line before the last is
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.  Any failed check exits non-zero without that last line.  Without
@@ -110,12 +131,17 @@ JAX or of the JAX package gstpeaq_tpu is imported.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -126,6 +152,8 @@ import numpy as np
 import torch
 
 from gstpeaq_tpu_torch import api
+from gstpeaq_tpu_torch import cli
+from gstpeaq_tpu_torch import conformance
 from gstpeaq_tpu_torch import constants as C
 from gstpeaq_tpu_torch import earparams as EP
 from gstpeaq_tpu_torch.ops import _build
@@ -138,11 +166,14 @@ from gstpeaq_tpu_torch.ops import fft_ear as FE
 from gstpeaq_tpu_torch.ops import framing
 from gstpeaq_tpu_torch.ops import tile_scan
 from gstpeaq_tpu_torch.parallel import batch as PB
+from gstpeaq_tpu_torch.parallel import shard
 from gstpeaq_tpu_torch.parallel import stream as PS
 from gstpeaq_tpu_torch.tools import bench as TB
 from gstpeaq_tpu_torch.utils import checkpoint as CK
 from gstpeaq_tpu_torch.utils import corpus
+from gstpeaq_tpu_torch.utils import native
 from gstpeaq_tpu_torch.utils import testsignals as TS
+from gstpeaq_tpu_torch.utils import wavio
 from gstpeaq_tpu_torch.utils.benchpairs import make_pairs
 
 # the NumPy spec's float64 results on ten_second_pair(), frozen with the
@@ -1972,6 +2003,390 @@ def pool_run(mode: str, ref, test, card: str) -> None:
           f"{mode} pool against peaq_batch: {odg}, {mov}")
 
 
+# the CLI's printed lines (src/peaq.c:217-220, src/gstpeaq.c:493-497)
+CLI_LINES = re.compile(r"Objective Difference Grade: -?\d+\.\d{3}\n"
+                       r"Distortion Index: -?\d+\.\d{3}\n"
+                       r"(Total SNR: -?\d+\.\d{3} dB\n)?$")
+# each mode's launches in one peaq() (phase 6): the CLI runs one
+PATH_LAUNCHES = {
+    "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
+              "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
+              "dc_chain": 0},
+    "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
+                 "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
+                 "dc_chain": 1}}
+# phase 12: peaq_sharded() against peaq_batch() on the same pairs (float64:
+# ODG and MOV x (1 + |w|); float32: ODG); the training losses on the card
+# against the CPU's, relative, per step; the two-part pool against the
+# pool on one device (ODG and MOV x (1 + |w|), and each checkpoint leaf
+# within SHARD_BAR of its largest value)
+SHARD_BAR = 1e-12
+SHARD_F32_BAR = 1e-4
+TRAIN_BAR = 1e-12
+TRAIN_EXAMPLES = 4096
+TRAIN_STEPS = 10
+POOL_SECONDS = 20
+
+
+def run_module(root: pathlib.Path, *args: str) -> tuple[str, float]:
+    """`python -m gstpeaq_tpu_torch *args` from `root` with no
+    GSTPEAQ_PLATFORM (so on the card): (stdout, wall seconds from the
+    process's start to its exit).  Fails on a non-zero exit."""
+    env = {k: v for k, v in os.environ.items() if k != "GSTPEAQ_PLATFORM"}
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gstpeaq_tpu_torch", *args],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - start
+    check(proc.returncode == 0, f"python -m gstpeaq_tpu_torch {args}: exit "
+          f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def fresh_copy(dest: pathlib.Path) -> pathlib.Path:
+    """The package and native/ copied under dest without the built kernels,
+    so that the first CLI run there builds them (a cold start)."""
+    here = pathlib.Path(__file__).resolve().parent
+    ignore = shutil.ignore_patterns("_build", "__pycache__")
+    shutil.copytree(here / "gstpeaq_tpu_torch", dest / "gstpeaq_tpu_torch",
+                    ignore=ignore)
+    shutil.copytree(here / "native", dest / "native", ignore=ignore)
+    return dest
+
+
+def odg_of(stdout: str) -> float:
+    return float(re.search(r"Objective Difference Grade: (\S+)",
+                           stdout)[1])
+
+
+def median_s(fn, calls: int = 5) -> float:
+    walls = []
+    for _ in range(calls):
+        start = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - start)
+    return statistics.median(walls)
+
+
+def fake_conformance_items(directory: pathlib.Path, items) -> None:
+    """A synthetic dataset under ITU item names (the real one is
+    proprietary): 0.6 s mono refs of three tones and a dither floor, so
+    that every MOV gate opens, and noisy tests."""
+    n = C.SAMPLING_RATE * 3 // 5
+    rng = np.random.default_rng(0)
+    t = np.arange(n) / C.SAMPLING_RATE
+    for i, item in enumerate(items):
+        ref = (0.3 * np.sin(2 * np.pi * (440 + 100 * i) * t)
+               + 0.1 * np.sin(2 * np.pi * 3500.0 * t)
+               + 0.03 * np.sin(2 * np.pi * 9200.0 * t)
+               + 2e-5 * rng.standard_normal(n))
+        test = ref + 0.01 * rng.standard_normal(n)
+        wavio.write_wav(str(directory / (item.replace("cod", "ref")
+                                         + ".wav")),
+                        ref.astype(np.float32)[:, None])
+        wavio.write_wav(str(directory / (item + ".wav")),
+                        test.astype(np.float32)[:, None])
+
+
+def phase_cli(pair10, card: str) -> dict:
+    """The CLI, the conformance harness and WAV reading on the card.
+    (1) cli.main() in-process on WAVs the port's wavio wrote, each call
+    with the counts set to 0 just before and read just after: the pinned
+    float64 ODGs (sine/sine 0.171, saw/triangle -2.007) and an advanced
+    call, each launching what one peaq() of its mode launches.  (2) `python
+    -m gstpeaq_tpu_torch` as a subprocess on the 10 s stereo pair per mode,
+    cold (a fresh copy of the package: the kernels build first) and warm,
+    wall from the process's start to its exit; sine/sine (0.171) and
+    saw/triangle with --precision accurate --totalsnr (within 1e-3 of
+    -2.007, and the SNR line); every output in the CLI's line format.  (3)
+    conformance.run() on a synthetic two-item dataset per mode, and
+    conformance.main() without the dataset, which exits 77.  (4)
+    native.available(), and the read and resample time of a 10 s stereo
+    44.1 kHz WAV, native against wavio.  Returns the in-process calls'
+    launch counts per mode."""
+    print("phase 11 CLI, conformance, WAV I/O", flush=True)
+    counts = {}
+    n = 128 * 1024
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        wav = {}
+        for name, x in (("sine", TS.sine(n)), ("saw", TS.saw(n)),
+                        ("tri", TS.triangle(n)), ("ref10", pair10[0]),
+                        ("test10", pair10[1])):
+            wav[name] = str(tmp / f"{name}.wav")
+            wavio.write_wav(wav[name], x)
+        for mode, args, pinned in (
+                ("basic", [wav["sine"], wav["sine"]], "0.171"),
+                ("basic", [wav["saw"], wav["tri"]], "-2.007"),
+                ("advanced", ["--advanced", wav["saw"], wav["tri"]], None)):
+            out = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(args)
+            got = read_counts()
+            text = out.getvalue()
+            print(f"  cli.main({' '.join(pathlib.Path(a).name for a in args)})"
+                  f": exit {rc}, {text.splitlines()[0]}; launches {got}",
+                  flush=True)
+            check(rc == 0 and CLI_LINES.match(text) is not None,
+                  f"cli.main {args}: exit {rc}, output {text!r}")
+            check(pinned is None or text.splitlines()[0].endswith(pinned),
+                  f"cli.main {args}: {text!r}, pinned ODG {pinned}")
+            check(got == PATH_LAUNCHES[mode], f"cli.main {args}: launches "
+                  f"{got}, expected {PATH_LAUNCHES[mode]}")
+            counts[mode] = got
+        cold = fresh_copy(tmp / "cold")
+        for mode in MODES:
+            flags = ["--advanced"] * (mode == "advanced")
+            root = cold if mode == "basic" else fresh_copy(tmp / "cold2")
+            walls = []
+            for _ in range(2):
+                stdout, wall = run_module(root, *flags, wav["ref10"],
+                                          wav["test10"])
+                check(CLI_LINES.match(stdout) is not None,
+                      f"python -m gstpeaq_tpu_torch {mode}: {stdout!r}")
+                walls.append(wall)
+            print(f"  python -m gstpeaq_tpu_torch {mode} on the 10 s stereo "
+                  f"WAV pair ({card}): cold (kernels built first) "
+                  f"{walls[0]:.2f} s, warm {walls[1]:.2f} s, process start "
+                  f"to exit; ODG {odg_of(stdout):.3f}", flush=True)
+        # two untimed runs side by side, to keep the phase short
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            pinned = pool.submit(run_module, cold, wav["sine"], wav["sine"])
+            accurate = pool.submit(run_module, cold, "--precision",
+                                   "accurate", "--totalsnr", wav["saw"],
+                                   wav["tri"])
+            (stdout, wall), (stdout2, wall2) = (pinned.result(),
+                                                accurate.result())
+        check(CLI_LINES.match(stdout) is not None
+              and odg_of(stdout) == 0.171,
+              f"python -m gstpeaq_tpu_torch sine sine: {stdout!r}")
+        print(f"  python -m gstpeaq_tpu_torch sine sine: "
+              f"{' / '.join(stdout.splitlines())} ({wall:.2f} s)",
+              flush=True)
+        check(CLI_LINES.match(stdout2) is not None
+              and "Total SNR: " in stdout2
+              and abs(odg_of(stdout2) + 2.007) <= CONFORMANCE_BAR + 5e-4,
+              f"python -m gstpeaq_tpu_torch --precision accurate "
+              f"--totalsnr: {stdout2!r}")
+        print(f"  python -m gstpeaq_tpu_torch --precision accurate "
+              f"--totalsnr saw tri: {' / '.join(stdout2.splitlines())} "
+              f"({wall2:.2f} s, beside the run above)", flush=True)
+        items = ["acodsna", "bcodtri"]
+        data = tmp / "conformance"
+        data.mkdir()
+        fake_conformance_items(data, items)
+        for mode in MODES:
+            name = ("CONFORMANCE_ADVANCED" if mode == "advanced"
+                    else "CONFORMANCE_BASIC")
+            table = getattr(conformance, name)
+            setattr(conformance, name, {k: table[k] for k in items})
+            try:
+                rows = conformance.run(mode == "advanced",
+                                       directory=str(data))
+            finally:
+                setattr(conformance, name, table)
+            check([r.item for r in rows] == items
+                  and all(np.isfinite(r.di) and np.isfinite(r.odg)
+                          for r in rows),
+                  f"conformance.run {mode}: {rows}")
+            print(f"  conformance.run({mode}) on a synthetic two-item "
+                  f"dataset: " + ", ".join(f"{r.item} DI {r.di:.4f} ODG "
+                                           f"{r.odg:.4f}" for r in rows),
+                  flush=True)
+        saved = os.environ.pop("CONFORMANCEDATADIR", None)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                code = conformance.main([])
+        finally:
+            if saved is not None:
+                os.environ["CONFORMANCEDATADIR"] = saved
+        print(f"  conformance.main() without the dataset: exit {code} "
+              f"({out.getvalue().strip()})", flush=True)
+        check(code == 77, f"conformance.main() without the dataset: {code}")
+        sr44 = 44100
+        t = np.arange(10 * sr44) / sr44
+        x44 = np.stack([np.sin(2 * np.pi * 997.0 * t),
+                        0.5 * np.sin(2 * np.pi * 3001.0 * t)],
+                       1).astype(np.float32)
+        wavio.write_wav(str(tmp / "t44.wav"), x44, sr44)
+        path = str(tmp / "t44.wav")
+        reads = {"native": median_s(lambda: native.read_wav(path)),
+                 "wavio": median_s(lambda: wavio.read_wav(path))}
+        loads = {"native": median_s(lambda: native.load_audio_48k(path)),
+                 "wavio": median_s(lambda: wavio.load_audio_48k(path))}
+        print(f"  native.available(): {native.available()}; a 10 s stereo "
+              f"44.1 kHz float WAV, read / read and resample to 48 kHz, "
+              f"median of 5: native {reads['native'] * 1e3:.2f} / "
+              f"{loads['native'] * 1e3:.2f} ms, wavio "
+              f"{reads['wavio'] * 1e3:.2f} / {loads['wavio'] * 1e3:.2f} ms",
+              flush=True)
+    return counts
+
+
+def pool_pair(pools, ref, test, seconds: int) -> None:
+    """Feed every pool the same [N, T, 2] program windows in 1 s pieces."""
+    sr = C.SAMPLING_RATE
+    n = pools[0]._n
+    starts = [30 * sr * i for i in range(n)]
+    refs = np.stack([ref[s:s + seconds * sr] for s in starts])
+    tests = np.stack([test[s:s + seconds * sr] for s in starts])
+    for i in range(seconds):
+        for pool in pools:
+            pool.feed(refs[:, i * sr:(i + 1) * sr],
+                      tests[:, i * sr:(i + 1) * sr])
+
+
+def leaf_dev(got, want) -> float:
+    """A checkpoint leaf's worst |d| over its largest |w|; NaN where the
+    other has none is inf."""
+    if want.dtype.kind != "f":
+        return 0.0 if np.array_equal(got, want) else math.inf
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        return math.inf
+    scale = np.abs(want[~nan]).max(initial=0.0)
+    d = np.abs(got[~nan] - want[~nan]).max(initial=0.0)
+    return 0.0 if d == 0 else d / scale
+
+
+def phase_shard(pairs, card: str) -> dict:
+    """parallel/shard.py and the multi-device pool on the card.  (1)
+    peaq_sharded() over default_devices() against peaq_batch() on 8
+    corpus pairs of 6-10 s per mode: float64 within SHARD_BAR (counted
+    from 0: the mode's kernels), float32 within SHARD_F32_BAR ODG; then
+    both on bench.py's 64 x 10 s stereo pairs per mode in float64 (the
+    microbatch of phase 9), audio-s/s of the median of 3 calls each.  (2)
+    train_cognitive_sharded() of TRAIN_EXAMPLES MOV vectors per mode on the
+    card against the same on the CPU: every step's loss within TRAIN_BAR
+    relative, the loss falling; a step's wall.  (3) PeaqStreamPool of 4
+    stereo streams x POOL_SECONDS over ["cuda:0", "cuda:0"] (two parts of 2)
+    against the pool on one device, float64: current() within SHARD_BAR,
+    and the checkpoints leaf for leaf.  Returns the float64 sharded calls'
+    launch counts per mode."""
+    print("phase 12 sharding, training, multi-device pool", flush=True)
+    devices = shard.default_devices()
+    print(f"  default_devices(): {[str(d) for d in devices]}", flush=True)
+    counts = {}
+    refs, tests = mixed_lengths()
+    for mode in MODES:
+        advanced = mode == "advanced"
+        for tier in ("float64", "float32"):
+            want = PB.peaq_batch(refs, tests, advanced=advanced, dtype=tier)
+            reset_counts()
+            got = shard.peaq_sharded(refs, tests, advanced=advanced,
+                                     dtype=tier)
+            launched = read_counts()
+            odg, mov = deviation(got, want)
+            print(f"  {mode} {tier} peaq_sharded() of {len(refs)} pairs of "
+                  f"6-10 s "
+                  f"over {len(devices)} device(s) against peaq_batch(): "
+                  f"|dODG| {odg:.3e}, MOVs |d|/(1 + |w|) {mov:.3e}; "
+                  f"launches {launched}", flush=True)
+            check(np.isfinite(got["odg"]).all(),
+                  f"{mode} {tier} sharded ODG is not finite")
+            if tier == "float64":
+                check(odg <= SHARD_BAR and mov <= SHARD_BAR,
+                      f"{mode} sharded against batch: {odg}, {mov}")
+                check(all((launched[k] > 0) == (v > 0)
+                          for k, v in PATH_LAUNCHES[mode].items()),
+                      f"{mode} sharded launches {launched}")
+                counts[mode] = launched
+            else:
+                check(odg <= SHARD_F32_BAR,
+                      f"{mode} float32 sharded against batch: {odg}")
+    audio = sum(r.shape[0] for r in pairs[0]) / C.SAMPLING_RATE
+    for mode in MODES:
+        advanced, mb = mode == "advanced", MICROBATCH[mode]
+        walls = {"peaq_batch": [], "peaq_sharded": []}
+        calls = {"peaq_batch": PB.peaq_batch,
+                 "peaq_sharded": shard.peaq_sharded}
+        for rep in range(4):
+            for name in (("peaq_batch", "peaq_sharded") if rep % 2 == 0
+                         else ("peaq_sharded", "peaq_batch")):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                calls[name](*pairs, advanced=advanced, dtype="float64",
+                            microbatch=mb)
+                if rep:
+                    walls[name].append(time.perf_counter() - start)
+        print(f"  {mode} float64, {len(pairs[0])} x 10 s stereo, microbatch "
+              f"{mb} ({card}): " + ", ".join(
+                  f"{name} {audio / statistics.median(w):.1f} audio-s/s "
+                  f"({statistics.median(w) * 1e3:.1f} ms, median of 3; "
+                  f"{min(w) * 1e3:.1f}..{max(w) * 1e3:.1f} ms)"
+                  for name, w in walls.items()), flush=True)
+    from gstpeaq_tpu_torch.models import nn as NN
+    rng = np.random.default_rng(4)
+    for mode in MODES:
+        advanced = mode == "advanced"
+        lo = np.asarray(C.NN_AMIN_ADVANCED if advanced else C.NN_AMIN_BASIC)
+        hi = np.asarray(C.NN_AMAX_ADVANCED if advanced else C.NN_AMAX_BASIC)
+        movs = lo + (hi - lo) * rng.uniform(0, 1, (TRAIN_EXAMPLES, lo.size))
+        target = NN.di_advanced(torch.from_numpy(movs)).numpy() \
+            if advanced else NN.di_basic(torch.from_numpy(movs)).numpy()
+        target = target + 0.3 * rng.standard_normal(TRAIN_EXAMPLES)
+        shard.train_cognitive_sharded(movs, target, advanced=advanced,
+                                      steps=2)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        params, losses = shard.train_cognitive_sharded(
+            movs, target, advanced=advanced, steps=TRAIN_STEPS)
+        step_ms = (time.perf_counter() - start) / TRAIN_STEPS * 1e3
+        start = time.perf_counter()
+        cpu_params, cpu_losses = shard.train_cognitive_sharded(
+            movs, target, devices=["cpu"], advanced=advanced,
+            steps=TRAIN_STEPS)
+        cpu_ms = (time.perf_counter() - start) / TRAIN_STEPS * 1e3
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+        prel = max(float((params[k].cpu() - cpu_params[k]).abs().max()
+                         / cpu_params[k].abs().max()) for k in params)
+        print(f"  {mode} train_cognitive_sharded(), {TRAIN_EXAMPLES} MOV "
+              f"vectors, {TRAIN_STEPS} steps over {len(devices)} device(s) "
+              f"({card}): {step_ms:.3f} ms a step (CPU {cpu_ms:.3f}); loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}; against the CPU, "
+              f"losses {rel:.3e}, parameters {prel:.3e} relative",
+              flush=True)
+        check(rel <= TRAIN_BAR and prel <= TRAIN_BAR,
+              f"{mode} training on the card against the CPU: {rel}, {prel}")
+        check(losses[-1] < losses[0], f"{mode} training loss: {losses}")
+    ref, test = stream_program()
+    for mode in MODES:
+        kw = dict(chunk_frames=STREAM_CHUNK, dtype="float64",
+                  advanced=mode == "advanced")
+        one = PS.PeaqStreamPool(4, device="cuda:0", **kw)
+        two = PS.PeaqStreamPool(4, device=["cuda:0", "cuda:0"], **kw)
+        pool_pair([one, two], ref, test, POOL_SECONDS)
+        a, b = one.finalize(), two.finalize()
+        names = list(b.movs)
+        odg, mov = deviation(
+            {"odg": b.odg, "movs": np.stack([b.movs[k] for k in names], 1)},
+            {"odg": a.odg, "movs": np.stack([a.movs[k] for k in names], 1)})
+        with tempfile.TemporaryDirectory() as tmp:
+            CK.save_state(f"{tmp}/one", one.state)
+            CK.save_state(f"{tmp}/two", two.state)
+            with np.load(f"{tmp}/one.npz") as x, np.load(f"{tmp}/two.npz") as y:
+                same_keys = sorted(x.files) == sorted(y.files) and all(
+                    x[k].shape == y[k].shape and x[k].dtype == y[k].dtype
+                    for k in x.files)
+                devs = [leaf_dev(y[k], x[k]) for k in x.files
+                        if k != "format_version"] if same_keys else [math.inf]
+                exact = sum(np.array_equal(x[k], y[k], equal_nan=True)
+                            for k in x.files)
+        print(f"  {mode} float64 pool of 4 stereo streams x {POOL_SECONDS} s "
+              f"over "
+              f"['cuda:0', 'cuda:0'] against one device: |dODG| {odg:.3e}, "
+              f"MOVs |d|/(1 + |w|) {mov:.3e}; checkpoint {len(devs)} leaves, "
+              f"{exact - 1} bit for bit, worst {max(devs):.3e} of a leaf's "
+              f"largest value", flush=True)
+        check(np.isfinite(a.odg).all(), f"{mode} pool ODG is not finite")
+        check(odg <= SHARD_BAR and mov <= SHARD_BAR and same_keys
+              and max(devs) <= SHARD_BAR,
+              f"{mode} two-part pool against one device: {odg}, {mov}, "
+              f"{max(devs)}")
+    return counts
+
+
 def timed(phase, *args):
     """Run one phase and print its seconds."""
     start = time.perf_counter()
@@ -2004,6 +2419,12 @@ def main() -> None:
     for mode, got in timed(phase_streams, card).items():
         for name, n in got.items():
             counts[name][f"stream_{mode}"] = n
+    for mode, got in timed(phase_cli, pair10, card).items():
+        for name, n in got.items():
+            counts[name][f"cli_{mode}"] = n
+    for mode, got in timed(phase_shard, pairs, card).items():
+        for name, n in got.items():
+            counts[name][f"sharded_{mode}"] = n
     check(not any(m == "jax" or m.split(".")[0] == "gstpeaq_tpu"
                   for m in sys.modules),
           "JAX or the JAX package was imported")

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from ..ops import exact
 from ..ops import iir
 
 
@@ -57,15 +58,15 @@ def avg_log(v, w, mask):
 def rms(v, w, mask):
     """MODE_RMS (weight-squared RMS); src/movaccum.c:375-378,458-460."""
     w2 = w * w
-    return torch.sqrt(_msum(w2 * v * v, mask) / _msum(w2, mask))
+    return exact.sqrt(_msum(w2 * v * v, mask) / _msum(w2, mask))
 
 
 def rms_asym(v, w, mask):
     """MODE_RMS_ASYM (w is the second input);
     src/movaccum.c:380-384,462-466."""
     den = _msum(torch.ones_like(v), mask)
-    return (torch.sqrt(_msum(v * v, mask) / den)
-            + 0.5 * torch.sqrt(_msum(w * w, mask) / den))
+    return (exact.sqrt(_msum(v * v, mask) / den)
+            + 0.5 * exact.sqrt(_msum(w * w, mask) / den))
 
 
 def adb(v, mask):
@@ -103,7 +104,7 @@ def avg_window(v, called, committed):
     rising = (torch.sum((called[1:] & ~called[:-1]).to(torch.int32), dim=0)
               + called[0].to(torch.int32))
     contiguous = rising <= 1
-    sq = torch.sqrt(torch.where(called, v, 0.0))
+    sq = exact.sqrt(torch.where(called, v, 0.0))
 
     def shift(x, k):
         return torch.cat([torch.zeros_like(x[:k]), x[:-k]], dim=0)
@@ -113,5 +114,5 @@ def avg_window(v, called, committed):
     # call index: number of called frames up to t (inclusive) - 1
     call_idx = torch.cumsum(called.to(v.dtype), dim=0) - 1.0
     mask = called & (call_idx >= 3) & committed
-    out = torch.sqrt(_msum(contrib, mask) / _msum(torch.ones_like(v), mask))
+    out = exact.sqrt(_msum(contrib, mask) / _msum(torch.ones_like(v), mask))
     return torch.where(contiguous, out, math.nan)

@@ -4,9 +4,16 @@ last, frames last.
 
 Every per-band state of the reference is a first-order linear recurrence
 over frames, so the adapter is three banded recurrence calls plus
-elementwise math and one [Z, Z] band average: K2 and K1 twice in the
-one-shot pipelines (level_adapt_fused_mod), K1 three times with carried
-state in the streams (level_adapt).
+elementwise math and one band average: K2 and K1 twice in the one-shot
+pipelines (level_adapt_fused_mod), K1 three times with carried state in
+the streams (level_adapt).
+
+Every operation here has one result for its inputs, on every run and
+device: the band sums' square root is ops/exact.py's IEEE one (torch's CPU
+sqrt once returned a worker thread's chunk 3e-11 off, which moved one
+pair's adapted excitations by up to 6e-12), and the band average is a sum
+of shifted slices in a fixed order, where a matrix product would leave
+the order to a library.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch
 
 from ..constants import SAMPLING_RATE
 from ..ops import cuda_iir
+from ..ops import exact
 from ..ops import iir
 
 
@@ -30,6 +38,20 @@ def sliding_average_matrix(band_count: int) -> np.ndarray:
         m2 = min(band_count - k - 1, m2c)
         mat[k - m1:k + m2 + 1, k] = 1.0 / (m1 + m2 + 1)
     return mat
+
+
+def band_average(x: torch.Tensor, avg_matrix: torch.Tensor) -> torch.Tensor:
+    """The +-M1/M2 band average of x [..., Z, F] (src/leveladapter.c:
+    313-325): out[k] = (sum of x[w] for w = k - m1 .. k + m2, ascending)
+    times avg_matrix[k, k] = 1 / (m1 + m2 + 1).  Bands past either edge
+    enter as exact zeros, so each band's sum has one fixed order."""
+    z = x.shape[-2]
+    m1c, m2c = z // 36, z // 25
+    padded = torch.nn.functional.pad(x, (0, 0, m1c, m2c))
+    total = padded[..., :z, :]
+    for shift in range(1, m1c + m2c + 1):
+        total = total + padded[..., shift:shift + z, :]
+    return torch.diagonal(avg_matrix)[:, None] * total
 
 
 def _pair(state, i: int, dtype):
@@ -49,7 +71,7 @@ def adapt_stage2(a: torch.Tensor, avg_matrix: torch.Tensor,
     state2: (filt_num, filt_den, pattcorr_ref, pattcorr_test), each
     [..., Z], or None for a fresh state.  Returns (adapted_ref,
     adapted_test, new_state2)."""
-    num = torch.sum(torch.sqrt(ref_filt * test_filt), dim=-2)
+    num = torch.sum(exact.sqrt(ref_filt * test_filt), dim=-2)
     den = torch.sum(test_filt, dim=-2)
     lev_corr = (num * num / (den * den))[..., None, :]   # [..., 1, F]
     louder_ref = lev_corr > 1.0
@@ -67,7 +89,8 @@ def adapt_stage2(a: torch.Tensor, avg_matrix: torch.Tensor,
     num_ge = filt_num >= filt_den
     pattadapt_ref = torch.where(num_ge, 1.0, filt_num / filt_den)
     pattadapt_test = torch.where(num_ge, filt_den / filt_num, 1.0)
-    ra = avg_matrix.T @ torch.stack([pattadapt_ref, pattadapt_test])
+    ra = band_average(torch.stack([pattadapt_ref, pattadapt_test]),
+                      avg_matrix)
     pc = iir.linear_recurrence_banded(a, (1.0 - a[:, None]) * ra, axis=-1,
                                       y0=_pair(state2, 2, ra.dtype))
     new_state2 = (filt_num[..., -1], filt_den[..., -1], pc[0][..., -1],

@@ -12,6 +12,7 @@ import math
 import torch
 
 from .. import constants as C
+from ..ops import exact
 
 
 def modulation_difference(internal_noise: torch.Tensor,
@@ -85,7 +86,7 @@ def nmr(group_matrix: torch.Tensor, masking_difference: torch.Tensor,
     ((pr - pt) / (sqrt(pr) + sqrt(pt)))^2, algebraically
     (sqrt(pr) - sqrt(pt))^2 without its cancellation.
     Returns (nmr_mean, disturbed in {0, 1})."""
-    denom = torch.sqrt(ref_power) + torch.sqrt(test_power)
+    denom = exact.sqrt(ref_power) + exact.sqrt(test_power)
     ratio = delta_power / torch.where(denom > 0.0, denom, 1.0)
     noise_in_bands = torch.clamp_min((ratio * ratio) @ group_matrix, 1e-12)
     nmr_vec = noise_in_bands / (ref_excitation / masking_difference)
@@ -172,7 +173,7 @@ def ehs(ref_power: torch.Tensor, test_power: torch.Tensor,
         [torch.zeros_like(d0),
          torch.cumsum(dsq[..., n:2 * n - 1] - dsq[..., :n - 1], dim=-1)],
         dim=-1)
-    cnorm = corr / torch.sqrt(d0 * dk)
+    cnorm = corr / exact.sqrt(d0 * dk)
     if settings.ehs_subtract_dc_before_window:
         cwin = (cnorm - torch.mean(cnorm, dim=-1, keepdim=True)) * window
     else:

@@ -3,7 +3,10 @@ the ODG squashing (src/nn.c).
 
 `CognitiveModel` holds one network's weights as buffers; `di_basic`,
 `di_advanced` and `odg` are the plain functions with the standard's fixed
-weights.
+weights.  The trainable form (gstpeaq_tpu/models/nn.py:61-105) refits the
+mapping to subjective scores: its parameters are a dict of leaf tensors,
+`sgd_train_step` takes one SGD step with the gradient from
+torch.autograd, and parallel/shard.py spreads the examples over devices.
 """
 
 from __future__ import annotations
@@ -73,3 +76,57 @@ def di_advanced(movs: torch.Tensor, clamp: bool = False) -> torch.Tensor:
 def odg(di: torch.Tensor) -> torch.Tensor:
     """ODG = -3.98 + 4.2 * sigmoid(DI); src/nn.c:371-375."""
     return C.NN_BMIN + (C.NN_BMAX - C.NN_BMIN) * _sigmoid(di)
+
+
+# ---------------------------------------------------------------------------
+# Trainable cognitive model (refit the MOV -> DI mapping to subjective scores)
+# ---------------------------------------------------------------------------
+
+
+def init_cognitive_params(advanced: bool = False, dtype=torch.float64,
+                          device="cpu") -> dict[str, torch.Tensor]:
+    """The standard's weights as trainable leaves (requires_grad)."""
+    return {name: torch.tensor(np.asarray(v), dtype=dtype, device=device,
+                               requires_grad=True)
+            for name, v in zip(WEIGHT_NAMES, _STANDARD[advanced])}
+
+
+def cognitive_forward(params: dict[str, torch.Tensor],
+                      movs: torch.Tensor) -> torch.Tensor:
+    """Differentiable DI from the parameters; movs [..., M] -> [...]: the
+    network without the clamp."""
+    return _di(movs, *(params[name] for name in WEIGHT_NAMES), clamp=False)
+
+
+def cognitive_loss(params: dict[str, torch.Tensor], movs: torch.Tensor,
+                   target_di: torch.Tensor) -> torch.Tensor:
+    """MSE on DI: the objective the chapter-6 weights were fitted to."""
+    pred = cognitive_forward(params, movs)
+    return torch.mean((pred - target_di) ** 2)
+
+
+def loss_and_grads(params: dict[str, torch.Tensor], movs: torch.Tensor,
+                   target_di: torch.Tensor):
+    """(loss, {name: gradient}) at `params`, by torch.autograd, with TF32
+    off."""
+    from ..api import full_precision_matmuls
+    with torch.enable_grad(), full_precision_matmuls():
+        leaves = {name: p.detach().requires_grad_()
+                  for name, p in params.items()}
+        loss = cognitive_loss(leaves, movs, target_di)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def sgd_apply(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
+              lr: float) -> dict[str, torch.Tensor]:
+    """p - lr * g for each parameter, as new trainable leaves."""
+    return {name: (p.detach() - lr * grads[name]).requires_grad_()
+            for name, p in params.items()}
+
+
+def sgd_train_step(params: dict[str, torch.Tensor], movs: torch.Tensor,
+                   target_di: torch.Tensor, lr: float = 1e-3):
+    """One SGD step on the MSE loss.  Returns (new_params, loss)."""
+    loss, grads = loss_and_grads(params, movs, target_di)
+    return sgd_apply(params, grads, lr), loss

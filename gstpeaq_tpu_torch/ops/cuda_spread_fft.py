@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
+from . import exact
 
 # csrc/spread_fft.cu's kBands: a lane holds BANDS_PER_LANE bands of its
 # row, one warp a row, so a row has at most MAX_BANDS bands
@@ -65,7 +66,7 @@ def spread_fft_plain(pitch_power: torch.Tensor, a_uc: torch.Tensor,
         w = torch.where(expo > 0, torch.exp(expo * log_a), 0.0)
         chunks.append(torch.sum(ene[..., None] * w, dim=-2))
     e2 = e2 + torch.cat(chunks, dim=-1)
-    return (e2 * e2) * torch.sqrt(e2) / spread_norm
+    return (e2 * e2) * exact.sqrt(e2) / spread_norm
 
 
 def lower_table(z: int, a_le: float, dtype: torch.dtype,

@@ -161,6 +161,84 @@ def batch_pipeline(advanced: bool, playback_level: float,
                         dtype, device)
 
 
+def submit(pipe, refs, tests, buckets, device: torch.device,
+           microbatch: int = 8, prefetch_gb: float = 6.0,
+           timings: dict | None = None) -> list:
+    """Score [T, C] pairs (as_2d_ship'd) in `buckets` on `device` without
+    reading any result: pad each microbatch on the host into page-locked
+    memory, copy it with non_blocking copies and dispatch it.  When the
+    padded pairs fit `prefetch_gb`, every chunk is staged before the first
+    dispatch; more stage, dispatch and pad their chunks in turn.  The last
+    chunk is padded with duplicates.  Returns [(results on the device,
+    pairs to keep)] per chunk, for `collect`; fills timings' 'stage' and
+    'dispatch'."""
+    n = len(refs)
+    mb = min(microbatch, n) if microbatch else n
+    pin = device.type == "cuda"
+
+    def chunks():
+        for start in range(0, n, mb):
+            # host padding happens PER MICROBATCH: a sweep-sized batch
+            # would otherwise hold a second, padded copy of the corpus
+            r_chunk = refs[start:start + mb]
+            t_chunk = tests[start:start + mb]
+            pad = mb - len(r_chunk)
+            if pad:
+                r_chunk = list(r_chunk) + [r_chunk[-1]] * pad
+                t_chunk = list(t_chunk) + [t_chunk[-1]] * pad
+            yield prepare_chunk(r_chunk, t_chunk, buckets, pin), mb - pad
+
+    length = framing.padded_length(buckets[0], C.FFT_FRAMESIZE,
+                                   C.FFT_STEPSIZE)
+    if len(buckets) > 1:
+        length = max(length, buckets[1] * C.FB_FRAMESIZE)
+    bytes_per_pair = (np.dtype(_ship_dtype(refs, tests)).itemsize * 2
+                      * refs[0].shape[1] * length)
+    prefetch = -(-n // mb) * mb * bytes_per_pair <= prefetch_gb * 1e9
+
+    from .. import api
+    pending = []
+    with api.full_precision_matmuls(), torch.inference_mode():
+        t0 = time.perf_counter()
+        if prefetch:
+            staged = [(stage(chunk, device), take)
+                      for chunk, take in chunks()]
+            t1 = time.perf_counter()
+            for chunk, take in staged:
+                pending.append((results(dispatch(pipe, buckets, *chunk)),
+                                take))
+        else:
+            t1 = t0
+            for chunk, take in chunks():
+                pending.append((results(dispatch(
+                    pipe, buckets, *stage(chunk, device))), take))
+        t2 = time.perf_counter()
+    if timings is not None:
+        timings.update(stage=t1 - t0, dispatch=t2 - t1)
+    return pending
+
+
+def collect(pending: list, timings: dict | None = None) -> np.ndarray:
+    """`submit`'s results on the host, [B, 2 + M] float64: ODG, DI, then
+    the MOVs; fills timings' 'first_sync' (the first chunk) and 'drain'
+    (the rest)."""
+    t0 = time.perf_counter()
+    host = [pending[0][0].cpu()]
+    t1 = time.perf_counter()
+    host += [out.cpu() for out, _ in pending[1:]]
+    values = np.concatenate([out[:take].numpy() for out, (_, take) in
+                             zip(host, pending)])
+    if timings is not None:
+        timings.update(first_sync=t1 - t0,
+                       drain=time.perf_counter() - t1)
+    return values
+
+
+def as_result(values: np.ndarray) -> dict:
+    """collect's [B, 2 + M] as peaq_batch's dict."""
+    return {"odg": values[:, 0], "di": values[:, 1], "movs": values[:, 2:]}
+
+
 def peaq_batch(refs: Sequence[np.ndarray], tests: Sequence[np.ndarray],
                advanced: bool = False, playback_level: float = 92.0,
                settings: C.Settings = C.DEFAULT_SETTINGS,
@@ -181,9 +259,9 @@ def peaq_batch(refs: Sequence[np.ndarray], tests: Sequence[np.ndarray],
     with non_blocking copies.  When the padded batch fits `prefetch_gb`,
     every chunk is staged before the first dispatch; a larger batch stages,
     dispatches and pads its chunks in turn.  Every chunk is dispatched
-    before any result is read, and the results are read once at the end.
-    Returns a dict with 'odg' [B], 'di' [B], 'movs' [B, M] float64 numpy
-    arrays.
+    before any result is read, and the results are read once at the end
+    (`submit`, then `collect`).  Returns a dict with 'odg' [B], 'di' [B],
+    'movs' [B, M] float64 numpy arrays.
 
     `timings`, if given, is filled with wall seconds: 'stage' (host padding
     and copies to the device), 'dispatch' (every chunk's pipeline call),
@@ -200,55 +278,6 @@ def peaq_batch(refs: Sequence[np.ndarray], tests: Sequence[np.ndarray],
         raise ValueError("peaq_batch needs as many tests as refs, at least "
                          "one")
     buckets = compute_buckets(refs, tests, advanced, granularity)
-    n = len(refs)
-    mb = min(microbatch, n) if microbatch else n
-    pin = dev.type == "cuda"
-
-    def chunks():
-        for start in range(0, n, mb):
-            # host padding happens PER MICROBATCH: a sweep-sized batch
-            # would otherwise hold a second, padded copy of the corpus
-            r_chunk = refs[start:start + mb]
-            t_chunk = tests[start:start + mb]
-            pad = mb - len(r_chunk)
-            if pad:
-                r_chunk = list(r_chunk) + [r_chunk[-1]] * pad
-                t_chunk = list(t_chunk) + [t_chunk[-1]] * pad
-            yield prepare_chunk(r_chunk, t_chunk, buckets, pin), mb - pad
-
-    length = framing.padded_length(buckets[0], C.FFT_FRAMESIZE,
-                                   C.FFT_STEPSIZE)
-    if advanced:
-        length = max(length, buckets[1] * C.FB_FRAMESIZE)
-    bytes_per_pair = (np.dtype(_ship_dtype(refs, tests)).itemsize * 2
-                      * refs[0].shape[1] * length)
-    prefetch = -(-n // mb) * mb * bytes_per_pair <= prefetch_gb * 1e9
-
-    outs, takes = [], []
-    with api.full_precision_matmuls(), torch.inference_mode():
-        t0 = time.perf_counter()
-        if prefetch:
-            staged = [(stage(chunk, dev), take)
-                      for chunk, take in chunks()]
-            t1 = time.perf_counter()
-            for chunk, take in staged:
-                outs.append(results(dispatch(pipe, buckets, *chunk)))
-                takes.append(take)
-        else:
-            t1 = t0
-            for chunk, take in chunks():
-                outs.append(results(dispatch(pipe, buckets,
-                                            *stage(chunk, dev))))
-                takes.append(take)
-        t2 = time.perf_counter()
-        host = [outs[0].cpu()]
-        t3 = time.perf_counter()
-        host += [o.cpu() for o in outs[1:]]
-    values = np.concatenate([o[:take].numpy() for o, take in
-                             zip(host, takes)])
-    res = {"odg": values[:, 0], "di": values[:, 1], "movs": values[:, 2:]}
-    if timings is not None:
-        t4 = time.perf_counter()
-        timings.update(stage=t1 - t0, dispatch=t2 - t1, first_sync=t3 - t2,
-                       drain=t4 - t3)
-    return res
+    pending = submit(pipe, refs, tests, buckets, dev, microbatch,
+                     prefetch_gb, timings)
+    return as_result(collect(pending, timings))

@@ -44,6 +44,7 @@ from ..models import movs as MOVS
 from ..models import nn as NN
 from ..models.basic import energy_totals
 from ..models.modulation import modulation
+from ..ops import exact
 from ..ops import fb_ear as FB
 from ..ops import fft_ear as FE
 from ..ops import framing
@@ -355,7 +356,7 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
 
     # WinModDiff: the sliding 4-window over the called frames (contiguous)
     win_called = act.active & md_gate
-    sq = torch.sqrt(torch.where(win_called[:, None, :], md1, 0.0))
+    sq = exact.sqrt(torch.where(win_called[:, None, :], md1, 0.0))
     ext = torch.cat([state["win_sqrts"].to(sq.dtype), sq], dim=-1)
     wsum = (ext[..., 3:] + ext[..., 2:-1] + ext[..., 1:-2]
             + ext[..., :-3]) / 4.0
@@ -501,11 +502,11 @@ def read_movs(pipe, state: dict, advanced: bool):
     if advanced:
         vals = {"SegmentalNMRB": mean(frac("SegmentalNMRB")),
                 "EHSB": mean(frac("EHSB")),
-                "RmsModDiffA": mean(torch.sqrt(frac("RmsModDiffA"))),
+                "RmsModDiffA": mean(exact.sqrt(frac("RmsModDiffA"))),
                 "AvgLinDistA": mean(frac("AvgLinDistA")),
                 "RmsNoiseLoudAsymA": mean(
-                    torch.sqrt(frac("RmsNoiseLoudAsymA"))
-                    + 0.5 * torch.sqrt(frac("RmsNoiseLoudAsymA",
+                    exact.sqrt(frac("RmsNoiseLoudAsymA"))
+                    + 0.5 * exact.sqrt(frac("RmsNoiseLoudAsymA",
                                             "committed2")))}
         names = C.MOV_ADVANCED_NAMES
     else:
@@ -514,7 +515,7 @@ def read_movs(pipe, state: dict, advanced: bool):
             "AvgModDiff2B", "RelDistFramesB", "EHSB")}
         vals["TotalNMRB"] = mean(10.0 * torch.log10(frac("TotalNMRB")))
         for name in ("RmsNoiseLoudB", "WinModDiff1B"):
-            vals[name] = mean(torch.sqrt(frac(name)))
+            vals[name] = mean(exact.sqrt(frac(name)))
         num = sums["ADBB"]["committed"][:, 0].to(dtype)
         den = sums["ADBB"]["committed_den"][:, 0].to(dtype)
         vals["ADBB"] = torch.where(
@@ -738,7 +739,7 @@ class PeaqStreamAdvanced(_ScalarStream):
                          settings, dtype, device)
 
 
-class PeaqStreamPool(_Streams):
+class PeaqStreamPool:
     """N long-form streams advanced in lockstep by one chunk step at N
     streams: every kernel launches once per chunk for all of them.  The
     same steps and state semantics as PeaqStream / PeaqStreamAdvanced, with
@@ -748,23 +749,47 @@ class PeaqStreamPool(_Streams):
     Lockstep: every feed() advances every stream by the same sample count,
     ref/test [N, T] or [N, T, CH].  Streams of different lengths belong in
     separate pools (or pad the short ones and read current() before their
-    tails).  A pool over several cards is not here."""
+    tails).
+
+    `device`: one torch device (None: CUDA), or a list of devices (the JAX
+    pool's mesh): the stream axis is split into equal parts, one pool of
+    N / len(device) streams per device in stream order, and n_streams must
+    be a multiple of the device count.  Each part's chunk steps run on its
+    device; `state` joins the parts' leaves in stream order on the first
+    device, so a checkpoint is the one a pool on one device writes."""
 
     def __init__(self, n_streams: int, channels: int = 2,
                  chunk_frames: int = 64, playback_level: float = 92.0,
                  settings: C.Settings = C.DEFAULT_SETTINGS,
                  dtype: str | None = None, advanced: bool = False,
                  device=None):
-        super().__init__(n_streams, channels, chunk_frames, playback_level,
-                         settings, dtype, advanced, device)
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else [device])
+        if not devices or n_streams % len(devices):
+            raise ValueError(f"n_streams {n_streams} is not a multiple of "
+                             f"the {len(devices)} device(s)")
+        self._per = n_streams // len(devices)
+        self._parts = [_Streams(self._per, channels, chunk_frames,
+                                playback_level, settings, dtype, advanced,
+                                dev)
+                       for dev in devices]
+        self._n, self._channels = n_streams, channels
+        self._names = self._parts[0]._names
 
     @property
     def state(self):
-        return self._state
+        parts = [tree_flatten(part._state) for part in self._parts]
+        return tree_unflatten(self._parts[0]._state, [
+            torch.cat([leaf.to(leaves[0].device) for leaf in leaves])
+            for leaves in zip(*parts)])
 
     @state.setter
     def state(self, value):
-        self._state = value
+        leaves = tree_flatten(value)
+        for i, part in enumerate(self._parts):
+            part._state = tree_unflatten(part._state, [
+                leaf[i * self._per:(i + 1) * self._per].to(place.device)
+                for leaf, place in zip(leaves, tree_flatten(part._state))])
 
     def _as3(self, x) -> np.ndarray:
         x = np.asarray(x)
@@ -781,17 +806,20 @@ class PeaqStreamPool(_Streams):
     def feed(self, ref, test) -> None:
         """Append [N, T] / [N, T, CH] samples of both signals, the same T
         for every stream and for both signals, and run every complete
-        chunk."""
+        chunk: each part's steps on its device, every part's queued
+        before any result is read."""
         r, t = self._as3(ref), self._as3(test)
         if r.shape[1] != t.shape[1]:
             raise ValueError(
                 f"PeaqStreamPool.feed is lockstep: ref and test must carry "
                 f"the same sample count per feed (got {r.shape[1]} vs "
                 f"{t.shape[1]}); use PeaqStream for skewed feeds")
-        self._feed3(r, t)
+        per = self._per
+        for i, part in enumerate(self._parts):
+            part._feed3(r[i * per:(i + 1) * per], t[i * per:(i + 1) * per])
 
     def current(self) -> PoolResult:
-        out = self._read()
+        out = np.concatenate([part._read() for part in self._parts])
         return PoolResult(odg=out[:, 0], di=out[:, 1],
                           movs={name: out[:, 2 + i]
                                 for i, name in enumerate(self._names)})
@@ -799,5 +827,6 @@ class PeaqStreamPool(_Streams):
     def finalize(self) -> PoolResult:
         """Process the remaining full frames and the zero-padded flush
         frame (lockstep: every stream flushes at the same boundary)."""
-        self._finalize()
+        for part in self._parts:
+            part._finalize()
         return self.current()

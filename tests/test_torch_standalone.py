@@ -13,8 +13,10 @@ of the spec or of the pair:
 
 import dataclasses
 import importlib.util
+import inspect
 import json
 import pathlib
+import subprocess
 import sys
 
 import numpy as np
@@ -22,15 +24,21 @@ import pytest
 
 import bench
 import chip_smoke
+from gstpeaq_tpu import conformance as JCF
 from gstpeaq_tpu import constants as JC
 from gstpeaq_tpu import earparams as JEP
 from gstpeaq_tpu.utils import numpy_ref
+from gstpeaq_tpu.utils import native as JNATIVE
 from gstpeaq_tpu.utils import testsignals as JTS
+from gstpeaq_tpu.utils import wavio as JWAV
+from gstpeaq_tpu_torch import conformance as PCF
 from gstpeaq_tpu_torch import constants as PC
 from gstpeaq_tpu_torch import earparams as PEP
 from gstpeaq_tpu_torch.utils import benchpairs as PBENCH
 from gstpeaq_tpu_torch.utils import corpus as PCORPUS
+from gstpeaq_tpu_torch.utils import native as PNATIVE
 from gstpeaq_tpu_torch.utils import testsignals as PTS
+from gstpeaq_tpu_torch.utils import wavio as PWAV
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "torch_pair10_spec.json"
 DRIFT = pathlib.Path(__file__).resolve().parents[1] / "tools" / "tpu_drift.py"
@@ -116,6 +124,64 @@ def test_testsignals_are_the_jax_packages():
         for args in ((1000,), (4096, 660.0), (777, 100.0, 44100, 0.5)):
             assert_same(getattr(PTS, name)(*args), getattr(JTS, name)(*args),
                         f"{name}{args}")
+
+
+def test_wavio_is_the_jax_packages():
+    """The port's wavio: the same public names, and each function's code
+    is the JAX package's, line for line."""
+    assert set(public(PWAV)) == set(public(JWAV))
+    for name, value in public(JWAV).items():
+        if callable(value):
+            assert inspect.getsource(getattr(PWAV, name)) == \
+                inspect.getsource(value), name
+        else:
+            assert_same(getattr(PWAV, name), value, name)
+
+
+def test_native_is_the_jax_packages():
+    """The port's native binding: the same public names, and the same code
+    apart from _find_lib, which reads with wavio where the library does
+    not load."""
+    assert set(public(PNATIVE)) == set(public(JNATIVE))
+    for name in ("available", "read_wav", "load_audio_48k",
+                 "load_audio_48k_ship"):
+        assert inspect.getsource(getattr(PNATIVE, name)) == \
+            inspect.getsource(getattr(JNATIVE, name)), name
+
+
+@pytest.mark.parametrize("name", ["CONFORMANCE_BASIC", "CONFORMANCE_ADVANCED",
+                                  "ITU_ODG_BASIC", "ITU_ODG_ADVANCED"])
+def test_conformance_tables_are_the_jax_packages(name):
+    assert getattr(PCF, name) == getattr(JCF, name)
+    assert list(getattr(PCF, name)) == list(getattr(JCF, name))
+
+
+def test_new_modules_import_no_jax():
+    """The front end, sharding and training modules import nothing of JAX
+    or of the JAX package, and no source line of theirs names it."""
+    modules = ("cli", "conformance", "utils.wavio", "utils.native",
+               "parallel.shard", "parallel.batch", "parallel.stream",
+               "models.nn")
+    code = ("import importlib, sys\n"
+            f"for n in {modules!r}:\n"
+            "    importlib.import_module('gstpeaq_tpu_torch.' + n)\n"
+            "import gstpeaq_tpu_torch.__main__\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m == 'gstpeaq_tpu' or m.startswith('gstpeaq_tpu.')]\n"
+            "assert not bad, bad\n")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=root)
+    assert proc.returncode == 0, proc.stderr
+    for name in modules + ("__main__",):
+        path = root / "gstpeaq_tpu_torch" / (name.replace(".", "/") + ".py")
+        for line in path.read_text().splitlines():
+            words = line.split()
+            assert not (words[:1] in (["import"], ["from"])
+                        and (words[1] == "jax" or words[1].startswith(
+                            ("jax.", "gstpeaq_tpu.")) or words[1] ==
+                            "gstpeaq_tpu")), (name, line)
 
 
 def drift_module():
