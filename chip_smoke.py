@@ -18,8 +18,9 @@ Phases, each on its own lines and ending with its seconds:
               off its tiles, rows off their 16-byte boundary) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets) and the streams' chunk shapes (64
-              FFT frames, 1,024 FB frames, at one stream and at the pool's
-              16) with their carried states (K1 and D1 with y0, D3 with
+              FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
+              frames, 16,384 FB frames, each at one stream and at the
+              pool's 16) with their carried states (K1 and D1 with y0, D3 with
               its state, D1 and D2 on a second FB chunk of the pair's own
               rows), in float32 and float64, the float32 DC cascade's own
               rounding against float64, and two launches of every kernel
@@ -53,8 +54,9 @@ Phases, each on its own lines and ending with its seconds:
               at each K1 call site, the FB ear's FIR bank with a bound of
               its own (per pair and at the batch shape), each kernel at
               the streams' chunk shapes, K1 and K2 on a 10-minute
-              program's one-shot FB rows [2, 1, 2, 40, 150000], and peaq()
-              wall time per 10 s stereo pair per mode and tier
+              program's one-shot FB rows [2, 1, 2, 40, 150000] with their
+              plain versions and K1's library call, and peaq() wall time
+              per 10 s stereo pair per mode and tier
   8 profile   torch.profiler over five peaq() calls per mode and tier:
               device time per call, its share of the wall time, each hand
               kernel's share of it, and time by kernel
@@ -100,6 +102,22 @@ Phases, each on its own lines and ending with its seconds:
               PeaqStreamPool of 4 x 20 s over ["cuda:0", "cuda:0"] against
               the pool on one device (1e-12) and its checkpoint, leaf for
               leaf within 1e-12 of each leaf's largest value
+  13 tools    gstpeaq_tpu_torch/tools/ through each tool's main() on the
+              card, float64, each run counted from 0 and held to its exact
+              launches: codec_sweep.py over a manifest of 16 stereo 10 s
+              WAV pairs (12 PCM16, 2 float32, 2 PCM16 at 44.1 kHz) per
+              mode, with and without --pcm16, each TSV value within 1e-4
+              of per-pair peaq() of the pair as loaded; --demo 1000
+              --pcm16 per mode (basic microbatch 64, advanced 32), the
+              tool's lines, peak device memory, the first 4 items within
+              1e-4 of peaq(); longform_bench.py --minutes 60 (chunk 1,024)
+              per mode: the rate, peak memory at minute 60 within 5% of
+              minute 1 (and over the last two minutes of the first two),
+              and, the stream freed, the result within 1e-9 (ODG, DI,
+              MOV x (1 + |w|)) of one-shot peaq() of the same program (the
+              longest of 60, 30, 15 minutes that fits); pools of 16 x 10
+              minutes per mode, fed and --device-source; optimize_settings.py
+              on a synthetic two-item dataset, basic
 
 Two lines before the last is one JSON object with each kernel's error,
 times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
@@ -117,16 +135,19 @@ their sum; `batch` lists the kernel's batch shapes, each with its
 `library_ms` (K1's conv1d there; null for the others), and the same with
 `_f64`; `stream` the same at the streams' chunk shapes (`library_ms`
 null); `stream_steps` the kernel's launches per chunk step of each stream
-path (phase 6) and `chunk_shapes` those steps' shapes of its calls;
+path (phase 6), `chunk_shapes` those steps' shapes of its calls and
+`tool_chunk_shapes` the same at the tools' chunk of 1,024 FFT frames;
 `launches_by_path` also holds phase 10's float64 10-minute streams
 (`stream_basic`, `stream_advanced`), phase 11's in-process CLI calls
 (`cli_basic`, `cli_advanced`) and phase 12's float64 sharded calls
-(`sharded_basic`, `sharded_advanced`), and K1 and K2 carry `long_row`,
-phase 7's reading at [2, 1, 2, 40, 150000].  The line before the last is
-the card's name and power limit; the last line is {"ok": true, "device":
-{...}}.  Any failed check exits non-zero without that last line.  Without
-CUDA the script exits non-zero at once and prints no result.  Nothing of
-JAX or of the JAX package gstpeaq_tpu is imported.
+(`sharded_basic`, `sharded_advanced`) and phase 13's tool runs
+(`tools_...`), and K1 and K2 carry `long_row`, phase 7's reading at
+[2, 1, 2, 40, 150000] (`ms`, `plain_ms`, `bound_ms`, `bound_by`,
+`library_ms`, K1's conv1d there, and the same with `_f64`).  The line
+before the last is the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.  Any failed check exits non-zero without
+that last line.  Without CUDA the script exits non-zero at once and prints
+no result.  Nothing of JAX or of the JAX package gstpeaq_tpu is imported.
 """
 
 from __future__ import annotations
@@ -135,6 +156,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -143,6 +165,7 @@ import pathlib
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -169,6 +192,9 @@ from gstpeaq_tpu_torch.parallel import batch as PB
 from gstpeaq_tpu_torch.parallel import shard
 from gstpeaq_tpu_torch.parallel import stream as PS
 from gstpeaq_tpu_torch.tools import bench as TB
+from gstpeaq_tpu_torch.tools import codec_sweep as CS
+from gstpeaq_tpu_torch.tools import longform_bench as LB
+from gstpeaq_tpu_torch.tools import optimize_settings as OS
 from gstpeaq_tpu_torch.utils import checkpoint as CK
 from gstpeaq_tpu_torch.utils import corpus
 from gstpeaq_tpu_torch.utils import native
@@ -255,6 +281,9 @@ ACCURATE_BAR = 1e-5
 # frames), one stream and the pool's 16 (phases 3, 6, 7 and 10)
 STREAM_CHUNK = 64
 POOL = 16
+# the tools' chunk (gstpeaq_tpu_torch/tools/longform_bench.py's default,
+# 1,024 FFT frames, 16,384 FB frames): phases 3, 7 and 13
+TOOL_CHUNK = 1024
 # each kernel's launches in one chunk step of each stream path, from the
 # code: basic, K1 for the time smear, the level adapter's three stacked
 # pairs and the modulation of both signals, K3 once on both signals;
@@ -392,10 +421,11 @@ def sleep_cycles_per_ms() -> float:
     return 10_000_000 / start.elapsed_time(end)
 
 
-def cuda_ms(fn, calls: int, rounds: int = 10,
-            cover_host: bool = False) -> tuple[float, float]:
+def cuda_ms(fn, calls: int, rounds: int = 10, cover_host: bool = False,
+            warmup: int = 3) -> tuple[float, float]:
     """Device time of one fn() in ms between CUDA events: the median over
-    `rounds` of the mean of `calls` back-to-back calls, after warm-up.
+    `rounds` of the mean of `calls` back-to-back calls, after `warmup`
+    calls.
     Each round is queued behind a sleep kernel of ~1 ms, so that the host's
     launch overhead is hidden wherever fn() keeps the device busier than
     the host; a host-bound fn() (the plain recurrences' frame loops) is
@@ -403,7 +433,7 @@ def cuda_ms(fn, calls: int, rounds: int = 10,
     the host's enqueue of a whole round, so that the time is the device's
     own (D3's wrapper enqueues five launches and packs a state).  Also
     returns the median host time to enqueue one fn()."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     host = time.perf_counter()
@@ -821,26 +851,25 @@ def batch_cases(dtype, rng, pair10):
     return cases, hp2
 
 
-def stream_shapes(n: int) -> dict:
-    """The stream path's chunk shapes at n streams of stereo (STREAM_CHUNK
-    FFT frames, 16 x STREAM_CHUNK FB frames): K1 and K3 on the basic
-    step's [2, n, CH, 109, 64] and the advanced FFT step's 55 bands, K1 on
-    the FB step's frames, D1 and D2 on its instants, D3 on its samples."""
-    fb = 16 * STREAM_CHUNK
-    return {"basic": (2, n, 2, C.BASIC_BAND_COUNT, STREAM_CHUNK),
-            "advanced_fft": (2, n, 2, C.ADVANCED_FFT_BAND_COUNT,
-                             STREAM_CHUNK),
+def stream_shapes(n: int, chunk: int = STREAM_CHUNK) -> dict:
+    """The stream path's chunk shapes at n streams of stereo (`chunk` FFT
+    frames, 16 x `chunk` FB frames): K1 and K3 on the basic step's
+    [2, n, CH, 109, chunk] and the advanced FFT step's 55 bands, K1 on the
+    FB step's frames, D1 and D2 on its instants, D3 on its samples."""
+    fb = 16 * chunk
+    return {"basic": (2, n, 2, C.BASIC_BAND_COUNT, chunk),
+            "advanced_fft": (2, n, 2, C.ADVANCED_FFT_BAND_COUNT, chunk),
             "fb_frames": (2, n, 2, C.FB_BAND_COUNT, fb),
             "fb_instants": (2, n, 2, C.FB_BAND_COUNT,
                             fb * C.FB_FRAMESIZE // FB.SUB),
             "dc": (2, n, 2, fb * C.FB_FRAMESIZE)}
 
 
-def chunk_shapes(name: str) -> dict:
+def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
     """The shapes of kernel `name`'s calls in one chunk step of each stream
-    path, at one stream (K3's [..., F, Z], the others' band or sample
-    layouts)."""
-    sh = stream_shapes(1)
+    path, at one stream and `chunk` FFT frames (K3's [..., F, Z], the
+    others' band or sample layouts)."""
+    sh = stream_shapes(1, chunk)
     fb = {"advanced_fb": sh["fb_instants"]}
     return {"recurrence_banded": {"basic": sh["basic"],
                                   "advanced_fft": sh["advanced_fft"],
@@ -853,23 +882,34 @@ def chunk_shapes(name: str) -> dict:
 
 
 def stream_cases(dtype, pair10) -> list:
-    """Each kernel of the stream path at its chunk shapes, at one stream and
-    at the pool's POOL, from a generator of their own: K1 with y0 at the
+    """Each kernel of the stream path at its chunk shapes, at the streams'
+    chunk (STREAM_CHUNK) and the tools' (TOOL_CHUNK), at one stream and at
+    the pool's POOL, from a generator of their own: K1 with y0 at the
     basic, advanced FFT and FB sites, K3 on both signals (109 and 55
-    bands); the FB chunk on the 10 s pair's own rows (batch_fb_pair, cut to
-    two chunks): D3 on the second chunk with the state the first leaves,
-    D1 on the second chunk's FIR outputs (the first's samples as history)
-    with y0 = the first chunk's last cu, D2 on them."""
+    bands); the FB chunk on the 10 s pair's own rows (batch_fb_pair's,
+    cut or tiled to two chunks): D3 on the second chunk with the state the
+    first leaves, D1 on the second chunk's FIR outputs (the first's samples
+    as history) with y0 = the first chunk's last cu, D2 on them.  At the
+    tools' chunk D2's plain version runs one stream at a time, which
+    bounds its [..., Z, 8, I] temporaries."""
     srng = np.random.default_rng(10)
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device="cuda")
 
+    def spread_fb_plain(re, im, cu, whole):
+        if whole:
+            return cuda_fb.spread_fb_plain(re, im, cu, k.lower_matrix)
+        return torch.cat([cuda_fb.spread_fb_plain(
+            re[:, i:i + 1], im[:, i:i + 1], cu[:, i:i + 1], k.lower_matrix)
+            for i in range(re.shape[1])], 1)
+
     cases = []
     k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
     c1 = 24.0 + 230.0 / k.fc
-    for n in (1, POOL):
-        shapes = stream_shapes(n)
+    for chunk, n in ((STREAM_CHUNK, 1), (STREAM_CHUNK, POOL),
+                     (TOOL_CHUNK, 1), (TOOL_CHUNK, POOL)):
+        shapes = stream_shapes(n, chunk)
         label = f"stream N={n}"
         for site in ("basic", "advanced_fft", "fb_frames"):
             shape = shapes[site]
@@ -896,10 +936,14 @@ def stream_cases(dtype, pair10) -> list:
                               cuda_spread_fft.spread_fft_plain(p, *cp),
                               (p, c[0], c[1], c[3])))
         t_fb = shapes["dc"][-1]
-        x = batch_fb_pair(pair10, k, (*shapes["dc"][:-1], 2 * t_fb))
+        x = batch_fb_pair(pair10, k, (*shapes["dc"][:-1],
+                                      10 * C.SAMPLING_RATE))
+        x = x.repeat(1, 1, 1, -(-2 * t_fb // x.shape[-1]))[..., :2 * t_fb]
         first, second = (x[..., :t_fb].contiguous(),
                          x[..., t_fb:].contiguous())
+        del x
         hp1, st = cuda_dc.dc_chain_plain(first, k.level)
+        del first
         cases.append(Case("dc_chain", f"{label} {list(second.shape)} state",
                           lambda x=second, st=st:
                           dc_out(cuda_dc.dc_chain(x, k.level, st)),
@@ -910,9 +954,11 @@ def stream_cases(dtype, pair10) -> list:
         with api.full_precision_matmuls():
             re1, im1 = FB.filter_bank(k, hp1)
             re, im = FB.filter_bank(k, hp2, hp1[..., -FB.HIST_LEN:])
+        del hp1, hp2
         check(re.shape == shapes["fb_instants"], f"FB chunk {re.shape}")
         y0 = cuda_fb.slope_state_plain(re1, im1, c1,
                                        k.slope_a)[..., -1].contiguous()
+        del re1, im1
         cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a, y0)
         cases.append(Case("slope_state", f"{label} {list(re.shape)} y0",
                           lambda re=re, im=im, y0=y0:
@@ -924,9 +970,9 @@ def stream_cases(dtype, pair10) -> list:
         cases.append(Case("spread_fb", f"{label} {list(re.shape)}",
                           lambda re=re, im=im, cu=cu:
                           cuda_fb.spread_fb(re, im, cu, k.cl),
-                          lambda re=re, im=im, cu=cu:
-                          cuda_fb.spread_fb_plain(re, im, cu,
-                                                  k.lower_matrix),
+                          lambda re=re, im=im, cu=cu,
+                          whole=chunk == STREAM_CHUNK:
+                          spread_fb_plain(re, im, cu, whole),
                           (re, im, cu)))
     return cases
 
@@ -1375,12 +1421,14 @@ def site_cases(dtype) -> list:
     return cases
 
 
-def k1_library(a, b, label: str) -> float:
+def k1_library(a, b, label: str, calls: int = 2, rounds: int = 5,
+               warmup: int = 3, want=None) -> float:
     """K1's function (y0 = None) as one PyTorch call, timed as cuda_ms
-    does and held against the plain version: a grouped causal conv1d of
-    each row [1, rows, F] with the weight w[k] = a_z^(F - 1 - k) (powers in
-    float64, built before the timing), padding F - 1, one group a row,
-    TF32 off; y is its first F outputs.  Returns the call's ms."""
+    does (`calls`, `rounds`, `warmup`) and held against the plain version
+    (`want`, its output where already computed): a grouped causal conv1d
+    of each row [1, rows, F] with the weight w[k] = a_z^(F - 1 - k)
+    (powers in float64, built before the timing), padding F - 1, one group
+    a row, TF32 off; y is its first F outputs.  Returns the call's ms."""
     f = b.shape[-1]
     rows = b.numel() // f
     n = torch.arange(f - 1, -1, -1, dtype=torch.float64, device=b.device)
@@ -1393,9 +1441,10 @@ def k1_library(a, b, label: str) -> float:
                                           groups=rows)
 
     with api.full_precision_matmuls():
-        ms, _ = cuda_ms(call, calls=2, rounds=5)
+        ms, _ = cuda_ms(call, calls=calls, rounds=rounds, warmup=warmup)
         got = call()[..., :f].reshape(b.shape)
-    want = cuda_iir.recurrence_banded_plain(a, b)
+    if want is None:
+        want = cuda_iir.recurrence_banded_plain(a, b)
     err = ((got - want).abs().max() / want.abs().max()).item()
     print(f"  recurrence_banded {label} {b.dtype}: library call (grouped "
           f"causal conv1d) {ms:.4f} ms, max|d|/max|ref| {err:.3e} against "
@@ -1403,12 +1452,27 @@ def k1_library(a, b, label: str) -> float:
     return ms
 
 
+def once_ms(fn) -> tuple[object, float]:
+    """fn()'s result and its time in ms between CUDA events, one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def long_rows() -> dict:
     """K1 and K2 at LONG_ROW, the one-shot FB rows of a 10-minute program
-    (59 tiles a row), beside their bounds, in both dtypes, on inputs from a
-    generator of their own; K1 over the row equals K1 over its two halves
-    carried by y0 within BARS.  Returns ms, bound_ms and bound_by per
-    kernel and dtype."""
+    (59 tiles a row), beside their bounds, their plain versions (one call:
+    the plain frame loop launches its kernels for seconds) and K1's library
+    call (k1_library: one call after the host's round, which warms it),
+    held against the plain version's output, in both dtypes, on inputs
+    from a generator of their own; K1 over the row equals K1 over its two
+    halves carried by y0 within BARS.  Returns ms, plain_ms, bound_ms,
+    bound_by and library_ms (None for K2) per kernel and dtype."""
     lrng = np.random.default_rng(11)
     out = {"recurrence_banded": {}, "fused_mod_smoothers": {}}
     scale = C.SAMPLING_RATE / C.FB_FRAMESIZE
@@ -1430,20 +1494,29 @@ def long_rows() -> dict:
               f"{err:.3e}")
         check(err < BARS[dtype], f"K1 long row {dtype}: halves differ")
         del whole, first, halves
-        for name, fn, inputs in (
+        for name, fn, plain, inputs in (
                 ("recurrence_banded",
-                 lambda: cuda_iir.recurrence_banded(a, b), (a, b)),
+                 lambda: cuda_iir.recurrence_banded(a, b),
+                 lambda: cuda_iir.recurrence_banded_plain(a, b), (a, b)),
                 ("fused_mod_smoothers",
                  lambda: cuda_iir.fused_mod_smoothers(a, exc2, uns2, scale),
+                 lambda: cuda_iir.fused_mod_smoothers_plain(a, exc2, uns2,
+                                                            scale),
                  (a, exc2, uns2))):
             ms, _ = cuda_ms(fn, calls=5, rounds=5, cover_host=True)
+            want, plain_ms = once_ms(plain)
+            library_ms = (k1_library(a, b, f"{list(LONG_ROW)}", calls=1,
+                                     rounds=1, warmup=0, want=want)
+                          if name == "recurrence_banded" else None)
+            del want
             bound_ms, bound_by = bound(name, dtype, inputs, stacked(fn()))
-            out[name][dtype] = dict(ms=ms, bound_ms=bound_ms,
-                                    bound_by=bound_by)
+            out[name][dtype] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=library_ms)
             print(f"  {name} {list(LONG_ROW)} (a 10-minute program's "
                   f"one-shot FB rows) {dtype}: kernel {ms:.4f} ms, "
                   f"{bound_ms / ms:.1%} of its bound {bound_ms:.5f} ms "
-                  f"({bound_by})")
+                  f"({bound_by}), plain {plain_ms:.1f} ms (one call)")
     return out
 
 
@@ -1695,10 +1768,8 @@ def phase_batch(pairs, card: str) -> dict:
             else:
                 check(odg <= BATCH_TIER_BAR,
                       f"{mode} {tier} batch against per pair: {odg}")
-        q = [np.clip(np.round(x * 32768.0), -32768, 32767)
-             for x in (*refs[:4], *tests[:4])]
-        as_float = [np.float32(x / 32768.0) for x in q]
-        as_int16 = [x.astype(np.int16) for x in q]
+        as_int16 = [PB.to_pcm16(x) for x in (*refs[:4], *tests[:4])]
+        as_float = [np.float32(x / 32768.0) for x in as_int16]
         out_f = PB.peaq_batch(as_float[:4], as_float[4:], advanced=advanced)
         out_i = PB.peaq_batch(as_int16[:4], as_int16[4:], advanced=advanced)
         same = all(np.array_equal(out_i[k], out_f[k], equal_nan=True)
@@ -1833,15 +1904,17 @@ def stream_run(cls, tier: str, ref, test, checkpoint_dir=None) -> dict:
     return out
 
 
-def stream_launches(n_samples: int, advanced: bool) -> dict:
-    """Each kernel's launches over a stream of n_samples per signal: each
-    path runs ceil(frames / chunk frames) steps (the full chunks, then the
-    flush of the rest), each as STREAM_STEP_LAUNCHES counts."""
-    paths = {"basic": (C.FFT_FRAMESIZE, C.FFT_STEPSIZE, STREAM_CHUNK)}
+def stream_launches(n_samples: int, advanced: bool,
+                    chunk: int = STREAM_CHUNK) -> dict:
+    """Each kernel's launches over a stream (or a pool) of n_samples per
+    signal in chunks of `chunk` FFT frames: each path runs
+    ceil(frames / chunk frames) steps (the full chunks, then the flush of
+    the rest), each as STREAM_STEP_LAUNCHES counts."""
+    paths = {"basic": (C.FFT_FRAMESIZE, C.FFT_STEPSIZE, chunk)}
     if advanced:
         paths = {"advanced_fft": paths["basic"],
                  "advanced_fb": (C.FB_FRAMESIZE, C.FB_FRAMESIZE,
-                                 16 * STREAM_CHUNK)}
+                                 16 * chunk)}
     out = dict.fromkeys(KERNELS, 0)
     for path, (frame, hop, chunk) in paths.items():
         steps = -(-framing.num_frames(n_samples, n_samples, frame, hop)
@@ -2387,6 +2460,384 @@ def phase_shard(pairs, card: str) -> dict:
     return counts
 
 
+# phase 13: the tools (gstpeaq_tpu_torch/tools/) on the card.  The WAV
+# sweep's pairs (PCM16 at 48 kHz, float32 at 48 kHz, PCM16 at 44.1 kHz,
+# which the loader resamples), the demo sweep's pair count (the JAX
+# system's at-scale record, codec_sweep.py --demo 1000), the one-hour
+# stream's and the pools' minutes, and their bars: the TSV holds 4
+# decimals, so each value within SWEEP_BAR of per-pair peaq(); the float64
+# hour within phase 10's STREAM_BAR (ODG, DI, and MOV x (1 + |w|)) of one
+# shot, its peak memory flat within FLAT_BAR
+SWEEP_WAVS = ("pcm16",) * 12 + ("float32",) * 2 + ("pcm16 44.1",) * 2
+SWEEP_DEMO = 1000
+SWEEP_BAR = 1e-4
+LONG_MINUTES = 60
+POOL_MINUTES = 10
+FLAT_BAR = 0.05
+
+
+def write_pcm16(path: pathlib.Path, x: np.ndarray, rate: int) -> str:
+    """float [T, CH] in [-1, 1) as a 16-bit PCM WAV."""
+    pcm = PB.to_pcm16(x).astype("<i2")
+    block = 2 * x.shape[1]
+    fmt = struct.pack("<HHIIHH", 1, x.shape[1], rate, rate * block, block,
+                      16)
+    body = (b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data"
+            + struct.pack("<I", pcm.nbytes) + pcm.tobytes())
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+    return str(path)
+
+
+def tool_run(label: str, main, argv: list, expected: dict, card: str,
+             **kwargs) -> tuple[str, float]:
+    """main(argv, **kwargs) of a tool in-process on the card, the counts
+    set to 0 just before and read just after, and held to `expected`; its
+    stdout and stderr lines are printed.  Returns its stdout and wall
+    seconds."""
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    got = read_counts()
+    print(f"  {label} ({card}): {' '.join(argv)}: exit {rc}, {wall:.2f} s, "
+          f"launches {got}", flush=True)
+    for line in (err.getvalue() + out.getvalue()).splitlines():
+        print(f"    | {line}", flush=True)
+    check(rc == 0, f"{label}: exit {rc}")
+    check(got == expected, f"{label}: launches {got}, expected {expected}")
+    return out.getvalue(), wall
+
+
+def times(n: int, launches: dict) -> dict:
+    return {name: n * k for name, k in launches.items()}
+
+
+def tsv(path) -> list[tuple[str, float, float]]:
+    rows = pathlib.Path(path).read_text().splitlines()
+    check(rows[0] == "item\todg\tdi", f"TSV header {rows[0]!r}")
+    return [(name, float(odg), float(di)) for name, odg, di in
+            (row.split("\t") for row in rows[1:])]
+
+
+def sweep_deviation(rows, refs, tests, advanced: bool) -> tuple[float, float]:
+    """The worst |dODG| and |dDI| of TSV rows against per-pair float64
+    peaq() of the same pairs (int16 PCM dequantized as the card does)."""
+    def dev(g, w):
+        if np.isnan(g) or np.isnan(w):
+            return 0.0 if np.isnan(g) and np.isnan(w) else math.inf
+        return abs(g - w)
+
+    worst = [0.0, 0.0]
+    for (_, odg, di), r, t in zip(rows, refs, tests):
+        want = api.peaq(PS._dequant_host(r), PS._dequant_host(t),
+                        advanced=advanced, dtype="float64")
+        worst[0] = max(worst[0], dev(odg, want.odg))
+        worst[1] = max(worst[1], dev(di, want.di))
+    return worst[0], worst[1]
+
+
+def sweep_wavs(tmp: pathlib.Path, card: str, counts: dict) -> None:
+    """(a) codec_sweep over a manifest of len(SWEEP_WAVS) 10 s stereo pairs
+    of drift corpus v2 written as WAVs, per mode, with and without
+    --pcm16: each TSV value within SWEEP_BAR of per-pair peaq() on the
+    pair as the tool loaded it."""
+    refs, tests = corpus_v2()
+    lines = []
+    for i, kind in enumerate(SWEEP_WAVS):
+        paths = []
+        for sig, x in (("ref", refs[i]), ("test", tests[i])):
+            path = tmp / f"{sig}{i}.wav"
+            if kind == "float32":
+                wavio.write_wav(str(path), x)
+            elif kind == "pcm16":
+                write_pcm16(path, x, C.SAMPLING_RATE)
+            else:
+                write_pcm16(path, x[:441000], 44100)
+            paths.append(str(path))
+        lines.append("\t".join(paths))
+    manifest = tmp / "manifest.tsv"
+    manifest.write_text("# drift corpus v2 as WAVs\n" + "\n".join(lines)
+                        + "\n")
+    pairs = CS.load_manifest(str(manifest))
+    for mode in MODES:
+        advanced = mode == "advanced"
+        for pcm16 in (False, True):
+            label = f"codec_sweep {mode} WAVs" + " --pcm16" * pcm16
+            out = tmp / "out.tsv"
+            argv = ([str(manifest), "--out", str(out)]
+                    + ["--advanced"] * advanced + ["--pcm16"] * pcm16)
+            tool_run(label, CS.main, argv, PATH_LAUNCHES[mode], card)
+            load = (native.load_audio_48k_ship if pcm16
+                    else native.load_audio_48k)
+            loaded = [[load(p) for p in pair] for pair in pairs]
+            if pcm16:
+                loaded = [[PB.to_pcm16(x) for x in pair] for pair in loaded]
+            rows = tsv(out)
+            check([r[0] for r in rows] == [t for _, t in pairs],
+                  f"{label}: items {[r[0] for r in rows]}")
+            d_odg, d_di = sweep_deviation(rows, *zip(*loaded), advanced)
+            print(f"  {label} ({card}): {len(rows)} pairs against per-pair "
+                  f"float64 peaq() of the pairs as loaded: |dODG| "
+                  f"{d_odg:.2e}, |dDI| {d_di:.2e}", flush=True)
+            check(d_odg <= SWEEP_BAR and d_di <= SWEEP_BAR,
+                  f"{label}: {d_odg}, {d_di} against peaq()")
+            counts[f"tools_sweep_wav_{mode}" + "_pcm16" * pcm16] = \
+                PATH_LAUNCHES[mode]
+
+
+def sweep_demo(tmp: pathlib.Path, card: str, counts: dict) -> None:
+    """(b) codec_sweep --demo SWEEP_DEMO --pcm16 per mode (basic in
+    microbatches of 64, advanced of the tool's 32), the pairs made once for
+    both: the tool's lines, peak device memory, and the first 4 items
+    within SWEEP_BAR of per-pair peaq()."""
+    made = functools.cache(make_pairs)
+    saved = CS.make_pairs
+    CS.make_pairs = made
+    try:
+        for mode, mb in (("basic", 64), ("advanced", 32)):
+            advanced = mode == "advanced"
+            out = tmp / "demo.tsv"
+            argv = ["--demo", str(SWEEP_DEMO), "--pcm16", "--out", str(out)]
+            argv += ["--advanced"] if advanced else ["--microbatch", str(mb)]
+            torch.cuda.reset_peak_memory_stats()
+            tool_run(f"codec_sweep {mode} demo", CS.main, argv,
+                     times(-(-SWEEP_DEMO // mb), PATH_LAUNCHES[mode]), card)
+            peak = torch.cuda.max_memory_allocated()
+            rows = tsv(out)
+            refs, tests = made(SWEEP_DEMO, 10.0)
+            check(len(rows) == SWEEP_DEMO
+                  and all(np.isfinite([o, d]).all() for _, o, d in rows),
+                  f"codec_sweep {mode} demo: {len(rows)} rows")
+            d_odg, d_di = sweep_deviation(
+                rows[:4], [PB.to_pcm16(r) for r in refs[:4]],
+                [PB.to_pcm16(t) for t in tests[:4]], advanced)
+            print(f"  codec_sweep {mode} demo ({card}): peak device memory "
+                  f"{peak / 2**30:.2f} GiB; first 4 items against per-pair "
+                  f"float64 peaq(): |dODG| {d_odg:.2e}, |dDI| {d_di:.2e}",
+                  flush=True)
+            check(d_odg <= SWEEP_BAR and d_di <= SWEEP_BAR,
+                  f"codec_sweep {mode} demo: {d_odg}, {d_di}")
+            counts[f"tools_sweep_demo_{mode}"] = times(
+                -(-SWEEP_DEMO // mb), PATH_LAUNCHES[mode])
+    finally:
+        CS.make_pairs = saved
+
+
+def hour_stream(advanced: bool, minutes: int, card: str) -> tuple[
+        object, dict]:
+    """longform_bench --minutes `minutes` (one stream, the tool's chunk) in
+    float64, through tool_run: its final result, wall seconds, and the
+    peak device memory over the first minute, the first two, and each of
+    the last two minutes.  The first FB step of the tool's chunk (16,384
+    FB frames, 65.5 s) ends in minute 2, so the first two minutes and the
+    last two each hold FB steps."""
+    sr = C.SAMPLING_RATE
+    total = minutes * 60 * sr
+    peaks = {}
+    seen = {}
+
+    def observe(done, stream):
+        seen["stream"] = stream
+        if done in (sr * 60, sr * 120, total - 120 * sr, total - 60 * sr,
+                    total):
+            torch.cuda.synchronize()
+            peaks[done] = torch.cuda.max_memory_allocated()
+            if done in (total - 120 * sr, total - 60 * sr):
+                torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, wall = tool_run(f"longform_bench {'advanced' if advanced else 'basic'}"
+                       f" {minutes} minutes", LB.main,
+                       ["--minutes", str(minutes)] + ["--advanced"] * advanced,
+                       stream_launches(total, advanced, TOOL_CHUNK), card,
+                       observe=observe)
+    return seen.pop("stream").current(), dict(
+        wall=wall, minute_1=peaks[sr * 60], minutes_1_2=peaks[sr * 120],
+        minute_59=peaks[total - 60 * sr], minute_60=peaks[total])
+
+
+def long_stream(card: str, counts: dict) -> None:
+    """(c) longform_bench --minutes LONG_MINUTES, one stream, the tool's
+    chunk, float64, per mode: the launches (steps x phase 6's counts), the
+    rate, peak memory at minute 60 within FLAT_BAR of minute 1 (and the
+    last two minutes of the first two), then the stream freed and the
+    final result against one-shot peaq() of the same program (the tool's
+    feeds joined) within STREAM_BAR, over the longest program of 60, 30
+    or 15 minutes whose one shot fits on the card."""
+    sr = C.SAMPLING_RATE
+    for mode in MODES:
+        advanced = mode == "advanced"
+        got, run = hour_stream(advanced, LONG_MINUTES, card)
+        total = LONG_MINUTES * 60 * sr
+        flat = abs(run["minute_60"] - run["minute_1"]) / max(
+            run["minute_60"], run["minute_1"])
+        last2 = max(run["minute_59"], run["minute_60"])
+        flat2 = abs(last2 - run["minutes_1_2"]) / max(last2,
+                                                      run["minutes_1_2"])
+        print(f"  longform_bench {mode} --minutes {LONG_MINUTES} ({card}): "
+              f"{total / sr / run['wall']:.1f} audio-s/s; peak memory "
+              f"minute 1 {run['minute_1'] / 2**20:.1f} MiB, minute 60 "
+              f"{run['minute_60'] / 2**20:.1f} MiB ({flat:.2%} apart), "
+              f"minutes 1-2 {run['minutes_1_2'] / 2**20:.1f} MiB, minutes "
+              f"59-60 {last2 / 2**20:.1f} MiB ({flat2:.2%} apart)",
+              flush=True)
+        check(flat <= FLAT_BAR and flat2 <= FLAT_BAR,
+              f"longform_bench {mode}: memory grows {run}")
+        counts[f"tools_longform_{mode}"] = stream_launches(total, advanced,
+                                                           TOOL_CHUNK)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = np.empty((total, 2), np.float32)
+        test = np.empty((total, 2), np.float32)
+        at = 0
+        for r, t in LB.feeds(*LB.base_program(), total):
+            ref[at:at + len(r)], test[at:at + len(t)] = r, t
+            at += len(r)
+        for minutes in (LONG_MINUTES, LONG_MINUTES // 2, LONG_MINUTES // 4):
+            n = minutes * 60 * sr
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            try:
+                want = api.peaq(ref[:n], test[:n], advanced=advanced,
+                                dtype="float64")
+                break
+            except torch.cuda.OutOfMemoryError:
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"  one-shot peaq() over {minutes} minutes does not "
+                      f"fit on the card", flush=True)
+        else:
+            check(False, f"{mode}: no one shot fits")
+        one_wall = time.perf_counter() - start
+        one_peak = torch.cuda.max_memory_allocated()
+        del ref, test
+        if minutes != LONG_MINUTES:
+            got, _ = hour_stream(advanced, minutes, card)
+        d_odg, d_di, d_mov = stream_deviation(got, want)
+        print(f"  longform_bench {mode} against one-shot float64 peaq() "
+              f"over the same {minutes}-minute program ({card}): ODG "
+              f"{got.odg:.9f}, one-shot {want.odg:.9f}; |dODG| {d_odg:.3e}, "
+              f"|dDI| {d_di:.3e}, MOVs |d|/(1 + |w|) {d_mov:.3e}; one-shot "
+              f"{one_wall:.2f} s, peak {one_peak / 2**30:.2f} GiB",
+              flush=True)
+        check(np.isfinite(got.odg) and d_odg <= STREAM_BAR
+              and d_di <= STREAM_BAR and d_mov <= STREAM_BAR,
+              f"longform_bench {mode} against one shot: {d_odg}, {d_di}, "
+              f"{d_mov}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def device_source_launches(n_samples: int, advanced: bool) -> dict:
+    """longform_bench --device-source's launches: one warm round, then
+    rounds until n_samples are covered, each one basic step, or three FFT
+    steps and one FB step (STREAM_STEP_LAUNCHES)."""
+    stride = TOOL_CHUNK * C.FFT_STEPSIZE * (3 if advanced else 1)
+    rounds = 1 + -(-n_samples // stride)
+    steps = ({"advanced_fft": 3, "advanced_fb": 1} if advanced
+             else {"basic": 1})
+    return {name: rounds * sum(k * STREAM_STEP_LAUNCHES[path][name]
+                               for path, k in steps.items())
+            for name in KERNELS}
+
+
+def pools(card: str, counts: dict) -> None:
+    """(d) longform_bench --streams POOL --minutes POOL_MINUTES per mode,
+    fed as the tool feeds (every stream's ODG finite), then with
+    --device-source; the rates are the tool's lines.  First the host's
+    time to make the pool's feeds alone (LB.feeds, no stream): the part
+    of a fed pool's wall that is not the stream's."""
+    total = POOL_MINUTES * 60 * C.SAMPLING_RATE
+    start = time.perf_counter()
+    for _ in LB.feeds(*LB.base_program(), total, POOL):
+        pass
+    print(f"  longform_bench's feeds of {POOL} streams x {POOL_MINUTES} "
+          f"minutes alone, made on the host: "
+          f"{time.perf_counter() - start:.2f} s", flush=True)
+    for mode in MODES:
+        advanced = mode == "advanced"
+        argv = (["--streams", str(POOL), "--minutes", str(POOL_MINUTES)]
+                + ["--advanced"] * advanced)
+        seen = {}
+        torch.cuda.reset_peak_memory_stats()
+        tool_run(f"longform_bench {mode} pool", LB.main, argv,
+                 stream_launches(total, advanced, TOOL_CHUNK), card,
+                 observe=lambda done, pool: seen.update(pool=pool))
+        odg = seen.pop("pool").current().odg
+        print(f"  longform_bench {mode} pool ({card}): peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, ODG "
+              f"{odg.min():.6f}..{odg.max():.6f}", flush=True)
+        check(np.isfinite(odg).all() and odg.shape == (POOL,),
+              f"longform_bench {mode} pool: ODG {odg}")
+        counts[f"tools_pool_{mode}"] = stream_launches(total, advanced,
+                                                       TOOL_CHUNK)
+        expected = device_source_launches(total, advanced)
+        tool_run(f"longform_bench {mode} device-source", LB.main,
+                 ["--device-source"] + argv, expected, card)
+        counts[f"tools_device_source_{mode}"] = expected
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def settings_sweep(tmp: pathlib.Path, card: str, counts: dict) -> None:
+    """(e) optimize_settings, basic, over a synthetic two-item dataset
+    (fake_conformance_items): its 32 RMSE lines and the best."""
+    items = ["acodsna", "bcodtri"]
+    data = tmp / "conformance"
+    data.mkdir()
+    fake_conformance_items(data, items)
+    table = conformance.CONFORMANCE_BASIC
+    saved = os.environ.get("CONFORMANCEDATADIR")
+    conformance.CONFORMANCE_BASIC = {k: table[k] for k in items}
+    os.environ["CONFORMANCEDATADIR"] = str(data)
+    expected = times(2 ** len(OS.FLAGS) * len(items),
+                     PATH_LAUNCHES["basic"])
+    try:
+        out, _ = tool_run("optimize_settings", OS.main, [], expected, card)
+    finally:
+        conformance.CONFORMANCE_BASIC = table
+        if saved is None:
+            del os.environ["CONFORMANCEDATADIR"]
+        else:
+            os.environ["CONFORMANCEDATADIR"] = saved
+    lines = out.splitlines()
+    rmse = [line for line in lines
+            if re.fullmatch(r"[01]+  RMSE \d+\.\d{4}", line)]
+    check(len(rmse) == 2 ** len(OS.FLAGS) and lines[-1].startswith("best: {"),
+          f"optimize_settings: {lines}")
+    counts["tools_optimize_settings"] = expected
+
+
+def phase_tools(card: str) -> dict:
+    """The tools on the card, each through its main() in-process with the
+    counts set to 0 just before and read just after, float64, with no
+    GSTPEAQ_PLATFORM (so on CUDA): (a) sweep_wavs, (b) sweep_demo, (c)
+    long_stream, (d) pools, (e) settings_sweep.  Returns each run's
+    launches per kernel."""
+    print("phase 13 tools", flush=True)
+    counts = {}
+    saved = os.environ.pop("GSTPEAQ_PLATFORM", None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            sweep_wavs(tmp, card, counts)
+            sweep_demo(tmp, card, counts)
+            long_stream(card, counts)
+            pools(card, counts)
+            settings_sweep(tmp, card, counts)
+    finally:
+        if saved is not None:
+            os.environ["GSTPEAQ_PLATFORM"] = saved
+    return {name: {run: got[name] for run, got in counts.items()}
+            for name in KERNELS}
+
+
 def timed(phase, *args):
     """Run one phase and print its seconds."""
     start = time.perf_counter()
@@ -2425,6 +2876,8 @@ def main() -> None:
     for mode, got in timed(phase_shard, pairs, card).items():
         for name, n in got.items():
             counts[name][f"sharded_{mode}"] = n
+    for name, runs in timed(phase_tools, card).items():
+        counts[name].update(runs)
     check(not any(m == "jax" or m.split(".")[0] == "gstpeaq_tpu"
                   for m in sys.modules),
           "JAX or the JAX package was imported")
@@ -2467,6 +2920,7 @@ def main() -> None:
             stream_steps={path: launches[name]
                           for path, launches in STREAM_STEP_LAUNCHES.items()},
             chunk_shapes=chunk_shapes(name),
+            tool_chunk_shapes=chunk_shapes(name, TOOL_CHUNK),
             **({"long_row": dict(
                 shape=LONG_ROW, **long[name][torch.float32],
                 **{f"{key}_f64": v for key, v in

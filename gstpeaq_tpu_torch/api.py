@@ -12,6 +12,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import os
+import sys
 
 import numpy as np
 import torch
@@ -76,6 +78,18 @@ def resolve_device(device) -> torch.device:
                                "run the port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def platform_device(prog: str):
+    """CUDA unless GSTPEAQ_PLATFORM names another device (the tests pin the
+    CPU with GSTPEAQ_PLATFORM=cpu); None, after a message on stderr, when
+    CUDA is absent and no device is named: there is no fallback."""
+    try:
+        return resolve_device(os.environ.get("GSTPEAQ_PLATFORM") or None)
+    except RuntimeError:
+        print(f"{prog}: CUDA is not available; set GSTPEAQ_PLATFORM=cpu to "
+              "run on the CPU", file=sys.stderr)
+        return None
 
 
 @functools.lru_cache(maxsize=8)

@@ -16,7 +16,6 @@ mismatch, no CUDA), 2 (an unreadable file).
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 from . import __version__
@@ -75,14 +74,8 @@ def main(argv=None) -> int:
     if args.advanced and args.basic:
         print("cannot select both --basic and --advanced", file=sys.stderr)
         return 1
-    # CUDA unless GSTPEAQ_PLATFORM names another device (the tests pin the
-    # CPU with GSTPEAQ_PLATFORM=cpu)
-    try:
-        device = api.resolve_device(os.environ.get("GSTPEAQ_PLATFORM")
-                                    or None)
-    except RuntimeError:
-        print("peaq: CUDA is not available; set GSTPEAQ_PLATFORM=cpu to run "
-              "on the CPU", file=sys.stderr)
+    device = api.platform_device("peaq")
+    if device is None:
         return 1
 
     # native C loader when built (make -C native), wavio fallback otherwise

@@ -108,7 +108,8 @@ def level_adapt(a: torch.Tensor, avg_matrix: torch.Tensor,
     excitation: [..., Z, F]; state: the six per-band states (ref_filt,
     test_filt, filt_num, filt_den, pattcorr_ref, pattcorr_test), each
     [..., Z], or None for a fresh state.  Returns (adapted_ref,
-    adapted_test, new_state)."""
+    adapted_test, new_state), the new state's leaves copies that keep no
+    chunk alive."""
     filt = iir.linear_recurrence_banded(
         a, (1.0 - a[:, None]) * torch.stack([ref_excitation,
                                              test_excitation]),
@@ -118,7 +119,8 @@ def level_adapt(a: torch.Tensor, avg_matrix: torch.Tensor,
         a, avg_matrix, ref_excitation, test_excitation, ref_filt, test_filt,
         None if state is None else state[2:])
     return (adapted_ref, adapted_test,
-            (ref_filt[..., -1], test_filt[..., -1]) + state2)
+            tuple(x.clone() for x in (ref_filt[..., -1], test_filt[..., -1])
+                  + state2))
 
 
 def level_adapt_fused_mod(a: torch.Tensor, avg_matrix: torch.Tensor,

@@ -176,7 +176,8 @@ def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor, axis: int = 0,
 
     state: the filtered excitation before the first frame (unsmeared's
     shape without `axis`), None for zeros; with return_state, also returns
-    the filtered excitation at the last frame, the next chunk's state."""
+    the filtered excitation at the last frame, the next chunk's state (a
+    copy: a view would keep the whole chunk alive)."""
     transposed = axis in (-1, unsmeared.dim() - 1)
     one_minus_a = 1.0 - k.ear_a
     drive = (one_minus_a[:, None] if transposed else one_minus_a) * unsmeared
@@ -185,7 +186,7 @@ def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor, axis: int = 0,
         y0=None if state is None else state.to(drive.dtype))
     out = torch.maximum(filtered, unsmeared)
     if return_state:
-        return out, torch.select(filtered, axis, -1)
+        return out, torch.select(filtered, axis, -1).clone()
     return out
 
 

@@ -62,6 +62,16 @@ def as_2d_ship(x):
     return api._as_2d_f32(x)
 
 
+def to_pcm16(x: np.ndarray) -> np.ndarray:
+    """int16 PCM of a float source in [-1, 1) (x * 32768, rounded and
+    clipped), the ship form of a sweep or a stream fed `--pcm16`; int16
+    sources pass through untouched."""
+    if x.dtype == np.int16:
+        return x
+    return np.clip(np.round(np.asarray(x, np.float64) * 32768.0),
+                   -32768, 32767).astype(np.int16)
+
+
 def _ship_dtype(refs, tests):
     """int16 when EVERY source is int16, else float32."""
     if all(s.dtype == np.int16 for s in refs) and \

@@ -32,6 +32,7 @@ K2, whose kernel takes no state), as the JAX streams do.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -233,8 +234,10 @@ def _stacked(pair):
 
 
 def _split(tree):
-    """A tree of stacked leaves [2, ...] -> its two trees."""
-    return tuple(tree_map(lambda x, i=i: x[i], tree) for i in range(2))
+    """A tree of stacked leaves [2, ...] -> its two trees, each leaf a copy
+    that owns its storage."""
+    return tuple(tree_map(lambda x, i=i: x[i].clone(), tree)
+                 for i in range(2))
 
 
 def _modulation_pair(a, uns2, step_size: int, state):
@@ -370,10 +373,10 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
         "la": la,
         "mod": mod,
         "sums": sums,
-        "mfpd_filt": filt[..., -1],
-        "mfpd_max_all": runmax[..., -1],
+        "mfpd_filt": filt[..., -1].clone(),
+        "mfpd_max_all": runmax[..., -1].clone(),
         "mfpd_max_committed": mfpd_committed,
-        "win_sqrts": ext[..., -3:],
+        "win_sqrts": ext[..., -3:].clone(),
         # int32 + the int64 count, as the JAX step's int32 + jnp.sum with
         # 64-bit types on (its float64 tier)
         "win_calls": state["win_calls"] + calls[:, -1],
@@ -562,6 +565,24 @@ class _Path:
     hop: int
 
 
+@dataclasses.dataclass(frozen=True)
+class ChunkStep:
+    """One path's chunk step on one part of a pool, to be driven on chunks
+    already on the device: run(state, ref, test) returns the new state, on
+    ref/test [streams, CH, need] on `device`; each step advances the path
+    by `take` samples."""
+    run: object
+    need: int
+    take: int
+    streams: int
+    device: torch.device
+
+
+def _run_step(step, pipe, state, ref, test):
+    with api.full_precision_matmuls(), torch.inference_mode():
+        return step(pipe, state, ref, test)
+
+
 class _Streams:
     """N streams advanced in lockstep on one device, the engine of the
     three public classes.  The state (leaves [N, ...]) stays on the device;
@@ -614,9 +635,8 @@ class _Streams:
             return torch.from_numpy(
                 np.ascontiguousarray(np.swapaxes(x, 1, 2))).to(self._device)
 
-        with api.full_precision_matmuls(), torch.inference_mode():
-            self._state = path.step(self._pipe, self._state, ship(ref),
-                                    ship(test))
+        self._state = _run_step(path.step, self._pipe, self._state,
+                                ship(ref), ship(test))
 
     def _feed3(self, ref: np.ndarray, test: np.ndarray) -> None:
         """Append [N, T, CH] samples of each signal and run every chunk
@@ -790,6 +810,20 @@ class PeaqStreamPool:
             part._state = tree_unflatten(part._state, [
                 leaf[i * self._per:(i + 1) * self._per].to(place.device)
                 for leaf, place in zip(leaves, tree_flatten(part._state))])
+
+    def chunk_steps(self) -> tuple[list[list[ChunkStep]], list]:
+        """(steps, states) for driving the pool's chunk steps directly on
+        chunks staged on the device, with the host's transfers off the
+        clock (tools/longform_bench.py --device-source): steps[path][part]
+        per path (the FFT path, then the advanced version's FB path) and
+        part (in stream order), and each part's current state.  The pool
+        itself does not advance."""
+        steps = [[ChunkStep(functools.partial(_run_step, path.step,
+                                              part._pipe),
+                            path.need, path.take, self._per, part._device)
+                  for part in self._parts]
+                 for path in self._parts[0]._paths]
+        return steps, [part._state for part in self._parts]
 
     def _as3(self, x) -> np.ndarray:
         x = np.asarray(x)

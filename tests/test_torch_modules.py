@@ -361,6 +361,10 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "import gstpeaq_tpu_torch.tools.bench\n"
+        "import gstpeaq_tpu_torch.tools.codec_sweep\n"
+        "import gstpeaq_tpu_torch.tools.longform_bench\n"
+        "import gstpeaq_tpu_torch.tools.optimize_settings\n"
+        "import gstpeaq_tpu_torch.tools.stream_step_ab\n"
         "assert P.PeaqStream is P.parallel.stream.PeaqStream\n"
         "assert len(names) >= 29, names\n"
         "for n in ('models.advanced', 'ops.fb_ear', 'ops.cuda_fb',\n"
