@@ -6,7 +6,7 @@ and check it.  Run from the repository root:
 
 Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
-  2 build     nvcc builds the kernels K1-K3 and D1-D3 from
+  2 build     nvcc builds the kernels K1-K3, D1-D3 and F1 from
               gstpeaq_tpu_torch/csrc, one process per source, and ptxas
               reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
@@ -15,16 +15,21 @@ Phases, each on its own lines and ending with its seconds:
               with and without y0 and on an all-zero row, K2 with uns
               jumping at every run edge; D1 and D3: their tile edges; K3:
               band counts 1..128; D2: I = 1, 37, 10, 70,000 leads, counts
-              off its tiles, rows off their 16-byte boundary) and at the
+              off its tiles, rows off their 16-byte boundary; F1, the FB
+              ear's FIR bank, against its plain version, the cuDNN conv1d:
+              one instant, one row, instant counts off its tiles, a
+              history of nonzeros, and the one-hour one shot [4,
+              172,800,000] on three 10 s windows) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
               pool's 16) with their carried states (K1 and D1 with y0, D3 with
               its state, D1 and D2 on a second FB chunk of the pair's own
-              rows), in float32 and float64, the float32 DC cascade's own
-              rounding against float64, and two launches of every kernel
-              bit for bit, at batch and chunk shapes too
+              rows; F1 with the first chunk as history), in float32 and
+              float64, the float32 DC cascade's own rounding against
+              float64, and two launches of every kernel bit for bit, at
+              batch and chunk shapes too (F1 at each of its cases)
   4 float64   the basic path: the pinned ODGs 0.171 / -2.007 / -2.007
               (stereo upmix), and a 10 s stereo pair against the NumPy
               spec's float64 results, frozen with the pair's fingerprint in
@@ -42,7 +47,9 @@ Phases, each on its own lines and ending with its seconds:
               within 1e-5, a bar that float32 (the control) must miss
   6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
               each with the counts set to 0 just before it: the advanced
-              call goes through all six kernels; then one peaq_batch()
+              call goes through all seven kernels and no conv1d (every
+              counted run of phases 6 and 10-13 is held to none); then
+              one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
               launches each kernel as often as one peaq() does, and one
               chunk step of each stream path (basic, advanced FFT,
@@ -51,9 +58,11 @@ Phases, each on its own lines and ending with its seconds:
               float32 and float64, each kernel's share of its bound (also
               at the advanced path's other call-site shapes and at the
               batch shapes), K1's library call (a grouped causal conv1d)
-              at each K1 call site, the FB ear's FIR bank with a bound of
-              its own (per pair and at the batch shape), each kernel at
-              the streams' chunk shapes, K1 and K2 on a 10-minute
+              at each K1 call site, F1 with a bound of its own (the taps
+              inside each channel's nonzero window; the uniform conv's
+              beside it) and its plain version, the cuDNN conv1d, as its
+              library call too, also at the hour's one shot, each kernel
+              at the streams' chunk shapes, K1 and K2 on a 10-minute
               program's one-shot FB rows [2, 1, 2, 40, 150000] with their
               plain versions and K1's library call, and peaq() wall time
               per 10 s stereo pair per mode and tier
@@ -67,8 +76,8 @@ Phases, each on its own lines and ending with its seconds:
               advanced of 32) per mode and tier: audio-seconds per second
               (gstpeaq_tpu_torch/tools/bench.py), the phases' wall times,
               peak device memory, and from the profiler over one batch the
-              device's busy share and the shares of the FIR bank, the
-              hand kernels and the copies to the card
+              device's busy share and the shares of the FIR bank (F1),
+              the other hand kernels and the copies to the card
   10 streams  parallel/stream.py on a 10-minute stereo program (drift
               corpus v2's 20 items at 30 s, end to end) fed in 1 s pieces
               at chunk_frames 64: PeaqStream and PeaqStreamAdvanced per
@@ -124,10 +133,12 @@ times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
 `bound_by` and `library_ms` in float32 and the same with `_f64` in float64;
 `bound_ms` is the larger of the bytes the kernel's function must move
 (each input read once, each output written once) over 3.35 TB/s and its
-operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64), counted from
-this run's main-shape inputs; `library_ms` is K1's grouped causal conv1d
-at its main shape, and null for the other kernels, since no single PyTorch
-call computes their functions; `launches_by_path` holds phase 6's
+operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64; F1 67 on
+the FP64 tensor cores), counted from this run's main-shape inputs;
+`library_ms` is K1's grouped causal conv1d at its main shape and F1's
+cuDNN conv1d (its plain version), and null for the other kernels, since
+no single PyTorch call computes their functions; `launches_by_path` holds
+phase 6's
 float32 count per path (basic, advanced, and one microbatch of 32 of
 each batch path; 0 where a path does not launch the kernel), `launches`
 their sum; `batch` lists the kernel's batch shapes, each with its
@@ -143,7 +154,10 @@ path (phase 6), `chunk_shapes` those steps' shapes of its calls and
 (`sharded_basic`, `sharded_advanced`) and phase 13's tool runs
 (`tools_...`), and K1 and K2 carry `long_row`, phase 7's reading at
 [2, 1, 2, 40, 150000] (`ms`, `plain_ms`, `bound_ms`, `bound_by`,
-`library_ms`, K1's conv1d there, and the same with `_f64`).  The line
+`library_ms`, K1's conv1d there, and the same with `_f64`); F1 carries
+`hour`, the same at the one-hour one shot (the uniform conv's bound, the
+one this script gave the FIR bank before F1, is printed in phase 7's lines
+only).  The line
 before the last is the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  Any failed check exits non-zero without
 that last line.  Without CUDA the script exits non-zero at once and prints
@@ -182,6 +196,7 @@ from gstpeaq_tpu_torch import earparams as EP
 from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
+from gstpeaq_tpu_torch.ops import cuda_fir
 from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
@@ -236,6 +251,11 @@ KERNELS = {
     "dc_chain": dict(
         route="cuda", source="gstpeaq_tpu_torch/csrc/dc_chain.cu",
         replaces="gstpeaq_tpu/ops/pallas_dc.py:237"),
+    # not a TPU kernel: it replaces the port's cuDNN conv1d, standing for
+    # the XLA convs of the JAX package's FIR bank (no pallas_call)
+    "fir_bank": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/fir_bank.cu",
+        replaces="gstpeaq_tpu/ops/fb_ear.py:426"),
 }
 COUNTERS = {
     "recurrence_banded": (cuda_iir, "recurrence_banded_launches"),
@@ -244,6 +264,7 @@ COUNTERS = {
     "slope_state": (cuda_fb, "slope_state_launches"),
     "spread_fb": (cuda_fb, "spread_fb_launches"),
     "dc_chain": (cuda_dc, "dc_chain_launches"),
+    "fir_bank": (cuda_fir, "fir_bank_launches"),
 }
 # max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
 # carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
@@ -260,10 +281,12 @@ DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
 # tensor cores at its full 700 W (NVIDIA's data sheet)
 MEMORY_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
-# the FIR bank's operations can run on the tensor cores in double (FP64
-# tensor cores: 67 TFLOP/s on an H100 SXM); float32 runs outside them, TF32
-# being off
+# F1's operations run on the tensor cores in double (FP64 tensor cores: 67
+# TFLOP/s on an H100 SXM); float32 runs outside them, TF32 being off
 FIR_PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 67e12}
+# the FB ear's one-shot rows of the one-hour program (phase 13's one shot),
+# [rows, T]: F1's largest shape, whose outputs pass 2^31 bytes
+HOUR_ROWS = (4, 60 * 60 * C.SAMPLING_RATE)
 # peaq_batch() against per-pair peaq() on the card (phase 9): float64
 # within 1e-9 in ODG and 1e-9 (1 + |w|) per MOV; float32 and accurate
 # within 1e-4 ODG of the same tier's per-pair result
@@ -288,19 +311,27 @@ TOOL_CHUNK = 1024
 # code: basic, K1 for the time smear, the level adapter's three stacked
 # pairs and the modulation of both signals, K3 once on both signals;
 # advanced FFT, K1 for the time smear of both signals and K3; advanced FB,
-# D3, D1 and D2 once on both signals, K1 for the forward masking, the
+# D3, F1, D1 and D2 once on both signals, K1 for the forward masking, the
 # level adapter's three and the modulation; K2 never (its kernel takes no
 # state)
 STREAM_STEP_LAUNCHES = {
     "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-              "dc_chain": 0},
+              "dc_chain": 0, "fir_bank": 0},
     "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-                     "dc_chain": 0},
+                     "dc_chain": 0, "fir_bank": 0},
     "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
                     "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
-                    "dc_chain": 1}}
+                    "dc_chain": 1, "fir_bank": 1}}
+# each mode's launches in one peaq() (phase 6; the CLI runs one)
+PATH_LAUNCHES = {
+    "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
+              "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
+              "dc_chain": 0, "fir_bank": 0},
+    "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
+                 "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
+                 "dc_chain": 1, "fir_bank": 1}}
 # phase 10's bars: a float64 stream against the one-shot peaq() of the same
 # program, and the float32 / accurate streams against their own one-shot
 # (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
@@ -348,7 +379,10 @@ def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
     function on `inputs` giving `output`, and what sets it: the bytes
     (each input read once, each output written once) over the memory rate,
     or the operations (ops_of) over the peak rate of `dtype`.  D2 reads cu
-    of every band but the top one, from which no source walks."""
+    of every band but the top one, from which no source walks.  F1's is
+    fir_bound's."""
+    if name == "fir_bank":
+        return fir_bound(dtype, inputs, output)[:2]
     if name == "spread_fb":
         inputs = (*inputs[:2], inputs[2][..., :-1, :])
     moved = sum(t.numel() * t.element_size() for t in (*inputs, output))
@@ -358,20 +392,30 @@ def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
                                                            "operations")
 
 
-def fir_bound(dtype, hp2, out) -> tuple[float, str]:
-    """The FIR bank's bound in ms, as bound() gives a kernel's: its bytes
-    (hp2 and the weight read once, re and im written once) over the memory
-    rate, or its operations over FIR_PEAK_OPS_PER_S: a multiply-add (2) per
-    band (40 complex = 80 real outputs) and tap (1,456 lags) an instant."""
-    weight = 2 * C.FB_BAND_COUNT * FB.SUB * FB.FIR_BLOCKS
-    moved = (hp2.numel() + weight + sum(o.numel() for o in out)) \
-        * hp2.element_size()
-    by_bytes = moved / MEMORY_BYTES_PER_S * 1e3
-    instants = out[0].numel() // C.FB_BAND_COUNT        # over every row
-    ops = 2 * (2 * C.FB_BAND_COUNT) * FB.TAPS * instants
-    by_ops = ops / FIR_PEAK_OPS_PER_S[dtype] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
+def fir_bound(dtype, inputs, out) -> tuple[float, str, float]:
+    """F1's bound in ms, as bound() gives a kernel's: its bytes (hp2, its
+    history where given, and the packed weights read once; re and im,
+    stacked in `out`, written once) over the memory rate, or its
+    operations over FIR_PEAK_OPS_PER_S: a multiply-add (2) for each tap
+    inside a channel's nonzero window (the plan's, 43,578 of the 80 x 1,456
+    an instant) at every instant; and what sets it.  Third, the uniform
+    conv's bound, as this script printed it before F1: 2 x 80 x 1,456
+    operations an instant, and its [80, 32, 47] weight."""
+    plan = cuda_fir.fir_plan(FB.folded_taps(EP.fb_ear_params()))
+    item = out.element_size()
+    signal = sum(t.numel() for t in inputs)
+    instants = out.numel() // (2 * C.FB_BAND_COUNT)     # over every row
+    window = int((plan.channel_hi - plan.channel_lo).sum())
+    times = []
+    for weight, taps in ((plan.weights.size, window),
+                         (2 * C.FB_BAND_COUNT * FB.SUB * FB.FIR_BLOCKS,
+                          2 * C.FB_BAND_COUNT * FB.TAPS)):
+        by_bytes = (signal + weight + out.numel()) * item \
+            / MEMORY_BYTES_PER_S * 1e3
+        by_ops = 2 * taps * instants / FIR_PEAK_OPS_PER_S[dtype] * 1e3
+        times.append((by_bytes, "bytes") if by_bytes >= by_ops
+                     else (by_ops, "operations"))
+    return (*times[0], times[1][0])
 
 
 def batch_shapes() -> dict:
@@ -515,16 +559,45 @@ def dc_out(out) -> torch.Tensor:
     return torch.cat([out[0].reshape(-1), torch.cat(out[1], -1).reshape(-1)])
 
 
+def fir_case(k, label: str, x, hist=None, inputs=()) -> Case:
+    """F1 on hp2 rows x (with history rows hist, or none) against its plain
+    version, the cuDNN conv1d in IEEE float32 (TF32 off) or double."""
+    def plain():
+        with api.full_precision_matmuls():
+            return cuda_fir.fir_bank_plain(x, k.fir_weight, hist)
+    return Case("fir_bank", label,
+                lambda: cuda_fir.fir_bank(x, k.fir_weight, k.fir_plan,
+                                          hist),
+                plain, inputs)
+
+
+def fir_cases(k, hp2, t) -> list:
+    """F1 at the per-pair shape (the pair's own hp2, [2, CH, 480000]: 4
+    rows, no history) and at its edges, from a generator of their own: one
+    instant on one row and on two, instant counts just past a tile of
+    either dtype (128 double, 512 float instants) and off both, each with
+    a history of nonzeros and without."""
+    cases = [fir_case(k, "main", hp2, None, (hp2,))]
+    frng = np.random.default_rng(12)
+    for rows, n in ((1, 1), (2, 1), (1, 129), (3, 513), (2, 1000)):
+        x = t(frng.standard_normal((rows, FB.SUB * n)) * 100.0)
+        hist = t(frng.standard_normal((rows, FB.HIST_LEN)) * 100.0)
+        for h in (None, hist):
+            cases.append(fir_case(k, f"[{rows}, {FB.SUB * n}] history="
+                                  f"{h is not None}", x, h))
+    return cases
+
+
 def fb_cases(dtype, rng, pair10, t):
-    """D1-D3 cases: the main path's shapes on the 10 s pair's own FB
-    signals (hp2 and fb from the plain DC stage and the FIR bank), and
+    """D1-D3 and F1 cases: the main path's shapes on the 10 s pair's own
+    FB signals (hp2 and fb from the plain DC stage and the FIR bank), and
     edges with silent instants, carried states and both slope
-    conventions."""
-    cases = []
+    conventions; F1's (fir_cases)."""
     k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
     c1 = 24.0 + 230.0 / k.fc
     x = fb_rows(pair10, k)
     hp2, _ = cuda_dc.dc_chain_plain(x, k.level)
+    cases = fir_cases(k, hp2, t)
     re, im = FB.filter_bank(k, hp2)                     # FB_MAIN
     check(re.shape == FB_MAIN, f"FB shape {tuple(re.shape)}")
     cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a)
@@ -784,9 +857,8 @@ def batch_cases(dtype, rng, pair10):
     """Each kernel at the batch path's shapes (batch_shapes), the batch in
     the row count: K1, K2 and K3 on random inputs at the basic batch, K1
     and K2 also at the advanced batch's FB frames and K3 on its reference
-    alone; D3 on batch_fb_pair's rows, D1 and D2 on the FIR bank's outputs
-    of their plain DC stage.  Returns the
-    cases and the FIR bank's input (that plain DC stage's output)."""
+    alone; D3 on batch_fb_pair's rows, F1 on their plain DC stage's
+    output, D1 and D2 on the FIR bank's outputs of it."""
     shapes = batch_shapes()
 
     def t(x):
@@ -833,8 +905,8 @@ def batch_cases(dtype, rng, pair10):
                       lambda: dc_out(cuda_dc.dc_chain_plain(x, k.level)),
                       (x,)))
     hp2, _ = cuda_dc.dc_chain_plain(x, k.level)
-    with api.full_precision_matmuls():
-        re, im = FB.filter_bank(k, hp2)
+    cases.append(fir_case(k, f"batch {list(hp2.shape)}", hp2, None, (hp2,)))
+    re, im = FB.filter_bank(k, hp2)
     check(re.shape == shapes["fb_instants"], f"FB batch shape {re.shape}")
     c1 = 24.0 + 230.0 / k.fc
     cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a)
@@ -848,7 +920,7 @@ def batch_cases(dtype, rng, pair10):
                       lambda: cuda_fb.spread_fb_plain(re, im, cu,
                                                       k.lower_matrix),
                       (re, im, cu)))
-    return cases, hp2
+    return cases
 
 
 def stream_shapes(n: int, chunk: int = STREAM_CHUNK) -> dict:
@@ -878,7 +950,8 @@ def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
             "spread_fft": {path: (*sh[path][:3], sh[path][4], sh[path][3])
                            for path in ("basic", "advanced_fft")},
             "slope_state": fb, "spread_fb": fb,
-            "dc_chain": {"advanced_fb": sh["dc"]}}[name]
+            "dc_chain": {"advanced_fb": sh["dc"]},
+            "fir_bank": {"advanced_fb": sh["dc"]}}[name]
 
 
 def stream_cases(dtype, pair10) -> list:
@@ -888,9 +961,9 @@ def stream_cases(dtype, pair10) -> list:
     basic, advanced FFT and FB sites, K3 on both signals (109 and 55
     bands); the FB chunk on the 10 s pair's own rows (batch_fb_pair's,
     cut or tiled to two chunks): D3 on the second chunk with the state the
-    first leaves, D1 on the second chunk's FIR outputs (the first's samples
-    as history) with y0 = the first chunk's last cu, D2 on them.  At the
-    tools' chunk D2's plain version runs one stream at a time, which
+    first leaves, F1 on its output with the first's samples as history,
+    D1 on F1's outputs with y0 = the first chunk's last cu, D2 on them.
+    At the tools' chunk D2's plain version runs one stream at a time, which
     bounds its [..., Z, 8, I] temporaries."""
     srng = np.random.default_rng(10)
 
@@ -951,10 +1024,12 @@ def stream_cases(dtype, pair10) -> list:
                           dc_out(cuda_dc.dc_chain_plain(x, k.level, st)),
                           (second, *st)))
         hp2, _ = cuda_dc.dc_chain_plain(second, k.level, st)
-        with api.full_precision_matmuls():
-            re1, im1 = FB.filter_bank(k, hp1)
-            re, im = FB.filter_bank(k, hp2, hp1[..., -FB.HIST_LEN:])
-        del hp1, hp2
+        hist = hp1[..., -FB.HIST_LEN:].contiguous()
+        cases.append(fir_case(k, f"{label} {list(hp2.shape)} history", hp2,
+                              hist, (hp2, hist)))
+        re1, im1 = FB.filter_bank(k, hp1)
+        re, im = FB.filter_bank(k, hp2, hist)
+        del hp1
         check(re.shape == shapes["fb_instants"], f"FB chunk {re.shape}")
         y0 = cuda_fb.slope_state_plain(re1, im1, c1,
                                        k.slope_a)[..., -1].contiguous()
@@ -980,15 +1055,16 @@ def stream_cases(dtype, pair10) -> list:
 def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
     """Each kernel against its plain version; returns the main-shape
     error and the (kernel, plain) functions per kernel and dtype, per
-    dtype the batch-shape cases (each with its error and bound) and the
-    FIR bank's batch input, and per dtype the chunk-shape cases of the
-    streams."""
+    dtype the batch-shape cases (each with its error and bound) and per
+    dtype the chunk-shape cases of the streams.  F1 also gives two
+    launches bit for bit at each of its cases, and is checked at the
+    hour's one shot (hour_fir)."""
     print("phase 3 kernels against their plain versions", flush=True)
     main = {name: {} for name in KERNELS}
     batch, stream = {}, {}
     for dtype in DTYPES:
-        cases, hp2 = batch_cases(dtype, rng, pair10)
-        batch[dtype] = {"cases": [], "hp2": hp2}
+        cases = batch_cases(dtype, rng, pair10)
+        batch[dtype] = {"cases": []}
         stream[dtype] = []
         for c in (kernel_cases(dtype, rng, pair10) + cases
                   + stream_cases(dtype, pair10)):
@@ -1007,23 +1083,30 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                 elem = ((got - want).abs() / want.abs()).max().item()
                 line += f", elementwise rel {elem:.3e}"
                 ok = ok and elem < 1e-4
+            if name == "fir_bank":
+                same = torch.equal(got, stacked(c.kernel()))
+                line += f", two launches bit-identical: {same}"
+                ok = ok and same
             print(line, flush=True)
             check(ok, f"{name} {case} {dtype} disagrees with its plain "
                       "version")
+            extra = ({"padded_bound_ms": fir_bound(dtype, c.inputs, got)[2]}
+                     if name == "fir_bank" and c.inputs else {})
             if case in ("F=468", "main", "Z=109"):
                 bound_ms, bound_by = bound(name, dtype, c.inputs, got)
                 main[name][dtype] = dict(max_abs_err=err, kernel=c.kernel,
                                          plain=c.plain, inputs=c.inputs,
                                          bound_ms=bound_ms,
-                                         bound_by=bound_by)
+                                         bound_by=bound_by, **extra)
             elif case.startswith(("batch", "stream")):
                 bound_ms, bound_by = bound(name, dtype, c.inputs, got)
                 (batch[dtype]["cases"] if case.startswith("batch")
                  else stream[dtype]).append(dict(
                     name=name, case=case, kernel=c.kernel, plain=c.plain,
                     inputs=c.inputs, max_abs_err=err, bound_ms=bound_ms,
-                    bound_by=bound_by))
+                    bound_by=bound_by, **extra))
             del got, want
+    hour_fir(pair10)
     dc_float32_rounding(rng, pair10)
     determinism(main)
     for dtype in DTYPES:
@@ -1035,6 +1118,82 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
             check(same, f"{c['name']} {c['case']} {dtype}: two launches "
                   "differ")
     return main, batch, stream
+
+
+def hour_rows(pair10, k) -> torch.Tensor:
+    """HOUR_ROWS of hp2 on the card in k's spectrum dtype: the 10 s pair's
+    four FB rows through the plain DC stage, tiled 360 times."""
+    hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k).reshape(4, -1),
+                                    k.level)
+    return hp2.repeat(1, HOUR_ROWS[1] // hp2.shape[-1])
+
+
+def hour_fir(pair10) -> None:
+    """F1 at the hour's one shot, HOUR_ROWS (each part's outputs 6.9 GB in
+    double, their offsets past 2^31 bytes), in both dtypes: its outputs
+    over the first, middle and last 10 s of all four rows against
+    fir_bank_plain on those windows (the 1,536 samples before each as its
+    history; none at the start), held to BARS; two launches bit for
+    bit."""
+    span = 10 * C.SAMPLING_RATE
+    for dtype in DTYPES:
+        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+        x = hour_rows(pair10, k)
+        re, im = cuda_fir.fir_bank(x, k.fir_weight, k.fir_plan)
+        torch.cuda.synchronize()
+        err = ref = 0.0
+        for a in (0, x.shape[-1] // 2, x.shape[-1] - span):
+            hist = None if a == 0 else x[:, a - FB.HIST_LEN:a]
+            with api.full_precision_matmuls():
+                want = torch.stack(cuda_fir.fir_bank_plain(
+                    x[:, a:a + span], k.fir_weight, hist))
+            cut = slice(a // FB.SUB, (a + span) // FB.SUB)
+            got = torch.stack([re[..., cut], im[..., cut]])
+            err = max(err, (got - want).abs().max().item())
+            ref = max(ref, want.abs().max().item())
+            del got, want
+        again = cuda_fir.fir_bank(x, k.fir_weight, k.fir_plan)
+        same = torch.equal(re, again[0]) and torch.equal(im, again[1])
+        del again, re, im, x
+        print(f"  fir_bank hour {list(HOUR_ROWS)} {dtype}: three 10 s "
+              f"windows against plain: max|d|/max|ref| {err / ref:.3e}, "
+              f"two launches bit-identical: {same}", flush=True)
+        check(err / ref < BARS[dtype] and same,
+              f"fir_bank hour {dtype}: {err / ref}, bit-identical {same}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def hour_times(pair10) -> dict:
+    """F1 at HOUR_ROWS (hour_rows) per dtype: the kernel's device time
+    (cuda_ms, 3 rounds of one call) and its plain version's (one call, TF32
+    off: the cuDNN conv1d, its library call too) beside fir_bound's
+    bounds.  Returns them per dtype."""
+    out = {}
+    for dtype in DTYPES:
+        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+        x = hour_rows(pair10, k)
+        ms, _ = cuda_ms(lambda: cuda_fir.fir_bank(
+            x, k.fir_weight, k.fir_plan), calls=1, rounds=3, warmup=1)
+        with api.full_precision_matmuls():
+            result, plain_ms = once_ms(lambda: cuda_fir.fir_bank_plain(
+                x, k.fir_weight))
+        del result
+        n = x.shape[-1] // FB.SUB
+        outputs = torch.empty((2, x.shape[0], C.FB_BAND_COUNT, n),
+                              dtype=dtype, device="meta")
+        bound_ms, bound_by, padded = fir_bound(dtype, (x,), outputs)
+        out[dtype] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=plain_ms)
+        print(f"  fir_bank hour {list(HOUR_ROWS)} {dtype}: kernel "
+              f"{ms:.4f} ms, {bound_ms / ms:.1%} of its bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {padded / ms:.1%} of the "
+              f"uniform conv's {padded:.4f} ms), plain = library (cuDNN "
+              f"conv1d, one call) {plain_ms:.4f} ms", flush=True)
+        del x
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def dc_float32_rounding(rng, pair10) -> None:
@@ -1274,12 +1433,32 @@ def phase_corpus(items: int = 20, seconds: float = 10.0) -> dict:
     return worst
 
 
+# torch.nn.functional.conv1d calls since reset_counts(): count_conv1d()
+# wraps it, so that a main path's run shows it left no cuDNN conv
+CONV1D_CALLS = [0]
+
+
+def count_conv1d() -> None:
+    conv1d = torch.nn.functional.conv1d
+
+    def counted(*args, **kwargs):
+        CONV1D_CALLS[0] += 1
+        return conv1d(*args, **kwargs)
+
+    torch.nn.functional.conv1d = counted
+
+
 def reset_counts() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
+    CONV1D_CALLS[0] = 0
 
 
 def read_counts() -> dict:
+    """Each kernel's launches since reset_counts(); fails if a conv1d ran
+    (the FIR bank's plain version: a main path runs F1)."""
+    check(CONV1D_CALLS[0] == 0, f"{CONV1D_CALLS[0]} conv1d call(s) on a "
+          "main path")
     return {name: getattr(module, attr)
             for name, (module, attr) in COUNTERS.items()}
 
@@ -1287,19 +1466,15 @@ def read_counts() -> dict:
 def phase_counters(pair10, pairs) -> dict:
     """Each mode's peaq() of the 10 s pair in each tier, with every count
     set to 0 just before it and read just after.  Each tier makes the same
-    launches: 3/1/1/0/0/0 (basic) and 4/1/1/1/1/1 (advanced) of K1, K2,
-    K3, D1, D2, D3.  Then one peaq_batch() of the first 8 and of the first
+    launches: 3/1/1/0/0/0/0 (basic) and 4/1/1/1/1/1/1 (advanced) of K1,
+    K2, K3, D1, D2, D3, F1, and no conv1d (read_counts).  Then one
+    peaq_batch() of the first 8 and of the first
     32 of `pairs` (one microbatch each) per mode and tier, counted the
     same way: a microbatch launches each kernel as often as one pair does.
     Returns each kernel's counts per path in float32 (0 where a path does
     not launch it; the batch paths at microbatch 32)."""
     print("phase 6 launch counters", flush=True)
-    want = {"basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
-                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-                      "dc_chain": 0},
-            "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
-                         "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
-                         "dc_chain": 1}}
+    want = PATH_LAUNCHES
     counts = {name: {} for name in COUNTERS}
     for tier in TIERS:
         for mode in MODES:
@@ -1520,16 +1695,91 @@ def long_rows() -> dict:
     return out
 
 
+def fir_note(name: str, entry: dict) -> str:
+    """For F1: its plain version is also its library call (the cuDNN
+    conv1d, TF32 off), and its share of the uniform conv's bound."""
+    if name != "fir_bank":
+        return ""
+    entry["library_ms"] = entry["plain_ms"]
+    return (f"; {entry['padded_bound_ms'] / entry['ms']:.1%} of the uniform "
+            f"conv's bound {entry['padded_bound_ms']:.5f} ms; plain = "
+            f"library (cuDNN conv1d)")
+
+
+@contextlib.contextmanager
+def fir_parts_forced(p: int):
+    """cuda_fir.fir_bank with its groups split into p parts, whatever
+    launch_grid would choose (its other outputs kept)."""
+    chosen = cuda_fir.launch_grid
+
+    def forced(*args):
+        tiles, _, _, strip_rows, smem = chosen(*args)
+        return tiles, p, args[0] * tiles * p, strip_rows, smem
+
+    cuda_fir.launch_grid = forced
+    try:
+        yield
+    finally:
+        cuda_fir.launch_grid = chosen
+
+
+def fir_parts(main: dict) -> None:
+    """F1 with its groups split into each count of parts it can take
+    (fir_parts_forced) beside launch_grid's choice, at the shapes whose
+    grid is small enough to be split: the per-pair shape (phase 3's main
+    case) and the chunk-64 FB step of one stream with a history, per
+    dtype.  Device times (cuda_ms, 20 calls a round) in the order 1 .. P
+    then P .. 1, each part count's two readings printed; each split's
+    outputs against the chosen one's, bit for bit (each output is one
+    block's sum, in one order, whatever the part)."""
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    for dtype in DTYPES:
+        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+        sh = stream_shapes(1)["dc"]
+        step = torch.randn(sh, generator=gen, device="cuda", dtype=dtype)
+        hist = torch.randn((*sh[:-1], FB.HIST_LEN), generator=gen,
+                           device="cuda", dtype=dtype)
+        for label, x, h in (
+                (f"main {list(main['fir_bank'][dtype]['inputs'][0].shape)}",
+                 main["fir_bank"][dtype]["inputs"][0], None),
+                (f"stream N=1 {list(sh)} history", step, hist)):
+            chosen = cuda_fir.launch_grid(
+                x.numel() // x.shape[-1], x.shape[-1], dtype, k.fir_plan,
+                cuda_fir.sm_count(x.device.index))[1]
+
+            def run():
+                return cuda_fir.fir_bank(x, k.fir_weight, k.fir_plan, h)
+
+            want = stacked(run())
+            counts = range(1, len(k.fir_plan.tables) + 1)
+            ms = {p: [] for p in counts}
+            for p in (*counts, *reversed(counts)):
+                with fir_parts_forced(p):
+                    ms[p].append(cuda_ms(run, calls=20, cover_host=True)[0])
+            for p in counts:
+                with fir_parts_forced(p):
+                    same = torch.equal(stacked(run()), want)
+                check(same, f"fir_bank {label} {dtype}: {p} parts differ "
+                      f"from {chosen}")
+            print(f"  fir_bank parts {label} {dtype}: launch_grid chooses "
+                  f"{chosen}; " + ", ".join(
+                      f"{p} part(s) {a:.4f} / {b:.4f} ms"
+                      for p, (a, b) in ms.items())
+                  + "; every split bit-identical: True", flush=True)
+
+
 def phase_times(main: dict, batch: dict, stream: dict, pair10,
-                reps: int = 30) -> tuple[dict, dict]:
+                reps: int = 30) -> tuple[dict, dict, dict]:
     """Kernel and plain device times (cuda_ms), each kernel at its batch
     shapes (phase 3's batch cases) and at the streams' chunk shapes (its
-    stream cases), the FB ear's FIR bank (plain PyTorch, a conv1d) per pair
-    and at the advanced batch's shape, each beside its bound, K1 and K2 on
-    long rows (long_rows), then peaq() host wall time per 10 s stereo
-    pair: `reps` calls per mode and tier, the tiers in turn, each call
-    ending in the copy of its results to the host.  Returns the median
-    wall ms per (mode, tier) and long_rows' readings."""
+    stream cases), each beside its bound (F1 also beside the uniform
+    conv's, and with its plain version, the cuDNN conv1d, as its library
+    call), F1's part counts (fir_parts), F1 at the hour's one shot
+    (hour_times), K1 and K2 on long rows
+    (long_rows), then peaq() host wall time per 10 s stereo pair: `reps`
+    calls per mode and tier, the tiers in turn, each call ending in the
+    copy of its results to the host.  Returns the median wall ms per
+    (mode, tier), long_rows' readings and hour_times'."""
     print("phase 7 times", flush=True)
     for name, by_dtype in main.items():
         for dtype, entry in by_dtype.items():
@@ -1540,7 +1790,8 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
             print(f"  {name} {dtype}: kernel {entry['ms']:.4f} ms (host "
                   f"enqueue {host:.4f} ms), {share:.1%} of its bound "
                   f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}), plain "
-                  f"{entry['plain_ms']:.4f} ms (median of 10)")
+                  f"{entry['plain_ms']:.4f} ms (median of 10)"
+                  + fir_note(name, entry))
     for dtype, entry in main["recurrence_banded"].items():
         entry["library_ms"] = k1_library(*entry.pop("inputs"),
                                          f"basic {list(MAIN)}")
@@ -1567,39 +1818,26 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
                   f"{c['ms']:.4f} ms (host enqueue {host:.4f} ms), "
                   f"{c['bound_ms'] / c['ms']:.1%} of its bound "
                   f"{c['bound_ms']:.5f} ms ({c['bound_by']}), plain "
-                  f"{c['plain_ms']:.4f} ms (median of 3)")
+                  f"{c['plain_ms']:.4f} ms (median of 3)" + fir_note(
+                      c["name"], c))
     for dtype, cases in stream.items():
         for c in cases:
             c["ms"], host = cuda_ms(c.pop("kernel"), calls=20,
                                     cover_host=True)
             c["plain_ms"], _ = cuda_ms(c.pop("plain"), calls=1, rounds=3)
             # K1's conv1d computes y0 = 0 only: no library call for a
-            # carried state
+            # carried state; F1's is its plain version
             c["library_ms"] = None
             del c["inputs"]
             print(f"  {c['name']} {c['case']} {dtype}: kernel "
                   f"{c['ms']:.4f} ms (host enqueue {host:.4f} ms), "
                   f"{c['bound_ms'] / c['ms']:.1%} of its bound "
                   f"{c['bound_ms']:.5f} ms ({c['bound_by']}), plain "
-                  f"{c['plain_ms']:.4f} ms (median of 3)")
+                  f"{c['plain_ms']:.4f} ms (median of 3)" + fir_note(
+                      c["name"], c))
+    fir_parts(main)
     long = long_rows()
-    for dtype in DTYPES:      # the tiers' spectrum dtypes
-        k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
-        hp2, _ = cuda_dc.dc_chain_plain(fb_rows(pair10, k), k.level)
-        for label, x in (("per pair", hp2),
-                         ("batch", batch[dtype].pop("hp2"))):
-            with api.full_precision_matmuls():
-                fir, _ = cuda_ms(lambda: FB.filter_bank(k, x), calls=2,
-                                 rounds=5)
-                bound_ms, bound_by = fir_bound(dtype, x,
-                                               FB.filter_bank(k, x))
-            if label == "batch":
-                batch[dtype].update(fir_ms=fir, fir_bound_ms=bound_ms,
-                                    fir_bound_by=bound_by)
-            print(f"  FIR bank (conv1d, 32 in-channels, window 47, 80 out) "
-                  f"{label} on {tuple(x.shape)} {dtype}: {fir:.4f} ms "
-                  f"(median of 5), {bound_ms / fir:.1%} of its bound "
-                  f"{bound_ms:.4f} ms ({bound_by})")
+    hour = hour_times(pair10)
     medians = {}
     for mode in MODES:
         walls = {tier: [] for tier in TIERS}
@@ -1616,7 +1854,7 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
             print(f"  {mode} peaq() 10 s stereo pair, {tier}: median "
                   f"{med:.3f} ms (quartiles {q1:.3f}..{q3:.3f}, {reps} "
                   f"calls), {1e4 / med:.1f}x realtime")
-    return medians, long
+    return medians, long, hour
 
 
 def phase_profile(pair10, walls: dict, calls: int = 5) -> None:
@@ -1696,8 +1934,8 @@ def mixed_lengths(items: int = 8):
 
 def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     """One peaq_batch() of `pairs` under torch.profiler: device ms (the
-    device rows), the FIR bank's (aten::conv1d with its kernels), the hand
-    kernels' and the copies to the card's."""
+    device rows), the FIR bank's (F1's rows), the hand kernels' (F1's
+    included) and the copies to the card's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1709,8 +1947,8 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
                if re.search(rf"\b({'|'.join(KERNELS)})(_\w+)?_kernel",
                             e.key))
     return {"device_ms": sum(e.self_device_time_total for e in device) / 1e3,
-            "fir_ms": sum(e.device_time_total for e in events
-                          if e.key == "aten::conv1d") / 1e3,
+            "fir_ms": sum(e.self_device_time_total for e in device
+                          if "fir_bank_kernel" in e.key) / 1e3,
             "hand_ms": hand / 1e3,
             "h2d_ms": sum(e.self_device_time_total for e in device
                           if "HtoD" in e.key) / 1e3,
@@ -1821,9 +2059,11 @@ def phase_batch(pairs, card: str) -> dict:
                   f"without the copies to the card, "
                   f"{(dev - prof['h2d_ms']) / staged_ms:.1%} of a staged "
                   f"batch ({staged_ms:.1f} ms); FIR "
-                  f"bank {prof['fir_ms']:.1f} ms ({prof['fir_ms'] / dev:.1%}"
-                  f"), hand kernels {prof['hand_ms']:.1f} ms "
-                  f"({prof['hand_ms'] / dev:.1%}), the profiler's rows of "
+                  f"bank (F1) {prof['fir_ms']:.1f} ms "
+                  f"({prof['fir_ms'] / dev:.1%}), the other hand kernels "
+                  f"{prof['hand_ms'] - prof['fir_ms']:.1f} ms "
+                  f"({(prof['hand_ms'] - prof['fir_ms']) / dev:.1%}), the "
+                  f"profiler's rows of "
                   f"copies to the card {prof['h2d_ms']:.1f} ms "
                   f"({prof['h2d_ms'] / dev:.1%}); copy rows "
                   f"{prof['copies']}", flush=True)
@@ -2080,14 +2320,6 @@ def pool_run(mode: str, ref, test, card: str) -> None:
 CLI_LINES = re.compile(r"Objective Difference Grade: -?\d+\.\d{3}\n"
                        r"Distortion Index: -?\d+\.\d{3}\n"
                        r"(Total SNR: -?\d+\.\d{3} dB\n)?$")
-# each mode's launches in one peaq() (phase 6): the CLI runs one
-PATH_LAUNCHES = {
-    "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
-              "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-              "dc_chain": 0},
-    "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
-                 "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
-                 "dc_chain": 1}}
 # phase 12: peaq_sharded() against peaq_batch() on the same pairs (float64:
 # ODG and MOV x (1 + |w|); float32: ODG); the training losses on the card
 # against the CPU's, relative, per step; the two-part pool against the
@@ -2850,6 +3082,7 @@ def timed(phase, *args):
 def main() -> None:
     start = time.perf_counter()
     card = timed(phase_card)
+    count_conv1d()
     timed(phase_build)
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()
@@ -2863,7 +3096,7 @@ def main() -> None:
     timed(phase_corpus)
     pairs = make_pairs(BATCH_PAIRS, 10.0)
     counts = timed(phase_counters, pair10, pairs)
-    walls, long = timed(phase_times, main_kernels, batch_kernels,
+    walls, long, hour = timed(phase_times, main_kernels, batch_kernels,
                         stream_kernels, pair10)
     timed(phase_profile, pair10, walls)
     timed(phase_batch, pairs, card)
@@ -2909,11 +3142,12 @@ def main() -> None:
             stream=[dict(case=s32["case"], max_abs_err=s32["max_abs_err"],
                          ms=s32["ms"], plain_ms=s32["plain_ms"],
                          bound_ms=s32["bound_ms"], bound_by=s32["bound_by"],
-                         library_ms=None,
+                         library_ms=s32.get("library_ms"),
                          max_abs_err_f64=s64["max_abs_err"],
                          ms_f64=s64["ms"], plain_ms_f64=s64["plain_ms"],
                          bound_ms_f64=s64["bound_ms"],
-                         bound_by_f64=s64["bound_by"], library_ms_f64=None)
+                         bound_by_f64=s64["bound_by"],
+                         library_ms_f64=s64.get("library_ms"))
                     for s32, s64 in zip(*(
                         [c for c in stream_kernels[dtype]
                          if c["name"] == name] for dtype in DTYPES))],
@@ -2925,7 +3159,12 @@ def main() -> None:
                 shape=LONG_ROW, **long[name][torch.float32],
                 **{f"{key}_f64": v for key, v in
                    long[name][torch.float64].items()})}
-               if name in long else {})))
+               if name in long else {}),
+            **({"hour": dict(
+                shape=HOUR_ROWS, **hour[torch.float32],
+                **{f"{key}_f64": v for key, v in
+                   hour[torch.float64].items()})}
+               if name == "fir_bank" else {})))
     print(f"all phases: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

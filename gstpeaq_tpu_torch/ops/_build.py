@@ -48,6 +48,7 @@ _SPREAD = (_P, _P, _P, _P, _F64, _P, _P, _I64, _I32, _P)
 _SLOPE = (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P, _P)
 _SPREAD_FB = (_P, _P, _P, _F64, _P, _I64, _I64, _P)
 _DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P)
+_FIR_BANK = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I32, _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,
@@ -61,6 +62,8 @@ SIGNATURES = {
     "peaq_spread_fb_f64": _SPREAD_FB,
     "peaq_dc_chain_f32": _DC_CHAIN,
     "peaq_dc_chain_f64": _DC_CHAIN,
+    "peaq_fir_bank_f32": _FIR_BANK,
+    "peaq_fir_bank_f64": _FIR_BANK,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
