@@ -6,7 +6,7 @@ and check it.  Run from the repository root:
 
 Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
-  2 build     nvcc builds the kernels K1-K3, D1-D3 and F1 from
+  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1 and S2 from
               gstpeaq_tpu_torch/csrc, one process per source, and ptxas
               reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
@@ -19,12 +19,18 @@ Phases, each on its own lines and ending with its seconds:
               ear's FIR bank, against its plain version, the cuDNN conv1d:
               one instant, one row, instant counts off its tiles, a
               history of nonzeros, and the one-hour one shot [4,
-              172,800,000] on three 10 s windows) and at the
+              172,800,000] on three 10 s windows; S1 and S2, the FFT
+              ear's bin-domain stage, on the pair's own frames, S1 also on
+              float64 blocks, one frame and a view, S2 with each call
+              site's flags and on rows that take each of its branches:
+              silent, identical, a removed bin, a zero test, bandwidth 0;
+              their bandwidth indices and gate bits equal) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
-              pool's 16) with their carried states (K1 and D1 with y0, D3 with
+              pool's 16; S1 and S2 on each FFT step's blocks) with
+              their carried states (K1 and D1 with y0, D3 with
               its state, D1 and D2 on a second FB chunk of the pair's own
               rows; F1 with the first chunk as history), in float32 and
               float64, the float32 DC cascade's own rounding against
@@ -47,7 +53,7 @@ Phases, each on its own lines and ending with its seconds:
               within 1e-5, a bar that float32 (the control) must miss
   6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
               each with the counts set to 0 just before it: the advanced
-              call goes through all seven kernels and no conv1d (every
+              call goes through all nine kernels and no conv1d (every
               counted run of phases 6 and 10-13 is held to none); then
               one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
@@ -77,7 +83,8 @@ Phases, each on its own lines and ending with its seconds:
               (gstpeaq_tpu_torch/tools/bench.py), the phases' wall times,
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank (F1),
-              the other hand kernels and the copies to the card
+              the bin-domain stage (S1, S2), the other hand kernels and
+              the copies to the card
   10 streams  parallel/stream.py on a 10-minute stereo program (drift
               corpus v2's 20 items at 30 s, end to end) fed in 1 s pieces
               at chunk_frames 64: PeaqStream and PeaqStreamAdvanced per
@@ -136,9 +143,9 @@ times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
 operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64; F1 67 on
 the FP64 tensor cores), counted from this run's main-shape inputs;
 `library_ms` is K1's grouped causal conv1d at its main shape and F1's
-cuDNN conv1d (its plain version), and null for the other kernels, since
-no single PyTorch call computes their functions; `launches_by_path` holds
-phase 6's
+cuDNN conv1d (its plain version), and null for the other kernels, S1 and
+S2 among them, since no single PyTorch call computes their functions;
+`launches_by_path` holds phase 6's
 float32 count per path (basic, advanced, and one microbatch of 32 of
 each batch path; 0 where a path does not launch the kernel), `launches`
 their sum; `batch` lists the kernel's batch shapes, each with its
@@ -198,6 +205,7 @@ from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import cuda_fir
 from gstpeaq_tpu_torch.ops import cuda_iir
+from gstpeaq_tpu_torch.ops import cuda_spectral
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
 from gstpeaq_tpu_torch.ops import fb_ear as FB
 from gstpeaq_tpu_torch.ops import fft_ear as FE
@@ -256,7 +264,21 @@ KERNELS = {
     "fir_bank": dict(
         route="cuda", source="gstpeaq_tpu_torch/csrc/fir_bank.cu",
         replaces="gstpeaq_tpu/ops/fb_ear.py:426"),
+    # not TPU kernels either: they replace the port's eager bin-domain
+    # stage of the FFT ear, standing for XLA's fusions of the JAX package's
+    # stateless_pair_hop and the bin-domain halves of bandwidth, nmr, ehs
+    "pair_frames": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/spectral.cu",
+        replaces="gstpeaq_tpu/ops/fft_ear.py:473"),
+    "spectral_movs": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/spectral.cu",
+        replaces="gstpeaq_tpu/ops/fft_ear.py:473, "
+                 "gstpeaq_tpu/models/movs.py:65, "
+                 "gstpeaq_tpu/models/movs.py:101, "
+                 "gstpeaq_tpu/models/movs.py:175"),
 }
+# the kernels of the bin-domain stage (S1, S2)
+SPECTRAL = ("pair_frames", "spectral_movs")
 COUNTERS = {
     "recurrence_banded": (cuda_iir, "recurrence_banded_launches"),
     "fused_mod_smoothers": (cuda_iir, "fused_mod_smoothers_launches"),
@@ -265,6 +287,8 @@ COUNTERS = {
     "spread_fb": (cuda_fb, "spread_fb_launches"),
     "dc_chain": (cuda_dc, "dc_chain_launches"),
     "fir_bank": (cuda_fir, "fir_bank_launches"),
+    "pair_frames": (cuda_spectral, "pair_frames_launches"),
+    "spectral_movs": (cuda_spectral, "spectral_movs_launches"),
 }
 # max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
 # carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
@@ -313,25 +337,30 @@ TOOL_CHUNK = 1024
 # advanced FFT, K1 for the time smear of both signals and K3; advanced FB,
 # D3, F1, D1 and D2 once on both signals, K1 for the forward masking, the
 # level adapter's three and the modulation; K2 never (its kernel takes no
-# state)
+# state); S1 and S2 once in each FFT step
 STREAM_STEP_LAUNCHES = {
     "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-              "dc_chain": 0, "fir_bank": 0},
+              "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
+              "spectral_movs": 1},
     "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-                     "dc_chain": 0, "fir_bank": 0},
+                     "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
+                     "spectral_movs": 1},
     "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
                     "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
-                    "dc_chain": 1, "fir_bank": 1}}
+                    "dc_chain": 1, "fir_bank": 1, "pair_frames": 0,
+                    "spectral_movs": 0}}
 # each mode's launches in one peaq() (phase 6; the CLI runs one)
 PATH_LAUNCHES = {
     "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
-              "dc_chain": 0, "fir_bank": 0},
+              "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
+              "spectral_movs": 1},
     "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
                  "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
-                 "dc_chain": 1, "fir_bank": 1}}
+                 "dc_chain": 1, "fir_bank": 1, "pair_frames": 1,
+                 "spectral_movs": 1}}
 # phase 10's bars: a float64 stream against the one-shot peaq() of the same
 # program, and the float32 / accurate streams against their own one-shot
 # (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
@@ -354,6 +383,15 @@ def ops_of(name: str, inputs) -> float:
     Ene (4), the walk's ratio (1), E2^2.5 / norm (4).  D2 per instant:
     2 Z(Z - 1) for the complex upper walk, 4 Z for the complex lower
     recurrence B_c = A_c + CL B_{c+1} and 3 Z for |B_c|^2."""
+    if name == "pair_frames":
+        # per hop sample in each of its two frames: the window on ref (1)
+        # and on ref - test (2); its squares and sums into the energies (4)
+        return 10 * inputs[0].numel()
+    if name == "spectral_movs":
+        # per bin of a row: T (2), pr and pt (8), dp (6), the noise
+        # spectrum (5), d (4), and ~1.5 band weights a bin for each of the
+        # three band sums (9)
+        return 34 * inputs[0].numel() // 4
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
     per_element = {"recurrence_banded": 2,      # a y + b
@@ -380,12 +418,13 @@ def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
     (each input read once, each output written once) over the memory rate,
     or the operations (ops_of) over the peak rate of `dtype`.  D2 reads cu
     of every band but the top one, from which no source walks.  F1's is
-    fir_bound's."""
+    fir_bound's.  `output` is a tensor or a tuple of them (S1's, S2's)."""
     if name == "fir_bank":
-        return fir_bound(dtype, inputs, output)[:2]
+        return fir_bound(dtype, inputs, stacked(output))[:2]
     if name == "spread_fb":
         inputs = (*inputs[:2], inputs[2][..., :-1, :])
-    moved = sum(t.numel() * t.element_size() for t in (*inputs, output))
+    moved = sum(t.numel() * t.element_size()
+                for t in (*inputs, *tensors_of(output)))
     by_bytes = moved / MEMORY_BYTES_PER_S * 1e3
     by_ops = ops_of(name, inputs) / PEAK_OPS_PER_S[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
@@ -450,8 +489,25 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def tensors_of(out) -> list:
+    """The tensors of a kernel's output: a tensor, or a tuple of tensors,
+    tuples and Nones (S2's Spectral)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out if x is not None for t in tensors_of(x)]
+
+
 def stacked(out) -> torch.Tensor:
-    return torch.stack(out) if isinstance(out, tuple) else out
+    """A kernel's output as one tensor: stacked where its tensors share a
+    shape and a type, else each flattened to float64 (exact for float32 and
+    bool) and concatenated, so that torch.equal compares every bit."""
+    parts = tensors_of(out)
+    if len(parts) == 1:
+        return parts[0]
+    if all(p.shape == parts[0].shape and p.dtype == parts[0].dtype
+           for p in parts):
+        return torch.stack(parts)
+    return torch.cat([p.reshape(-1).double() for p in parts])
 
 
 def sleep_cycles_per_ms() -> float:
@@ -530,14 +586,15 @@ def phase_build() -> None:
     names = "|".join(KERNELS)
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"({names})(?:_([a-z]+))?_kernelI([fd])"
+            m = re.search(rf"({names})(?:_([a-z]+))?_kernelI([fd]+)"
                           rf"((?:Li\d+E)*)", line)
             ints = m and re.findall(r"Li(\d+)E", m[4])
             labels = ("copies of",) if m and m[1] == "spread_fb" \
                 else ("step",)
             entry = m and " ".join(
                 [m[1]] + ([m[2]] if m[2] else [])
-                + ["double" if m[3] == "d" else "float"]
+                + ["->".join("double" if c == "d" else "float"
+                            for c in m[3])]
                 + [f"{label} {i}" for label, i in zip(labels, ints)])
         elif entry and "spill" in line:
             spills = line.strip()
@@ -796,6 +853,140 @@ def row_cases(t):
     return cases
 
 
+def fft_blocks(pair10, lead: int, n: int) -> torch.Tensor:
+    """Hop blocks [2 (ref, test), lead, CH, n + 1, 1024] float32 on the
+    card, as the FFT path cuts them: the 10 s pair's channels tiled to
+    (n + 1) x 1024 samples, each of `lead` pairs rolled by an offset of its
+    own from a generator of its own (none for one pair)."""
+    x = torch.stack([torch.as_tensor(np.ascontiguousarray(sig.T),
+                                     device="cuda") for sig in pair10])
+    t = (n + 1) * C.FFT_STEPSIZE
+    x = x.repeat(1, 1, -(-t // x.shape[-1]))[..., :t]
+    offsets = ([0] if lead == 1
+               else np.random.default_rng(9).integers(1, t, lead))
+    return torch.stack([torch.roll(x, int(o), dims=-1) for o in offsets],
+                       dim=1).unflatten(-1, (n + 1, C.FFT_STEPSIZE))
+
+
+def frames_case(k, label: str, blocks) -> Case:
+    """S1 on hop blocks [2 (ref, test), ...] against its plain version."""
+    ref, test = blocks[0], blocks[1]
+    return Case("pair_frames", label,
+                lambda: cuda_spectral.pair_frames(ref, test, k.hann),
+                lambda: cuda_spectral.pair_frames_plain(ref, test, k.hann),
+                (ref, test, k.hann))
+
+
+def spectra_of(k, blocks) -> torch.Tensor:
+    """The rDFTs S2 reads, [2, ..., F, 1025, 2]: S1's plain frames of
+    `blocks` through one torch.fft.rfft."""
+    frames, _ = cuda_spectral.pair_frames_plain(blocks[0], blocks[1], k.hann)
+    return torch.view_as_real(torch.fft.rfft(frames, dim=-1))
+
+
+def movs_case(k, label: str, spectra, ref_only: bool,
+              bandwidth: bool) -> Case:
+    """S2 on `spectra` with the flags of a call site against its plain
+    version (its grouping a float32 GEMM with TF32 off)."""
+    def plain():
+        with api.full_precision_matmuls():
+            return cuda_spectral.spectral_movs_plain(
+                spectra, k.level_factor, k.group_matrix, k.group_bin_hi,
+                k.ehs_zero, ref_only, bandwidth)
+    return Case("spectral_movs", label,
+                lambda: cuda_spectral.spectral_movs(
+                    spectra, k.level_factor, k.group_matrix, k.group_bin_hi,
+                    k.group_span, k.group_weights, k.ehs_zero, ref_only,
+                    bandwidth),
+                plain,
+                (spectra, k.level_factor, k.group_span, k.group_weights,
+                 k.ehs_zero))
+
+
+def spectral_check(name: str, got, want, dtype) -> tuple[float, float, bool,
+                                                         str]:
+    """S1 or S2 against its plain version: each floating output within
+    BARS (max|d| / max|ref| over its finite values, each non-finite value
+    equal in place and value), S1's gate bits (energy >= the EHS
+    threshold) and S2's bandwidth indices and validity equal.  Returns the
+    largest max|d|, the largest relative error, whether all holds, and a
+    note for the case's line."""
+    if name == "pair_frames":
+        pairs = list(zip(got, want))
+        exact = torch.equal(got[1] >= C.EHS_ENERGY_THRESHOLD,
+                            want[1] >= C.EHS_ENERGY_THRESHOLD)
+        note = (f", frames bit-identical: {torch.equal(got[0], want[0])}, "
+                f"gate bits equal: {exact}")
+    else:
+        pairs = list(zip(got[:3], want[:3]))
+        exact = (got.bandwidth is None) == (want.bandwidth is None)
+        if exact and want.bandwidth is not None:
+            exact = all(torch.equal(g, w) for g, w in zip(got.bandwidth,
+                                                          want.bandwidth))
+            note = f", bandwidth indices equal: {exact}"
+        else:
+            note = ""
+    err = rel = 0.0
+    placed = True
+    for g, w in pairs:
+        fin = torch.isfinite(w)
+        placed = placed and torch.equal(torch.isfinite(g), fin) \
+            and torch.equal(g[~fin], w[~fin])
+        if fin.any():
+            d = (g[fin] - w[fin]).abs().max().item()
+            err = max(err, d)
+            rel = max(rel, d / max(w[fin].abs().max().item(),
+                                   torch.finfo(dtype).tiny))
+    note += f", non-finite values equal: {placed}"
+    return err, rel, placed and exact and rel < BARS[dtype], note
+
+
+def branch_blocks(pair10) -> torch.Tensor:
+    """Hop blocks [2, 1, CH, 41, 1024] of the 10 s pair whose rows take
+    every branch of S2: blocks 0-4 silent in both signals (pr = pt = 0,
+    bandwidth 0), 5-9 identical (d exactly 0), 20-24 a test 60 dB down
+    (EHS's log regime), 25-29 a test of zeros (d = -inf), and 30-39 a
+    loud tone at bin 1000 in the test (the floor zt so high that bandwidth
+    is 0); the rest the pair as it is."""
+    b = fft_blocks(pair10, 1, 40).clone()
+    b[:, ..., :5, :] = 0.0
+    b[1, ..., 5:10, :] = b[0, ..., 5:10, :]
+    b[1, ..., 20:25, :] = 1e-3 * b[0, ..., 20:25, :]
+    b[1, ..., 25:30, :] = 0.0
+    n = torch.arange(10 * C.FFT_STEPSIZE, device=b.device)
+    tone = 0.5 * torch.sin(2 * math.pi * 1000 / C.FFT_FRAMESIZE * n)
+    b[1, ..., 30:40, :] += tone.view(10, C.FFT_STEPSIZE)
+    return b
+
+
+def spectral_cases(dtype, pair10) -> list:
+    """S1 and S2 at the per-pair shapes on the 10 s pair's own blocks (the
+    basic path's [2, 1, 2, 469, 1024] as the main cases; S2 also with the
+    advanced path's flags, the reference alone without the bandwidth),
+    and at edges: S1 on float64 blocks, on one frame, on a view it must
+    copy; S2 on branch_blocks' rows with each call site's flags."""
+    kb = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT), dtype, "cuda")
+    ka = FE.build_consts(EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT), dtype,
+                         "cuda")
+    blocks = fft_blocks(pair10, 1, MAIN[3])
+    spectra = spectra_of(kb, blocks)
+    cases = [frames_case(kb, "main", blocks),
+             movs_case(kb, "main", spectra, False, True),
+             movs_case(ka, f"advanced ref only {list(spectra.shape)}",
+                       spectra, True, False),
+             frames_case(kb, "float64 blocks", blocks.double()),
+             frames_case(kb, "one frame [1, 2, 2, 1024]",
+                         blocks[..., :2, :].contiguous()),
+             frames_case(kb, "a view [1, 2, 468, 1024]",
+                         blocks[..., 1:, :])]
+    branches = spectra_of(kb, branch_blocks(pair10))
+    for label, k, flags in (("basic", kb, (False, True)),
+                            ("advanced", ka, (True, False)),
+                            ("advanced FFT step", ka, (False, False))):
+        cases.append(movs_case(k, f"branches {label}", branches, *flags))
+    return cases
+
+
 def kernel_cases(dtype, rng, pair10):
     """Every Case of phase 3, at main-path and edge shapes."""
     dev = "cuda"
@@ -837,7 +1028,7 @@ def kernel_cases(dtype, rng, pair10):
                           cuda_spread_fft.spread_fft_plain(p, *cp),
                           (p, c[0], c[1], c[3])))
     return (cases + row_cases(t) + spread_edges(t, dtype)
-            + fb_cases(dtype, rng, pair10, t))
+            + fb_cases(dtype, rng, pair10, t) + spectral_cases(dtype, pair10))
 
 
 def batch_fb_pair(pair10, k, shape) -> torch.Tensor:
@@ -898,6 +1089,20 @@ def batch_cases(dtype, rng, pair10):
                           lambda p=p, cp=cp:
                           cuda_spread_fft.spread_fft_plain(p, *cp),
                           (p, c[0], c[1], c[3])))
+    # S1 and S2 on the basic and the advanced batch's FFT frames (the
+    # advanced one's reference alone grouped, no bandwidth)
+    for label, lead, z, flags in (
+            ("basic", basic[1], C.BASIC_BAND_COUNT, (False, True)),
+            ("advanced", shapes["fb_frames"][1], C.ADVANCED_FFT_BAND_COUNT,
+             (True, False))):
+        kf = FE.build_consts(EP.fft_ear_params(z), dtype, "cuda")
+        blocks = fft_blocks(pair10, lead, basic[-1])
+        cases.append(frames_case(kf, f"batch {label} "
+                                 f"{list(blocks.shape[1:])}", blocks))
+        spectra = spectra_of(kf, blocks)
+        del blocks
+        cases.append(movs_case(kf, f"batch {label} {list(spectra.shape)}",
+                               spectra, *flags))
     k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
     x = batch_fb_pair(pair10, k, shapes["dc"])
     cases.append(Case("dc_chain", f"batch {list(x.shape)}",
@@ -951,7 +1156,13 @@ def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
                            for path in ("basic", "advanced_fft")},
             "slope_state": fb, "spread_fb": fb,
             "dc_chain": {"advanced_fb": sh["dc"]},
-            "fir_bank": {"advanced_fb": sh["dc"]}}[name]
+            "fir_bank": {"advanced_fb": sh["dc"]},
+            # S1's hop blocks [N, CH, F + 1, 1024], S2's spectra
+            "pair_frames": dict.fromkeys(
+                ("basic", "advanced_fft"), (1, 2, chunk + 1, C.FFT_STEPSIZE)),
+            "spectral_movs": dict.fromkeys(
+                ("basic", "advanced_fft"),
+                (2, 1, 2, chunk, C.FFT_FRAMESIZE // 2 + 1, 2))}[name]
 
 
 def stream_cases(dtype, pair10) -> list:
@@ -980,10 +1191,25 @@ def stream_cases(dtype, pair10) -> list:
     cases = []
     k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
     c1 = 24.0 + 230.0 / k.fc
+    kb, ka = (FE.build_consts(EP.fft_ear_params(z), dtype, "cuda")
+              for z in (C.BASIC_BAND_COUNT, C.ADVANCED_FFT_BAND_COUNT))
     for chunk, n in ((STREAM_CHUNK, 1), (STREAM_CHUNK, POOL),
                      (TOOL_CHUNK, 1), (TOOL_CHUNK, POOL)):
         shapes = stream_shapes(n, chunk)
         label = f"stream N={n}"
+        # S1 and S2 on the FFT steps' blocks: one S1 shape for both
+        # steps, S2 with the basic step's flags and the advanced FFT
+        # step's (both signals grouped, no bandwidth)
+        blocks = fft_blocks(pair10, n, chunk)
+        cases.append(frames_case(kb, f"{label} basic, advanced_fft "
+                                 f"{list(blocks.shape[1:])}", blocks))
+        spectra = spectra_of(kb, blocks)
+        del blocks
+        for site, kf, flags in (("basic", kb, (False, True)),
+                                ("advanced_fft", ka, (False, False))):
+            cases.append(movs_case(kf, f"{label} {site} "
+                                   f"{list(spectra.shape)}", spectra,
+                                   *flags))
         for site in ("basic", "advanced_fft", "fb_frames"):
             shape = shapes[site]
             a = t(np.exp(-srng.uniform(0.01, 0.5, shape[-2])))
@@ -1070,20 +1296,29 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                   + stream_cases(dtype, pair10)):
             name, case = c.name, c.case
             bar = (DC_BARS if name == "dc_chain" else BARS)[dtype]
-            got = stacked(c.kernel())
+            out = c.kernel()
+            got = stacked(out)
             torch.cuda.synchronize()
-            want = stacked(c.plain())
-            err = (got - want).abs().max().item()
-            # an all-zero reference (a silent edge case) is held absolutely
-            rel = err / max(want.abs().max().item(),
-                            torch.finfo(dtype).tiny)
-            line = f"  {name} {case} {dtype}: max|d|/max|ref| {rel:.3e}"
-            ok = torch.isfinite(got).all().item() and rel < bar
-            if name == "spread_fft" and dtype == torch.float32:
-                elem = ((got - want).abs() / want.abs()).max().item()
-                line += f", elementwise rel {elem:.3e}"
-                ok = ok and elem < 1e-4
-            if name == "fir_bank":
+            if name in SPECTRAL:
+                err, rel, ok, note = spectral_check(name, out, c.plain(),
+                                                    dtype)
+                line = (f"  {name} {case} {dtype}: max|d|/max|ref| "
+                        f"{rel:.3e}{note}")
+            else:
+                want = stacked(c.plain())
+                err = (got - want).abs().max().item()
+                # an all-zero reference (a silent edge case) is held
+                # absolutely
+                rel = err / max(want.abs().max().item(),
+                                torch.finfo(dtype).tiny)
+                line = f"  {name} {case} {dtype}: max|d|/max|ref| {rel:.3e}"
+                ok = torch.isfinite(got).all().item() and rel < bar
+                if name == "spread_fft" and dtype == torch.float32:
+                    elem = ((got - want).abs() / want.abs()).max().item()
+                    line += f", elementwise rel {elem:.3e}"
+                    ok = ok and elem < 1e-4
+                del want
+            if name in ("fir_bank", *SPECTRAL):
                 same = torch.equal(got, stacked(c.kernel()))
                 line += f", two launches bit-identical: {same}"
                 ok = ok and same
@@ -1093,19 +1328,19 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
             extra = ({"padded_bound_ms": fir_bound(dtype, c.inputs, got)[2]}
                      if name == "fir_bank" and c.inputs else {})
             if case in ("F=468", "main", "Z=109"):
-                bound_ms, bound_by = bound(name, dtype, c.inputs, got)
+                bound_ms, bound_by = bound(name, dtype, c.inputs, out)
                 main[name][dtype] = dict(max_abs_err=err, kernel=c.kernel,
                                          plain=c.plain, inputs=c.inputs,
                                          bound_ms=bound_ms,
                                          bound_by=bound_by, **extra)
             elif case.startswith(("batch", "stream")):
-                bound_ms, bound_by = bound(name, dtype, c.inputs, got)
+                bound_ms, bound_by = bound(name, dtype, c.inputs, out)
                 (batch[dtype]["cases"] if case.startswith("batch")
                  else stream[dtype]).append(dict(
                     name=name, case=case, kernel=c.kernel, plain=c.plain,
                     inputs=c.inputs, max_abs_err=err, bound_ms=bound_ms,
                     bound_by=bound_by, **extra))
-            del got, want
+            del got, out
     hour_fir(pair10)
     dc_float32_rounding(rng, pair10)
     determinism(main)
@@ -1466,9 +1701,9 @@ def read_counts() -> dict:
 def phase_counters(pair10, pairs) -> dict:
     """Each mode's peaq() of the 10 s pair in each tier, with every count
     set to 0 just before it and read just after.  Each tier makes the same
-    launches: 3/1/1/0/0/0/0 (basic) and 4/1/1/1/1/1/1 (advanced) of K1,
-    K2, K3, D1, D2, D3, F1, and no conv1d (read_counts).  Then one
-    peaq_batch() of the first 8 and of the first
+    launches: 3/1/1/0/0/0/0/1/1 (basic) and 4/1/1/1/1/1/1/1/1 (advanced)
+    of K1, K2, K3, D1, D2, D3, F1, S1, S2, and no conv1d (read_counts).
+    Then one peaq_batch() of the first 8 and of the first
     32 of `pairs` (one microbatch each) per mode and tier, counted the
     same way: a microbatch launches each kernel as often as one pair does.
     Returns each kernel's counts per path in float32 (0 where a path does
@@ -1554,13 +1789,14 @@ def peaq_call(pair10, mode: str, tier: str):
     return api.peaq(*pair10, advanced=mode == "advanced", dtype=tier)
 
 
-def site_cases(dtype) -> list:
+def site_cases(dtype, pair10) -> list:
     """The call sites of the advanced path whose shapes differ from the
-    main-shape cases (those of the basic path, for K1-K3), on inputs from
-    a generator of their own: K1 smears the reference's 55 FFT bands in
-    time once and runs three times over the 40 FB bands of 2,500 frames
-    (forward masking and the level adapter's two smoothers), K2 runs over
-    the FB bands, and K3 spreads the reference alone."""
+    main-shape cases (those of the basic path, for K1-K3, S1 and S2), on
+    inputs from a generator of their own: K1 smears the reference's 55 FFT
+    bands in time once and runs three times over the 40 FB bands of 2,500
+    frames (forward masking and the level adapter's two smoothers), K2
+    runs over the FB bands, K3 spreads the reference alone, and S2 groups
+    it alone, without the bandwidth, on the 10 s pair's spectra."""
     srng = np.random.default_rng(6)
 
     def t(x):
@@ -1593,6 +1829,11 @@ def site_cases(dtype) -> list:
                       lambda: cuda_spread_fft.spread_fft(p, *c),
                       lambda: cuda_spread_fft.spread_fft_plain(p, *cp),
                       (p, c[0], c[1], c[3])))
+    ka = FE.build_consts(EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT), dtype,
+                         "cuda")
+    spectra = spectra_of(ka, fft_blocks(pair10, 1, MAIN[3]))
+    cases.append(movs_case(ka, f"advanced ref only {list(spectra.shape)}",
+                           spectra, True, False))
     return cases
 
 
@@ -1697,7 +1938,10 @@ def long_rows() -> dict:
 
 def fir_note(name: str, entry: dict) -> str:
     """For F1: its plain version is also its library call (the cuDNN
-    conv1d, TF32 off), and its share of the uniform conv's bound."""
+    conv1d, TF32 off), and its share of the uniform conv's bound.  For S1
+    and S2: that no single PyTorch call computes their functions."""
+    if name in SPECTRAL:
+        return "; library: none (no single PyTorch call)"
     if name != "fir_bank":
         return ""
     entry["library_ms"] = entry["plain_ms"]
@@ -1796,14 +2040,14 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
         entry["library_ms"] = k1_library(*entry.pop("inputs"),
                                          f"basic {list(MAIN)}")
     for dtype in DTYPES:
-        for c in site_cases(dtype):
+        for c in site_cases(dtype, pair10):
             ms, _ = cuda_ms(c.kernel, calls=20, cover_host=True)
             plain_ms, _ = cuda_ms(c.plain, calls=1, rounds=3)
-            bound_ms, bound_by = bound(c.name, dtype, c.inputs,
-                                       stacked(c.kernel()))
+            bound_ms, bound_by = bound(c.name, dtype, c.inputs, c.kernel())
             print(f"  {c.name} {c.case} {dtype}: kernel {ms:.4f} ms, "
                   f"{bound_ms / ms:.1%} of its bound {bound_ms:.5f} ms "
-                  f"({bound_by}), plain {plain_ms:.4f} ms (median of 3)")
+                  f"({bound_by}), plain {plain_ms:.4f} ms (median of 3)"
+                  + fir_note(c.name, {}))
             if c.name == "recurrence_banded":
                 k1_library(*c.inputs, c.case)
     for dtype, entry in batch.items():
@@ -1934,8 +2178,9 @@ def mixed_lengths(items: int = 8):
 
 def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     """One peaq_batch() of `pairs` under torch.profiler: device ms (the
-    device rows), the FIR bank's (F1's rows), the hand kernels' (F1's
-    included) and the copies to the card's."""
+    device rows), the FIR bank's (F1's rows), the bin-domain stage's (S1's
+    and S2's rows), the hand kernels' (F1's, S1's and S2's included) and
+    the copies to the card's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1949,6 +2194,9 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     return {"device_ms": sum(e.self_device_time_total for e in device) / 1e3,
             "fir_ms": sum(e.self_device_time_total for e in device
                           if "fir_bank_kernel" in e.key) / 1e3,
+            "spectral_ms": sum(e.self_device_time_total for e in device
+                               if re.search(r"\b(pair_frames|spectral_movs)"
+                                            r"_kernel", e.key)) / 1e3,
             "hand_ms": hand / 1e3,
             "h2d_ms": sum(e.self_device_time_total for e in device
                           if "HtoD" in e.key) / 1e3,
@@ -2054,15 +2302,17 @@ def phase_batch(pairs, card: str) -> dict:
                   + f"; peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f}"
                   f" GiB before)", flush=True)
             staged_ms = audio / statistics.median(rates) * 1e3
+            other = prof["hand_ms"] - prof["fir_ms"] - prof["spectral_ms"]
             print(f"    profiled peaq_batch(): device {dev:.1f} ms, busy "
                   f"{dev / (wall * 1e3):.1%} of the unprofiled call and, "
                   f"without the copies to the card, "
                   f"{(dev - prof['h2d_ms']) / staged_ms:.1%} of a staged "
                   f"batch ({staged_ms:.1f} ms); FIR "
                   f"bank (F1) {prof['fir_ms']:.1f} ms "
-                  f"({prof['fir_ms'] / dev:.1%}), the other hand kernels "
-                  f"{prof['hand_ms'] - prof['fir_ms']:.1f} ms "
-                  f"({(prof['hand_ms'] - prof['fir_ms']) / dev:.1%}), the "
+                  f"({prof['fir_ms'] / dev:.1%}), the bin-domain stage (S1, "
+                  f"S2) {prof['spectral_ms']:.2f} ms "
+                  f"({prof['spectral_ms'] / dev:.1%}), the other hand "
+                  f"kernels {other:.1f} ms ({other / dev:.1%}), the "
                   f"profiler's rows of "
                   f"copies to the card {prof['h2d_ms']:.1f} ms "
                   f"({prof['h2d_ms'] / dev:.1%}); copy rows "

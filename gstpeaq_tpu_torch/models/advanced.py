@@ -124,17 +124,16 @@ class AdvancedPipeline(nn.Module):
         _, _, committed_fft = accum.activity(above_fft.T)   # [F, B]
         rblocks = framing.blocks_hop(ref_fft, n_fft)   # [B, CH, F+1, 1024]
         tblocks = framing.blocks_hop(test_fft, n_fft)
-        power, ref_uns, thresh, delta_p = FE.stateless_pair_hop(
-            kf, rblocks, tblocks, spread_ref_only=True)
+        ear = FE.stateless_pair_movs(kf, rblocks, tblocks,
+                                     spread_ref_only=True, bandwidth=False)
         ref_exc = FE.time_smear(
-            kf, ref_uns.transpose(-1, -2).contiguous(), axis=-1)
-        hi = kf.group_bin_hi
-        nmr_mean, _ = MOVS.nmr(
-            kf.group_matrix[:hi], kf.masking_difference, power[0][..., :hi],
-            power[1][..., :hi], ref_exc.transpose(-1, -2), delta_p)
-        ehs_val, ehs_valid = MOVS.ehs(
-            power[0], power[1], thresh[0], thresh[1], settings,
-            self.ehs_window, delta_p, kf.ehs_zero)
+            kf, ear.unsmeared.transpose(-1, -2).contiguous(), axis=-1)
+        nmr_mean, _ = MOVS.nmr_from_bands(
+            kf.masking_difference, ear.noise_in_bands,
+            ref_exc.transpose(-1, -2))
+        ehs_val, ehs_valid = MOVS.ehs_from_difference(
+            ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
+            self.ehs_window)
         cmf = committed_fft[..., None]
         one = torch.ones_like(fm(nmr_mean))
         seg_nmr = ch_mean(accum.avg(10.0 * torch.log10(fm(nmr_mean)), one,

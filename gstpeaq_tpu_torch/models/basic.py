@@ -4,8 +4,8 @@ pairs.
 `BasicPipeline.forward` maps padded 48 kHz signals [B, CH, T] (a batch of B
 pairs; one pair is B = 1) to ODG, DI and the MOVs per pair in three stages:
 
-  A  the stateless ear model over all frames and channels (rDFT, grouping,
-     spreading: kernel K3);
+  A  the stateless ear model over all frames and channels (frames: S1,
+     rDFT, the bin-domain stage: S2, spreading: K3);
   B  the recurrences over frames: time smearing (K1), the level adapter's
      stage-1 and the modulation smoothers (K2), the level adapter's
      num/den and pattern-correction smoothers (K1 twice);
@@ -149,12 +149,10 @@ class BasicPipeline(nn.Module):
         test_blocks = framing.blocks_hop(test_sig, n_frames)
 
         # ---- stage A: stateless ear model on both signals ----
-        power, unsmeared, thresh, delta_p = FE.stateless_pair_hop(
-            k, ref_blocks, test_blocks)
-        ref_p, test_p = power[0], power[1]
+        ear = FE.stateless_pair_movs(k, ref_blocks, test_blocks)
 
         # ---- stage B: recurrences over frames, in [2, B, CH, Z, F] ----
-        uns_t = unsmeared.transpose(-1, -2).contiguous()
+        uns_t = ear.unsmeared.transpose(-1, -2).contiguous()
         exc = FE.time_smear(k, uns_t, axis=-1)
         ref_e, test_e = exc[0], exc[1]                     # [B, CH, Z, F]
         adapted_ref, adapted_test, mod2, avg_loud2 = LA.level_adapt_fused_mod(
@@ -171,17 +169,15 @@ class BasicPipeline(nn.Module):
         nl = fm(MOVS.noise_loudness(
             k.internal_noise, 1.5, 0.15, 0.5, 0.0, mod_ref, mod_test,
             adapted_ref, adapted_test))
-        bw_ref, bw_test, bw_valid = (
-            fm(x) for x in MOVS.bandwidth(ref_p, test_p))
-        hi = k.group_bin_hi
-        nmr_mean, disturbed = (fm(x) for x in MOVS.nmr(
-            k.group_matrix[:hi], k.masking_difference, ref_p[..., :hi],
-            test_p[..., :hi], ref_e.transpose(-1, -2), delta_p))
+        bw_ref, bw_test, bw_valid = (fm(x) for x in ear.bandwidth)
+        nmr_mean, disturbed = (fm(x) for x in MOVS.nmr_from_bands(
+            k.masking_difference, ear.noise_in_bands,
+            ref_e.transpose(-1, -2)))
         p_bin, steps_bin = (x.T for x in MOVS.prob_detect(
             ref_e, test_e, settings.use_floor_for_steps_above_threshold))
-        ehs_val, ehs_valid = MOVS.ehs(
-            ref_p, test_p, thresh[0], thresh[1], settings, self.ehs_window,
-            delta_p, k.ehs_zero)
+        ehs_val, ehs_valid = MOVS.ehs_from_difference(
+            ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
+            self.ehs_window)
         ehs_val = fm(ehs_val)
 
         # ---- accumulate, [F, B, CH] -> [B] ----

@@ -74,26 +74,43 @@ def bandwidth(ref_power: torch.Tensor, test_power: torch.Tensor):
     return bw_ref.to(dtype), bw_test.to(dtype), bw_ref > 346
 
 
-def nmr(group_matrix: torch.Tensor, masking_difference: torch.Tensor,
-        ref_power: torch.Tensor, test_power: torch.Tensor,
-        ref_excitation: torch.Tensor, delta_power: torch.Tensor):
-    """NMR per frame and the disturbed-frame flag; src/movs.c:970-1023.
-
-    ref/test_power and delta_power (the exactly cancelled pr - pt of
-    fft_ear.stateless_pair_hop): [..., hi] over the grouping-supported
-    bins; group_matrix: [hi, Z] with the ear weight folded in;
-    ref_excitation: [..., Z].  The noise spectrum evaluates as
-    ((pr - pt) / (sqrt(pr) + sqrt(pt)))^2, algebraically
-    (sqrt(pr) - sqrt(pt))^2 without its cancellation.
-    Returns (nmr_mean, disturbed in {0, 1})."""
+def nmr_noise_bands(group_matrix: torch.Tensor, ref_power: torch.Tensor,
+                    test_power: torch.Tensor, delta_power: torch.Tensor):
+    """NMR's noise per band, the bin-domain half of nmr (src/movs.c:
+    970-1023).  ref/test_power and delta_power (the exactly cancelled
+    pr - pt of fft_ear): [..., hi] over the grouping-supported bins;
+    group_matrix: [hi, Z] with the ear weight folded in.  The noise
+    spectrum evaluates as ((pr - pt) / (sqrt(pr) + sqrt(pt)))^2,
+    algebraically (sqrt(pr) - sqrt(pt))^2 without its cancellation.
+    Returns [..., Z] with the 1e-12 floor."""
     denom = exact.sqrt(ref_power) + exact.sqrt(test_power)
     ratio = delta_power / torch.where(denom > 0.0, denom, 1.0)
-    noise_in_bands = torch.clamp_min((ratio * ratio) @ group_matrix, 1e-12)
+    return torch.clamp_min((ratio * ratio) @ group_matrix, 1e-12)
+
+
+def nmr_from_bands(masking_difference: torch.Tensor,
+                   noise_in_bands: torch.Tensor,
+                   ref_excitation: torch.Tensor):
+    """NMR per frame and the disturbed-frame flag from the noise per band
+    (nmr_noise_bands) and ref_excitation [..., Z], the band-domain half of
+    nmr.  Returns (nmr_mean, disturbed in {0, 1})."""
     nmr_vec = noise_in_bands / (ref_excitation / masking_difference)
     nmr_mean = torch.mean(nmr_vec, dim=-1)
     nmr_max = torch.amax(nmr_vec, dim=-1)
     disturbed = (nmr_max > C.ONE_POINT_FIVE_DB_POWER_FACTOR).to(nmr_mean.dtype)
     return nmr_mean, disturbed
+
+
+def nmr(group_matrix: torch.Tensor, masking_difference: torch.Tensor,
+        ref_power: torch.Tensor, test_power: torch.Tensor,
+        ref_excitation: torch.Tensor, delta_power: torch.Tensor):
+    """NMR per frame and the disturbed-frame flag; src/movs.c:970-1023:
+    nmr_noise_bands, then nmr_from_bands.  Returns (nmr_mean, disturbed in
+    {0, 1})."""
+    return nmr_from_bands(
+        masking_difference,
+        nmr_noise_bands(group_matrix, ref_power, test_power, delta_power),
+        ref_excitation)
 
 
 def prob_detect(e_ref: torch.Tensor, e_test: torch.Tensor,
@@ -132,26 +149,21 @@ def prob_detect(e_ref: torch.Tensor, e_test: torch.Tensor,
     return p_bin, steps_bin
 
 
-def ehs(ref_power: torch.Tensor, test_power: torch.Tensor,
-        ref_thresh: torch.Tensor, test_thresh: torch.Tensor,
-        settings: C.Settings, window: torch.Tensor,
-        delta_power: torch.Tensor, ehs_zero: torch.Tensor):
-    """Error harmonic structure per frame; src/movs.c:1345-1443.
+def ehs_log_difference(ref_power: torch.Tensor, test_power: torch.Tensor,
+                       delta_power: torch.Tensor,
+                       ehs_zero: torch.Tensor) -> torch.Tensor:
+    """EHS's log-spectral difference d = log(pt / pr) over the first 512
+    bins, the bin-domain half of ehs (src/movs.c:1345-1443).
 
-    ref/test_power: [CH, F, >=512] plain power spectra; delta_power: the
-    exactly cancelled pr - pt; ref/test_thresh: [CH, F] bool; window: the
-    [256] correlation window; ehs_zero: [512] dead-bin mask (the bins
+    ref/test_power: [..., >=512] plain power spectra; delta_power: the
+    exactly cancelled pr - pt; ehs_zero: [512] dead-bin mask (the bins
     whose ear weight is 0, where the reference's weighted spectra are
-    identically zero).  Returns (ehs_value [CH, F], valid [F]); the value
-    is meaningless where valid is False.
-
-    The log-spectral difference d = log(pt / pr) has two regimes: where
-    the distortion is small (|pr - pt| <= pr / 2) it is log1p(-(pr - pt) /
-    pr), exact zero for identical signals; where the test removed most of
-    a bin it is the direct log(pt / pr) (gstpeaq_tpu/models/movs.py:231-238).
-    """
+    identically zero).  d has two regimes: where the distortion is small
+    (|pr - pt| <= pr / 2) it is log1p(-(pr - pt) / pr), exact zero for
+    identical signals; where the test removed most of a bin it is the
+    direct log(pt / pr) (gstpeaq_tpu/models/movs.py:231-238).  Returns
+    [..., 512]."""
     n = C.MAXLAG
-    valid = torch.any(ref_thresh | test_thresh, dim=-2)   # over channels
     rw = ref_power[..., :2 * n]
     tw = test_power[..., :2 * n]
     ratio = delta_power[..., :2 * n] / rw
@@ -160,7 +172,19 @@ def ehs(ref_power: torch.Tensor, test_power: torch.Tensor,
                     torch.where(tw > 0.0, torch.log(tw_safe / rw),
                                 -math.inf))
     d = torch.where((rw == 0.0) & (tw == 0.0), 0.0, d)
-    d = torch.where(ehs_zero, 0.0, d)
+    return torch.where(ehs_zero, 0.0, d)
+
+
+def ehs_from_difference(d: torch.Tensor, ref_thresh: torch.Tensor,
+                        test_thresh: torch.Tensor, settings: C.Settings,
+                        window: torch.Tensor):
+    """Error harmonic structure per frame from the log-spectral difference
+    d [CH, F, 512] (ehs_log_difference), the rest of ehs.
+    ref/test_thresh: [CH, F] bool; window: the [256] correlation window.
+    Returns (ehs_value [CH, F], valid [F]); the value is meaningless where
+    valid is False."""
+    n = C.MAXLAG
+    valid = torch.any(ref_thresh | test_thresh, dim=-2)   # over channels
     # c[i] = sum_{k<256} d[k] d[k+i], through the frequency domain like the
     # reference
     f1 = torch.fft.rfft(d, dim=-1)
@@ -187,3 +211,20 @@ def ehs(ref_power: torch.Tensor, test_power: torch.Tensor,
     ascending = power[..., 1:] > power[..., :-1]
     ehs_val = torch.amax(torch.where(ascending, power[..., 1:], 0.0), dim=-1)
     return 1000.0 * ehs_val, valid
+
+
+def ehs(ref_power: torch.Tensor, test_power: torch.Tensor,
+        ref_thresh: torch.Tensor, test_thresh: torch.Tensor,
+        settings: C.Settings, window: torch.Tensor,
+        delta_power: torch.Tensor, ehs_zero: torch.Tensor):
+    """Error harmonic structure per frame; src/movs.c:1345-1443:
+    ehs_log_difference, then ehs_from_difference.
+
+    ref/test_power: [CH, F, >=512] plain power spectra; delta_power: the
+    exactly cancelled pr - pt; ref/test_thresh: [CH, F] bool; window: the
+    [256] correlation window; ehs_zero: [512] dead-bin mask.  Returns
+    (ehs_value [CH, F], valid [F]); the value is meaningless where valid
+    is False."""
+    return ehs_from_difference(
+        ehs_log_difference(ref_power, test_power, delta_power, ehs_zero),
+        ref_thresh, test_thresh, settings, window)

@@ -49,6 +49,9 @@ _SLOPE = (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P, _P)
 _SPREAD_FB = (_P, _P, _P, _F64, _P, _I64, _I64, _P)
 _DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P)
 _FIR_BANK = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I32, _P)
+_PAIR_FRAMES = (_P, _P, _I32, _P, _P, _P, _I64, _I64, _P)
+_SPECTRAL_MOVS = (_P, _P, _P, _P, _I32, _P, _I32, _P, _P, _P, _P, _P, _I64,
+                  _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,
@@ -64,6 +67,10 @@ SIGNATURES = {
     "peaq_dc_chain_f64": _DC_CHAIN,
     "peaq_fir_bank_f32": _FIR_BANK,
     "peaq_fir_bank_f64": _FIR_BANK,
+    "peaq_pair_frames_f32": _PAIR_FRAMES,
+    "peaq_pair_frames_f64": _PAIR_FRAMES,
+    "peaq_spectral_movs_f32": _SPECTRAL_MOVS,
+    "peaq_spectral_movs_f64": _SPECTRAL_MOVS,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -2,12 +2,16 @@
 
 The stateless part (Hann window, real FFT, playback level, outer/middle-ear
 weighting, critical-band grouping, internal noise, frequency spreading) runs
-over all frames and channels at once; the spreading is kernel K3 on the
-card.  The one stateful part, time-domain smearing, is a banded recurrence
-over frames: kernel K1.
+over all frames and channels at once.  On the card the pipelines take it
+through stateless_pair_movs: kernel S1 frames both signals, one rDFT
+transforms them, kernel S2 forms everything the MOVs read from the spectra
+(ops/cuda_spectral.py), and kernel K3 spreads.  The one stateful part,
+time-domain smearing, is a banded recurrence over frames: kernel K1.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -15,6 +19,7 @@ from torch import nn
 
 from .. import constants as C
 from .. import earparams as EP
+from . import cuda_spectral
 from . import cuda_spread_fft
 from . import iir
 
@@ -46,12 +51,20 @@ class FFTEarConsts(nn.Module):
     the last bin the grouping reads, plus one; dz02 = 0.2 * delta_z,
     rounded in the band dtype; a_le = lower_matrix[1, 0], the ratio aLe
     of the lower table lower[i, j] = aLe^(i-j) in the band dtype, which
-    K3's wrapper takes in place of the table (0.0 for one band)."""
+    K3's wrapper takes in place of the table (0.0 for one band).
+    group_span [3, Z] int32 and group_weights (spectrum dtype) are
+    group_matrix as S2's compact table (cuda_spectral.group_table), built
+    here once."""
 
     def __init__(self, tensors: dict[str, torch.Tensor], group_bin_hi: int):
         super().__init__()
         for name in CONST_FIELDS:
             self.register_buffer(name, tensors[name])
+        span, weights = cuda_spectral.group_table(
+            self.group_matrix.cpu().numpy())
+        for name, table in (("group_span", span), ("group_weights", weights)):
+            self.register_buffer(name, torch.as_tensor(
+                table, device=self.group_matrix.device))
         self.band_count = int(self.internal_noise.shape[0])
         self.group_bin_hi = int(group_bin_hi)
         np_dtype = _NUMPY_DTYPE[self.internal_noise.dtype]
@@ -165,6 +178,46 @@ def stateless_pair_hop(k: FFTEarConsts, ref_blocks: torch.Tensor,
     energy = torch.sum(torch.stack([ref, test])[..., 1:, :] ** 2, dim=-1)
     threshold_reached = energy >= C.EHS_ENERGY_THRESHOLD
     return power, unsmeared, threshold_reached, delta_power
+
+
+class PairMovs(NamedTuple):
+    """What the pipelines and the streams read of the stateless ear model
+    (stateless_pair_movs): unsmeared [2, ..., CH, F, Z] (or [..., CH, F, Z]
+    for the reference alone) in the band dtype; threshold [2, ..., CH, F]
+    bool, the EHS energy gate of (ref, test); in the spectrum dtype,
+    noise_in_bands [..., CH, F, Z] (NMR), ehs_difference [..., CH, F, 512]
+    (EHS) and bandwidth, (bw_ref, bw_test, valid) [..., CH, F] or None."""
+    unsmeared: torch.Tensor
+    threshold: torch.Tensor
+    noise_in_bands: torch.Tensor
+    ehs_difference: torch.Tensor
+    bandwidth: tuple | None
+
+
+def stateless_pair_movs(k: FFTEarConsts, ref_blocks: torch.Tensor,
+                        test_blocks: torch.Tensor,
+                        spread_ref_only: bool = False,
+                        bandwidth: bool = True) -> PairMovs:
+    """stateless_pair_hop and the bin-domain halves of MOVS.bandwidth,
+    MOVS.nmr and MOVS.ehs in two kernels around one rDFT: S1 frames (ref,
+    ref - test) and takes the hop energies, one batched rfft transforms
+    both, S2 forms the band powers, NMR's noise in bands, the bandwidth
+    indices and EHS's log-spectral difference, and the band powers, cast
+    to the band dtype with the internal noise added, go to K3.  The power
+    spectra never form.  spread_ref_only as stateless_pair_hop's;
+    bandwidth=False leaves the bandwidth out (the advanced path)."""
+    frames, energy = cuda_spectral.pair_frames(ref_blocks, test_blocks,
+                                               k.hann)
+    spectra = torch.view_as_real(torch.fft.rfft(frames, dim=-1))
+    del frames
+    s = cuda_spectral.spectral_movs(
+        spectra, k.level_factor, k.group_matrix, k.group_bin_hi,
+        k.group_span, k.group_weights, k.ehs_zero, spread_ref_only,
+        bandwidth)
+    unsmeared = spread(
+        k, s.band_power.to(k.internal_noise.dtype) + k.internal_noise)
+    return PairMovs(unsmeared, energy >= C.EHS_ENERGY_THRESHOLD,
+                    s.noise_in_bands, s.ehs_difference, s.bandwidth)
 
 
 def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor, axis: int = 0,

@@ -260,9 +260,10 @@ def _energy(state: dict, ref_blocks, test_blocks, sdtype) -> dict:
             "noise_energy": state["noise_energy"] + noise}
 
 
-def _fft_front(k, ref_sig, test_sig):
-    """Hop blocks, the threshold gate [N, F] and the stateless ear model of
-    an FFT-path chunk [N, CH, (F + 1) * 1024]."""
+def _fft_front(k, ref_sig, test_sig, bandwidth: bool):
+    """Hop blocks, the threshold gate [N, F] and the stateless ear model
+    (fft_ear.stateless_pair_movs, both signals spread, the bandwidth where
+    asked) of an FFT-path chunk [N, CH, (F + 1) * 1024]."""
     sdtype = k.hann.dtype
     n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
     ref_blocks = framing.blocks_hop(ref_sig, n_frames)
@@ -270,7 +271,8 @@ def _fft_front(k, ref_sig, test_sig):
     above = framing.above_threshold_signal(
         ref_sig.to(sdtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
     return (ref_blocks, test_blocks, above,
-            FE.stateless_pair_hop(k, ref_blocks, test_blocks))
+            FE.stateless_pair_movs(k, ref_blocks, test_blocks,
+                                   bandwidth=bandwidth))
 
 
 def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
@@ -283,10 +285,10 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     dtype, sdtype = k.internal_noise.dtype, k.hann.dtype
     ref_sig = framing.dequantize(ref_sig)
     test_sig = framing.dequantize(test_sig)
-    ref_blocks, test_blocks, above, (power, unsmeared, thresh, delta_p) = \
-        _fft_front(k, ref_sig, test_sig)
+    ref_blocks, test_blocks, above, ear = _fft_front(k, ref_sig, test_sig,
+                                                     bandwidth=True)
     n_frames = above.shape[-1]
-    uns_t = unsmeared.transpose(-1, -2).contiguous()    # [2, N, CH, Z, F]
+    uns_t = ear.unsmeared.transpose(-1, -2).contiguous()  # [2, N, CH, Z, F]
     exc, smear = FE.time_smear(k, uns_t, axis=-1,
                                state=state["smear"].movedim(1, 0),
                                return_state=True)
@@ -308,16 +310,14 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
         lev_wt=100.0)
     nl = MOVS.noise_loudness(k.internal_noise, 1.5, 0.15, 0.5, 0.0, mod_ref,
                              mod_test, adapted_ref, adapted_test)
-    bw_ref, bw_test, bw_valid = MOVS.bandwidth(power[0], power[1])
-    hi = k.group_bin_hi
-    nmr_mean, disturbed = MOVS.nmr(
-        k.group_matrix[:hi], k.masking_difference, power[0][..., :hi],
-        power[1][..., :hi], ref_e.transpose(-1, -2), delta_p)
+    bw_ref, bw_test, bw_valid = ear.bandwidth
+    nmr_mean, disturbed = MOVS.nmr_from_bands(
+        k.masking_difference, ear.noise_in_bands, ref_e.transpose(-1, -2))
     p_bin, steps_bin = MOVS.prob_detect(
         ref_e, test_e, settings.use_floor_for_steps_above_threshold)
-    ehs_val, ehs_valid = MOVS.ehs(
-        power[0], power[1], thresh[0], thresh[1], settings, pipe.ehs_window,
-        delta_p, k.ehs_zero)
+    ehs_val, ehs_valid = MOVS.ehs_from_difference(
+        ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
+        pipe.ehs_window)
 
     # ---- streaming accumulation ----
     act = _Activity(state["has_above"], above)
@@ -398,18 +398,18 @@ def fft_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     dtype, sdtype = kf.internal_noise.dtype, kf.hann.dtype
     ref_sig = framing.dequantize(ref_sig)
     test_sig = framing.dequantize(test_sig)
-    ref_blocks, test_blocks, above, (power, unsmeared, thresh, delta_p) = \
-        _fft_front(kf, ref_sig, test_sig)
-    exc, smear = FE.time_smear(kf, unsmeared.transpose(-1, -2).contiguous(),
+    ref_blocks, test_blocks, above, ear = _fft_front(kf, ref_sig, test_sig,
+                                                     bandwidth=False)
+    exc, smear = FE.time_smear(kf,
+                               ear.unsmeared.transpose(-1, -2).contiguous(),
                                axis=-1, state=state["smear"].movedim(1, 0),
                                return_state=True)
-    hi = kf.group_bin_hi
-    nmr_mean, _ = MOVS.nmr(kf.group_matrix[:hi], kf.masking_difference,
-                           power[0][..., :hi], power[1][..., :hi],
-                           exc[0].transpose(-1, -2), delta_p)
-    ehs_val, ehs_valid = MOVS.ehs(
-        power[0], power[1], thresh[0], thresh[1], settings, pipe.ehs_window,
-        delta_p, kf.ehs_zero)
+    nmr_mean, _ = MOVS.nmr_from_bands(kf.masking_difference,
+                                      ear.noise_in_bands,
+                                      exc[0].transpose(-1, -2))
+    ehs_val, ehs_valid = MOVS.ehs_from_difference(
+        ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
+        pipe.ehs_window)
     act = _Activity(state["has_above_fft"], above)
     every = torch.ones_like(above)
     one = torch.ones_like(nmr_mean)

@@ -9,12 +9,15 @@ archive`).  Each checkout runs in a subprocess of its own, its package
 imported from its root and its kernels built under its own
 gstpeaq_tpu_torch/_build/, in the order parent, this, this, parent.  Each
 run scores bench.py's 64 stereo 10 s pairs with its own tools/bench.py:
-basic float64 (microbatch 64; no FB ear, the control) and advanced
+basic float64, float32 and accurate (microbatch 64) and advanced
 float64, float32 and accurate (microbatch 32).  Per configuration: the
 staged rate (`bench()`: audio-s/s, the median of 3 repeats with the least
-and the most) and the device time of one staged batch (the sum of
-torch.profiler's device rows over one dispatch).  Prints the card's name
-and power limit, then one JSON object of the runs.
+and the most), the device time of one staged batch (the sum of
+torch.profiler's device rows over one dispatch) and its device operations
+(kernels and copies, the rows' counts), and the peak device memory of one
+staged dispatch (`max_memory_allocated`, the staged chunks included).
+Prints the card's name and power limit, then one JSON object of the
+runs.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
-CONFIGS = (("basic", "float64", 64), ("advanced", "float64", 32),
+CONFIGS = (("basic", "float64", 64), ("basic", "float32", 64),
+           ("basic", "accurate", 64), ("advanced", "float64", 32),
            ("advanced", "float32", 32), ("advanced", "accurate", 32))
 
 
@@ -50,15 +54,20 @@ def child(root: str) -> None:
         dispatch = B.staged(advanced, tier, microbatch, pairs)
         [o.cpu() for o in dispatch()]                  # warm
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        [o.cpu() for o in dispatch()]
+        peak = torch.cuda.max_memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             [o.cpu() for o in dispatch()]
             torch.cuda.synchronize()
-        device_ms = sum(e.self_device_time_total
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA) / 1e3
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in device) / 1e3
         out[f"{mode} {tier} ({microbatch})"] = {
-            **B.spread(rates), "device_ms": device_ms}
+            **B.spread(rates), "device_ms": device_ms,
+            "device_ops": sum(e.count for e in device),
+            "peak_gib": peak / 2**30}
         del dispatch
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

@@ -11,9 +11,15 @@ gstpeaq_tpu_torch/_build/, in the order parent, this, this, parent.  The
 program is 60 s of longform_bench.py's stereo program, fed in 1 s pieces
 at chunk_frames 64 (chip_smoke.py phase 10's chunk).  Per run and mode:
 the median wall of a chunk step over the first 30 s (the card synchronized
-before and after each step), the audio-s/s of a fresh stream over the
-whole 60 s, and that stream's peak device memory.  Prints the card's name
-and power limit, then one JSON object of the runs.
+before and after each step), for the basic step and for each path of the
+advanced stream (its FFT step and its FB step apart), each kind's device
+operations in one step (kernels and copies: the counts of
+torch.profiler's device rows over its fifth step, which is left out of
+the walls), the audio-s/s of a fresh stream over the whole 60 s (after
+the first stream's read, which takes the process's one-time costs), and
+that stream's peak device memory.
+Prints the card's name and power limit, then one JSON object of the
+runs.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ def child(root: str, program: str) -> None:
     """One checkout's readings, as a JSON line on stdout."""
     sys.path.insert(0, root)
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from gstpeaq_tpu_torch.parallel import stream as PS
     assert pathlib.Path(PS.__file__).resolve().is_relative_to(
         pathlib.Path(root).resolve()), PS.__file__
@@ -48,19 +57,31 @@ def child(root: str, program: str) -> None:
     for mode, cls in (("basic", PS.PeaqStream),
                       ("advanced", PS.PeaqStreamAdvanced)):
         stream = cls(chunk_frames=CHUNK, dtype="float64")
-        walls = []
+        walls, ops = {}, {}
         step = stream._step
 
-        def timed_step(*args):
+        def timed_step(path, *args):
+            name = path.step.__name__
             torch.cuda.synchronize()
+            if len(walls.get(name, ())) == 4 and name not in ops:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    step(path, *args)
+                    torch.cuda.synchronize()
+                ops[name] = sum(e.count for e in prof.key_averages()
+                                if e.device_type == DeviceType.CUDA)
+                return
             start = time.perf_counter()
-            step(*args)
+            step(path, *args)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - start)
+            walls.setdefault(name, []).append(time.perf_counter() - start)
 
         stream._step = timed_step
         for i in range(seconds // 2):
             stream.feed(ref[i * SR:(i + 1) * SR], test[i * SR:(i + 1) * SR])
+        # one read, so that the process's one-time costs of current() (its
+        # first cuBLAS call: a basic step makes none) stay out of the rate
+        stream.current()
         del stream
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -70,8 +91,10 @@ def child(root: str, program: str) -> None:
             stream.feed(ref[i * SR:(i + 1) * SR], test[i * SR:(i + 1) * SR])
         odg = stream.finalize().odg
         wall = time.perf_counter() - start
-        out[mode] = {"step_ms": statistics.median(walls) * 1e3,
-                     "steps": len(walls),
+        out[mode] = {"step_ms": {name: statistics.median(w) * 1e3
+                                 for name, w in walls.items()},
+                     "steps": {name: len(w) for name, w in walls.items()},
+                     "device_ops": ops,
                      "audio_s_per_s": seconds / wall,
                      "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
                      "odg": float(odg)}
