@@ -67,7 +67,10 @@ Phases, each on its own lines and ending with its seconds:
               at each K1 call site, F1 with a bound of its own (the taps
               inside each channel's nonzero window; the uniform conv's
               beside it) and its plain version, the cuDNN conv1d, as its
-              library call too, also at the hour's one shot, each kernel
+              library call too, also at the hour's one shot, at each
+              count of parts of its groups, and (fir_mma) the FP64 tensor
+              cores' rate per f64 mma shape (m8n8k4, m16n8k4, m16n8k8,
+              m16n8k16), each kernel
               at the streams' chunk shapes, K1 and K2 on a 10-minute
               program's one-shot FB rows [2, 1, 2, 40, 150000] with their
               plain versions and K1's library call, and peaq() wall time
@@ -84,7 +87,10 @@ Phases, each on its own lines and ending with its seconds:
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank (F1),
               the bin-domain stage (S1, S2), the other hand kernels and
-              the copies to the card
+              the copies to the card; then the basic path's two passes
+              over the whole signal alone (the threshold gate and the
+              energy totals) at the basic float64 batch's shape, and
+              their share of that batch's device time
   10 streams  parallel/stream.py on a 10-minute stereo program (drift
               corpus v2's 20 items at 30 s, end to end) fed in 1 s pieces
               at chunk_frames 64: PeaqStream and PeaqStreamAdvanced per
@@ -200,6 +206,7 @@ from gstpeaq_tpu_torch import cli
 from gstpeaq_tpu_torch import conformance
 from gstpeaq_tpu_torch import constants as C
 from gstpeaq_tpu_torch import earparams as EP
+from gstpeaq_tpu_torch.models import basic
 from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
@@ -2012,6 +2019,22 @@ def fir_parts(main: dict) -> None:
                   + "; every split bit-identical: True", flush=True)
 
 
+def fir_mma(rounds: int = 2048) -> None:
+    """The shape of F1's double mma: the FP64 tensor cores' rate per f64
+    mma shape (cuda_fir.mma_rate: 132 x 8 blocks of 8 warps, each warp
+    `rounds` rounds of 4 independent mma.sync on values in registers;
+    CUDA events, median of 5) in TFLOP/s.  F1 runs m16n8k8."""
+    out = torch.empty(132 * 8 * 256, dtype=torch.float64, device="cuda")
+    rates = []
+    for shape, (name, fma) in cuda_fir.MMA_SHAPES.items():
+        ms, _ = cuda_ms(lambda: cuda_fir.mma_rate(shape, rounds, out),
+                        calls=1, rounds=5, warmup=1)
+        flops = 2.0 * fma * 4 * rounds * (out.numel() // 32)
+        rates.append(f"{name} {flops / ms / 1e9:.1f}")
+    print("  fir_mma: FP64 tensor-core rate, TFLOP/s (67 the data sheet's "
+          "peak): " + ", ".join(rates) + "; F1 runs m16n8k8", flush=True)
+
+
 def phase_times(main: dict, batch: dict, stream: dict, pair10,
                 reps: int = 30) -> tuple[dict, dict, dict]:
     """Kernel and plain device times (cuda_ms), each kernel at its batch
@@ -2080,6 +2103,7 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
                   f"{c['plain_ms']:.4f} ms (median of 3)" + fir_note(
                       c["name"], c))
     fir_parts(main)
+    fir_mma()
     long = long_rows()
     hour = hour_times(pair10)
     medians = {}
@@ -2318,7 +2342,43 @@ def phase_batch(pairs, card: str) -> dict:
                   f"({prof['h2d_ms'] / dev:.1%}); copy rows "
                   f"{prof['copies']}", flush=True)
             print(prof["table"])
+    sample_passes(readings)
     return readings
+
+
+def sample_passes(readings: dict) -> None:
+    """The basic path's two passes over the whole signal, alone, at the
+    basic float64 batch's shape (64 pairs of 10 s stereo in their bucket,
+    [64, 2, 525312] samples): framing.above_threshold_signal (the gate)
+    on the reference and basic.energy_totals on its hop blocks and the
+    test's, each on random samples (cuda_ms, 10 calls a round), beside
+    the bytes bound of its input read once, and their sum's share of the
+    profiled device time of one basic float64 batch (readings)."""
+    n_frames = batch_shapes()["basic"][-1]
+    t = (n_frames + 1) * C.FFT_STEPSIZE
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    ref, test = (torch.randn((MICROBATCH["basic"], 2, t), generator=gen,
+                             device="cuda", dtype=torch.float64) * 0.1
+                 for _ in range(2))
+    blocks = [framing.blocks_hop(x, n_frames) for x in (ref, test)]
+    runs = {"above_threshold_signal": (lambda: framing.above_threshold_signal(
+                ref, n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE), (ref,)),
+            "energy_totals": (lambda: basic.energy_totals(
+                *blocks, None, torch.float64), (ref, test))}
+    total = 0.0
+    parts = []
+    for name, (fn, inputs) in runs.items():
+        ms, _ = cuda_ms(fn, calls=10)
+        total += ms
+        bound_ms = (sum(x.numel() * x.element_size() for x in inputs)
+                    / MEMORY_BYTES_PER_S * 1e3)
+        parts.append(f"{name} {ms:.4f} ms ({bound_ms / ms:.1%} of reading "
+                     f"its input once, {bound_ms:.4f} ms)")
+    dev = readings["basic", "float64"]["device_ms"]
+    print(f"  basic float64 sample-domain passes at [{MICROBATCH['basic']}, "
+          f"2, {t}]: " + ", ".join(parts) + f"; together {total:.3f} ms, "
+          f"{total / dev:.1%} of the profiled batch's {dev:.1f} ms of "
+          f"device time", flush=True)
 
 
 def stream_program() -> tuple[np.ndarray, np.ndarray]:

@@ -85,7 +85,8 @@ def nmr_noise_bands(group_matrix: torch.Tensor, ref_power: torch.Tensor,
     Returns [..., Z] with the 1e-12 floor."""
     denom = exact.sqrt(ref_power) + exact.sqrt(test_power)
     ratio = delta_power / torch.where(denom > 0.0, denom, 1.0)
-    return torch.clamp_min((ratio * ratio) @ group_matrix, 1e-12)
+    return torch.clamp_min(exact.band_sum(ratio * ratio, group_matrix),
+                           1e-12)
 
 
 def nmr_from_bands(masking_difference: torch.Tensor,
@@ -169,7 +170,7 @@ def ehs_log_difference(ref_power: torch.Tensor, test_power: torch.Tensor,
     ratio = delta_power[..., :2 * n] / rw
     tw_safe = torch.where(tw > 0.0, tw, 1.0)
     d = torch.where(torch.abs(ratio) <= 0.5, torch.log1p(-ratio),
-                    torch.where(tw > 0.0, torch.log(tw_safe / rw),
+                    torch.where(tw > 0.0, exact.log(tw_safe / rw),
                                 -math.inf))
     d = torch.where((rw == 0.0) & (tw == 0.0), 0.0, d)
     return torch.where(ehs_zero, 0.0, d)

@@ -49,6 +49,7 @@ _SLOPE = (_P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _I64, _P, _P)
 _SPREAD_FB = (_P, _P, _P, _F64, _P, _I64, _I64, _P)
 _DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P)
 _FIR_BANK = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I32, _P)
+_FIR_MMA_RATE = (_I32, _I64, _I32, _P, _P)
 _PAIR_FRAMES = (_P, _P, _I32, _P, _P, _P, _I64, _I64, _P)
 _SPECTRAL_MOVS = (_P, _P, _P, _P, _I32, _P, _I32, _P, _P, _P, _P, _P, _I64,
                   _P)
@@ -67,6 +68,7 @@ SIGNATURES = {
     "peaq_dc_chain_f64": _DC_CHAIN,
     "peaq_fir_bank_f32": _FIR_BANK,
     "peaq_fir_bank_f64": _FIR_BANK,
+    "peaq_fir_mma_rate": _FIR_MMA_RATE,
     "peaq_pair_frames_f32": _PAIR_FRAMES,
     "peaq_pair_frames_f64": _PAIR_FRAMES,
     "peaq_spectral_movs_f32": _SPECTRAL_MOVS,

@@ -39,6 +39,7 @@ import torch
 
 from .. import constants as C
 from . import _build
+from . import exact
 from . import iir
 from . import tile_scan
 from .cuda_spread_fft import lower_table
@@ -126,7 +127,7 @@ def spread_fb_plain(fb_re: torch.Tensor, fb_im: torch.Tensor,
     z = fb_re.shape[-2]
     dtype, device = fb_re.dtype, fb_re.device
     i_idx = torch.arange(z, device=device)
-    log_cu = torch.log(cu)[..., :, None, :]              # [..., Z, 1, I]
+    log_cu = exact.log(cu)[..., :, None, :]              # [..., Z, 1, I]
     ups_re, ups_im = [], []
     for jb in range(0, z, PLAIN_BLOCK):
         j = torch.arange(jb, min(jb + PLAIN_BLOCK, z), device=device)

@@ -14,14 +14,22 @@ The host plan (`fir_plan`, numpy, cached) finds each of the 80 channels'
 (40 real, 40 imaginary) nonzero window from the taps themselves, groups
 the bands GROUP_BANDS at a time in band order (8 channels a group, the n8
 of the double kernel's mma tiles; the windows nest, so a group's union is
-close to its longest band's), rounds each union out to K_ALIGN taps and
-packs each group's weights [K_g, 8] contiguously.  It also splits the
-groups into 1..MAX_PARTS parts of near-equal work: `launch_grid` gives a
-small grid (one pair, a chunk step) one block per part of each tile, so
-that every SM gets work, choosing the parts that finish soonest on the
-card's SMs.  The grid and the shared-memory strip are computed on the
-host in Python ints, so the one-hour one shot's 64-bit offsets are plain
-to check.
+close to its longest band's), rounds each union out to ALIGN taps and
+packs each group's weights [K_g, 8] contiguously, which the float kernel
+reads group by group.  It also splits the groups into 1..MAX_PARTS parts
+of near-equal covering work: `launch_grid` gives a small grid (one pair, a
+chunk step) one block per part of each tile, so that every SM gets work,
+choosing the parts that finish soonest on the card's SMs.  The double
+kernel walks taps outer and
+every covering group inner: `fir_layout` (cached) rounds the windows
+out to K_ALIGN taps (one k-step of its mma), cuts each part into passes
+of at most OPEN groups (the accumulators a thread holds) whose windows
+nest, each pass into segments of at most CHUNK taps over which the
+same groups cover every tap, and packs the weights k-major, for each
+k-step of a pass the fragments of the groups that cover it, one after
+another, so that a segment is one contiguous copy.  The grid and the
+shared-memory strip are computed on the host in Python ints, so the
+one-hour one shot's 64-bit offsets are plain to check.
 
 The wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  It
@@ -48,15 +56,21 @@ TAPS = C.FB_BUFFER_LENGTH       # 1456 lags, 0..1455
 FIR_BLOCKS = 47
 FIR_PAD = SUB * (FIR_BLOCKS - 1)
 # csrc/fir_bank.cu's constants: bands a group (its 8 channels are the N of
-# an mma.m8n8k4 tile), the k-step a window is rounded out to, and per
-# dtype the instants a block takes and the skew of its strip (values added
-# every 32 samples)
+# the double kernel's mma tiles), the taps a group's window is rounded out
+# to (the float kernel's; the double kernel's k-step, 8 taps: one
+# m16n8k8), the taps of weights a block stages at once, the groups a
+# double pass holds open, and per dtype the instants of a block and the
+# skew of its strip (values added every 32 samples)
 GROUP_BANDS = 4
-K_ALIGN = 4
-TILE_INSTANTS = {torch.float32: 512, torch.float64: 128}
+ALIGN = 4
+K_ALIGN = 8
+CHUNK = 32
+OPEN = 4
+TILE_INSTANTS = {torch.float32: 512, torch.float64: 256}
 SKEW = {torch.float32: 1, torch.float64: 4}
-CHUNK = 32                      # taps of weights a block stages at once
 MAX_PARTS = 4
+MAX_PASSES = 16
+MAX_SEGMENTS = 256
 # an H100's shared memory a SM, and what each block reserves of it
 SM_SHARED = 233472
 BLOCK_RESERVED = 1024
@@ -69,14 +83,14 @@ class FirPlan:
     history samples, then hp2): channel c's output at instant i is
     sum_j xs[32 i + j] w_c[j], w_c[j] = taps[c, FIR_PAD - j].
     channel_lo, channel_hi [80]: each channel's nonzero window of j; lo,
-    hi [G]: each group's union, rounded out to K_ALIGN; offset [G]: the
+    hi [G]: each group's union, rounded out to ALIGN; offset [G]: the
     first of the group's K_g x 8 values in `weights` (float64, [K_g, 8]
-    row-major, channels 4g..4g+3 real then imaginary); jbase: min(lo)
-    rounded down to 32; tables[p - 1]: the int64 table the kernel takes
-    for p parts, [jbase, lo, hi, offset, p, order, part_start] with the
-    groups in part order and where each part starts.  Its arrays are
-    read-only: the plan is cached, and compared and hashed as an object
-    (packed_weight's cache key)."""
+    row-major, channels 4g..4g+3 real then imaginary; the float kernel's
+    layout); jbase: min(lo) rounded down to 32; tables[p - 1]: the int64
+    table the float kernel takes for p parts, [jbase, lo, hi, offset, p,
+    order, part_start] with the groups in part order and where each part
+    starts.  Its arrays are read-only: the plan is cached, and compared
+    and hashed as an object (fir_layout's cache key)."""
     channel_lo: np.ndarray
     channel_hi: np.ndarray
     lo: np.ndarray
@@ -95,12 +109,19 @@ class FirPlan:
         table = self.tables[p - 1][1 + 3 * self.groups:]
         return table[1:1 + self.groups], table[1 + self.groups:]
 
+    def group_weights(self, g: int) -> np.ndarray:
+        """Group g's weights [K_g, 8], taps lo[g]..hi[g] - 1."""
+        k = self.hi[g] - self.lo[g]
+        return self.weights[self.offset[g]:self.offset[g] + 8 * k].reshape(
+            k, 8)
+
 
 def split(work: np.ndarray, p: int) -> tuple[np.ndarray, np.ndarray]:
     """The groups split into p parts of near-equal work (taps each):
     longest first, each to the part with the least so far (the lowest
     such part on a tie), each part's groups in band order.  Returns the
-    groups in part order and where each part starts."""
+    groups in part order and where each part starts.  The largest part
+    exceeds the smallest by at most the largest group's work."""
     load = [0] * p
     member = [[] for _ in range(p)]
     for g in sorted(range(len(work)), key=lambda g: (-work[g], g)):
@@ -143,8 +164,8 @@ def _plan(raw: bytes, shape: tuple) -> FirPlan:
         ch = group_channels(g)
         live = [c for c in ch if hi_c[c] > lo_c[c]]
         if live:
-            g_lo = min(lo_c[c] for c in live) // K_ALIGN * K_ALIGN
-            g_hi = -(-max(hi_c[c] for c in live) // K_ALIGN) * K_ALIGN
+            g_lo = min(lo_c[c] for c in live) // ALIGN * ALIGN
+            g_hi = -(-max(hi_c[c] for c in live) // ALIGN) * ALIGN
         else:
             g_lo = g_hi = 0
         j = np.arange(g_lo, g_hi)
@@ -173,26 +194,139 @@ def _plan(raw: bytes, shape: tuple) -> FirPlan:
     return out
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class FirLayout:
+    """What F1 reads in float64: lo, hi [G], the plan's windows rounded
+    out to K_ALIGN; per count of parts p: passes[p - 1],
+    each pass's groups in pass order; segments[p - 1], int64 [S, 5] rows
+    (j0, taps, cover, end, weights) in the order the parts' blocks walk
+    them; tables[p - 1], the int64 table the kernel takes: [jbase, lo, hi,
+    p, passes, S, order, pass_start, part_pass, part_seg, seg_x, seg_y];
+    and the packed weights of every split.  A part's groups, widest
+    window first, go into passes of at most OPEN groups whose windows
+    nest, so that the groups covering a tap are the pass's first `cover`.
+    A segment is a run of at most CHUNK taps of its pass from j0 over
+    which `cover` is constant; `end` marks a pass's last.  Its weights
+    start at `weights`: for each k-step of K_ALIGN taps the fragments of
+    its `cover` groups in pass order, 8 taps x 8 channels in mma B order
+    (value 32 h + l = tap 4 h + l % 4 of channel l // 4).  seg_x packs
+    j0 | taps << 12 | cover << 20 | end << 28; seg_y is `weights`."""
+    lo: np.ndarray
+    hi: np.ndarray
+    packed: np.ndarray
+    passes: tuple
+    segments: tuple
+    tables: tuple
+
+
+def _fragment(w: np.ndarray) -> np.ndarray:
+    """One k-step's weights [8 taps, 8] as the double kernel reads them."""
+    lane = np.arange(32)
+    return np.concatenate([w[4 * h + lane % 4, lane // 4] for h in (0, 1)])
+
+
+def _passes(lo: np.ndarray, hi: np.ndarray, groups, open_: int) -> list:
+    """A part's groups in passes: widest window first, each into the first
+    pass with room whose last window holds it, else a pass of its own."""
+    passes = []
+    for g in sorted(groups, key=lambda g: (lo[g] - hi[g], lo[g], g)):
+        for gs in passes:
+            h = gs[-1]
+            if len(gs) < open_ and lo[h] <= lo[g] and hi[g] <= hi[h]:
+                gs.append(int(g))
+                break
+        else:
+            passes.append([int(g)])
+    return passes
+
+
+def _segments(lo: np.ndarray, hi: np.ndarray, gs: list,
+              chunk: int) -> list:
+    """A pass's segments (j0, taps, cover, end) of at most `chunk` taps
+    over the union of its nested windows, the widest's."""
+    start, stop = int(lo[gs[0]]), int(hi[gs[0]])
+    bounds = sorted({start, stop, *(int(lo[g]) for g in gs),
+                     *(int(hi[g]) for g in gs)})
+    out = []
+    for a, b in zip(bounds, bounds[1:]):
+        cover = sum(1 for g in gs if lo[g] <= a < hi[g])
+        for j in range(a, b, chunk):
+            out.append([j, min(chunk, b - j), cover, 0])
+    if not out:
+        out.append([start, 0, 0, 0])
+    out[-1][3] = 1
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def fir_layout(plan: FirPlan) -> FirLayout:
+    """The passes, segments, tables and k-major packed weights of every
+    split of the plan, for F1 in float64."""
+    lo = plan.lo // K_ALIGN * K_ALIGN
+    hi = -(-plan.hi // K_ALIGN) * K_ALIGN
+    weights = []                   # each group's [K_g, 8] over [lo, hi)
+    for g in range(plan.groups):
+        w = np.zeros((hi[g] - lo[g], 2 * GROUP_BANDS))
+        w[plan.lo[g] - lo[g]:plan.hi[g] - lo[g]] = plan.group_weights(g)
+        weights.append(w)
+    chunks, all_passes, all_segments, tables = [], [], [], []
+    total = 0
+    for p in range(1, len(plan.tables) + 1):
+        order, start = plan.parts(p)
+        passes, part_pass, part_seg, segments = [], [0], [0], []
+        for a, b in zip(start, start[1:]):
+            for gs in _passes(lo, hi, order[a:b], OPEN):
+                passes.append(gs)
+                for j0, taps, cover, end in _segments(lo, hi, gs, CHUNK):
+                    segments.append((j0, taps, cover, end, total))
+                    for j in range(j0, j0 + taps, K_ALIGN):
+                        for g in gs[:cover]:
+                            k = j - lo[g]
+                            frag = _fragment(weights[g][k:k + K_ALIGN])
+                            chunks.append(frag)
+                            total += frag.size
+            part_pass.append(len(passes))
+            part_seg.append(len(segments))
+        seg = np.array(segments, np.int64)
+        seg_x = seg[:, 0] | seg[:, 1] << 12 | seg[:, 2] << 20 | seg[:, 3] << 28
+        tables.append(np.concatenate([
+            [plan.jbase], lo, hi, [p, len(passes), len(seg)],
+            np.concatenate(passes), np.cumsum([0] + [len(g) for g in passes]),
+            part_pass, part_seg, seg_x, seg[:, 4]]).astype(np.int64))
+        all_passes.append(tuple(tuple(gs) for gs in passes))
+        all_segments.append(seg)
+    out = FirLayout(lo, hi, np.concatenate(chunks), tuple(all_passes),
+                    tuple(all_segments), tuple(tables))
+    for a in (out.lo, out.hi, out.packed, *out.segments, *out.tables):
+        a.flags.writeable = False
+    return out
+
+
 def launch_grid(rows: int, t: int, dtype, plan: FirPlan,
                 sms: int) -> tuple[int, int, int, int, int]:
     """F1's launch for `rows` signal rows of t samples on a card of `sms`
     SMs, in Python ints: (tiles a row, parts, blocks = rows x tiles x
     parts, rows of 32 samples a block's strip holds, its shared-memory
-    bytes: two chunks of weights and the strip).  Block b takes part
+    bytes: two buffers of weights and the strip).  Block b takes part
     b % parts of the groups at row (b // parts) // tiles and instants from
     TILE_INSTANTS ((b // parts) % tiles); its strip covers xs from
     32 i0 + jbase through the last tap of its last instant.  A grid that
     fills the blocks the SMs hold at once is not split; a smaller one takes
     the parts whose blocks finish soonest: the waves of blocks times the
-    largest part's share of the taps (the fewest parts on a tie)."""
+    largest part's share of the covering work (the fewest parts on a
+    tie), in float64 among the splits whose passes and segments the
+    kernel's plan holds (MAX_PASSES, MAX_SEGMENTS); a plan whose one part
+    does not fit raises."""
     n_inst = t // SUB
     tile = TILE_INSTANTS[dtype]
     tiles = -(-n_inst // tile)
-    span = SUB * (tile - 1) + int(plan.hi.max()) - plan.jbase
+    double = dtype == torch.float64
+    hi = fir_layout(plan).hi if double else plan.hi
+    span = SUB * (tile - 1) + int(hi.max()) - plan.jbase
     strip_rows = -(-span // SUB)
     item = torch.empty((), dtype=dtype).element_size()
-    smem = (2 * CHUNK * 2 * GROUP_BANDS + strip_rows * (SUB + SKEW[dtype])) \
-        * item
+    weights = CHUNK * 2 * GROUP_BANDS * (OPEN if double else 1)
+    smem = (2 * weights + strip_rows * (SUB + SKEW[dtype])) * item
     slots = sms * (SM_SHARED // (smem + BLOCK_RESERVED))
     work = plan.hi - plan.lo
 
@@ -202,8 +336,18 @@ def launch_grid(rows: int, t: int, dtype, plan: FirPlan,
                       for q in range(p))
         return -(-rows * tiles * p // slots) * largest / max(work.sum(), 1)
 
+    fits = range(1, len(plan.tables) + 1)
+    if double:
+        layout = fir_layout(plan)
+        fits = [p for p in fits if len(layout.passes[p - 1]) <= MAX_PASSES
+                and len(layout.segments[p - 1]) <= MAX_SEGMENTS]
+    if 1 not in fits:
+        raise ValueError(f"fir_bank: the plan's {len(layout.passes[0])} "
+                         f"passes in {len(layout.segments[0])} segments "
+                         f"exceed the kernel's {MAX_PASSES} / "
+                         f"{MAX_SEGMENTS}")
     parts = 1 if rows * tiles >= slots else min(
-        range(1, len(plan.tables) + 1), key=lambda p: (finish(p), p))
+        fits, key=lambda p: (finish(p), p))
     return tiles, parts, rows * tiles * parts, strip_rows, smem
 
 
@@ -215,17 +359,20 @@ def sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=16)
 def packed_weight(plan: FirPlan, dtype, device) -> torch.Tensor:
-    """The plan's packed weights as a tensor F1 reads, cached per (plan,
-    dtype, device), so that the layout always matches the dtype it is read
-    in: in float64 each k-step's [4 taps, 8 channels] stored [8, 4], the
-    order of an mma B fragment (lane l holds tap l % 4 of channel l // 4),
-    so that a warp reads 32 consecutive values; in float32 [K, 8] row-major.
-    The tensor is shared: callers do not write to it."""
-    w = plan.weights
-    if dtype == torch.float64:
-        w = w.reshape(-1, K_ALIGN, 2 * GROUP_BANDS).transpose(0, 2, 1)
-    return torch.tensor(np.ascontiguousarray(w).reshape(-1), dtype=dtype,
-                        device=device)
+    """The weights F1 reads in `dtype`, cached per (plan, dtype, device),
+    so that the layout always matches the dtype it is read in: in float64
+    fir_layout(plan).packed (k-major), in float32 plan.weights (group by
+    group).  The tensor is shared: callers do not write to it."""
+    w = fir_layout(plan).packed if dtype == torch.float64 else plan.weights
+    return torch.tensor(w, dtype=dtype, device=device)
+
+
+def kernel_table(plan: FirPlan, dtype, parts: int) -> np.ndarray:
+    """The int64 table F1 takes in `dtype` for the split into `parts`
+    parts: fir_layout(plan).tables in float64, plan.tables in float32."""
+    tables = fir_layout(plan).tables if dtype == torch.float64 \
+        else plan.tables
+    return tables[parts - 1]
 
 
 def fir_bank_plain(hp2: torch.Tensor, weight: torch.Tensor,
@@ -279,10 +426,33 @@ def fir_bank(hp2: torch.Tensor, weight: torch.Tensor, plan: FirPlan,
         return re, im
     tiles, parts, _, strip_rows, _ = launch_grid(
         rows, t, x.dtype, plan, sm_count(x.device.index))
+    table = kernel_table(plan, x.dtype, parts)
     _build.launch("fir_bank", x, x.data_ptr(),
                   None if hist is None else hist.data_ptr(),
                   packed.data_ptr(), re.data_ptr(), im.data_ptr(), rows, t,
-                  tiles, strip_rows, plan.tables[parts - 1].ctypes.data,
-                  plan.groups)
+                  tiles, strip_rows, table.ctypes.data, plan.groups)
     fir_bank_launches += 1
     return re, im
+
+
+# the f64 mma shapes csrc/fir_bank.cu's mma_rate_kernel times: id ->
+# (name, multiply-adds a warp's instruction)
+MMA_SHAPES = {0: ("m8n8k4", 8 * 8 * 4), 1: ("m16n8k4", 16 * 8 * 4),
+              2: ("m16n8k8", 16 * 8 * 8), 3: ("m16n8k16", 16 * 8 * 16)}
+
+
+def mma_rate(shape: int, iters: int, out: torch.Tensor) -> None:
+    """Launch the FP64 tensor cores' rate probe of mma shape `shape`
+    (MMA_SHAPES) on `out`'s card: out.numel() / 256 blocks of 8 warps,
+    each running `iters` rounds of 4 independent mma.sync; out: float64
+    [blocks x 256], contiguous, takes each thread's sums.  Not counted:
+    no path of the port runs it (chip_smoke.py phase 7 does)."""
+    _build.require("fir_mma_rate", out)
+    if out.dtype != torch.float64 or out.numel() % 256:
+        raise ValueError("mma_rate: out must be float64, 256 a block")
+    lib = _build.library()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.peaq_fir_mma_rate(shape, iters, out.numel() // 256,
+                                           out.data_ptr(), stream),
+                     "fir_mma_rate")

@@ -41,6 +41,7 @@ import torch
 from .. import constants as C
 from ..models import movs as MOVS
 from . import _build
+from . import exact
 
 HOP = C.FFT_STEPSIZE                 # 1024 samples a hop block
 FRAME = C.FFT_FRAMESIZE              # 2048 samples a frame
@@ -63,24 +64,6 @@ class Spectral(NamedTuple):
     noise_in_bands: torch.Tensor
     ehs_difference: torch.Tensor
     bandwidth: tuple | None
-
-
-def group_table(group_matrix: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """The grouping matrix [bins, Z] as S2's compact table: span [3, Z]
-    int32 of each band's first bin, its bin count (from the first to the
-    last nonzero weight) and where its weights start in `weights`, the
-    bands' weight runs one after another (zeros inside a run kept).  A
-    band without a nonzero weight has count 0."""
-    gm = np.asarray(group_matrix)
-    span = np.zeros((3, gm.shape[1]), np.int32)
-    runs = []
-    for b in range(gm.shape[1]):
-        nz = np.flatnonzero(gm[:, b])
-        if nz.size:
-            span[0, b], span[1, b] = nz[0], nz[-1] + 1 - nz[0]
-        span[2, b] = sum(len(r) for r in runs)
-        runs.append(gm[span[0, b]:span[0, b] + span[1, b], b])
-    return span, np.concatenate(runs) if runs else np.zeros(0, gm.dtype)
 
 
 def _framed(blocks: torch.Tensor) -> torch.Tensor:
@@ -166,7 +149,8 @@ def spectral_movs_plain(spectra: torch.Tensor, level_factor: torch.Tensor,
                     + d_im[..., :hi] * (r_im[..., :hi] + t_im[..., :hi]))
                    * level_factor)
     band_power = torch.clamp_min(
-        (power[0] if ref_only else power) @ group_matrix, 1e-12)
+        exact.band_sum(power[0] if ref_only else power, group_matrix),
+        1e-12)
     noise = MOVS.nmr_noise_bands(group_matrix[:hi], power[0][..., :hi],
                                  power[1][..., :hi], delta_power)
     d = MOVS.ehs_log_difference(power[0], power[1], delta_power, ehs_zero)
@@ -182,8 +166,8 @@ def spectral_movs(spectra: torch.Tensor, level_factor: torch.Tensor,
     """S2: spectral_movs_plain.  spectra: [2, ..., F, 1025, 2] (the real
     view of the complex rDFTs of (ref, ref - test)), contiguous;
     level_factor: 0-d; group_matrix / group_bin_hi: the plain version's
-    grouping, group_span / group_weights: the kernel's (group_table of the
-    same matrix); ehs_zero: [512] bool.  With ref_only only the reference
+    grouping, group_span / group_weights: the kernel's (exact.group_table
+    of the same matrix); ehs_zero: [512] bool.  With ref_only only the reference
     is grouped; bandwidth=False leaves the bandwidth out (None)."""
     global spectral_movs_launches
     if spectra.device.type == "cpu":

@@ -56,7 +56,7 @@ def spread_fft_plain(pitch_power: torch.Tensor, a_uc: torch.Tensor,
     n_up = z - torch.arange(z, dtype=dtype, device=device)
     g_iu = (1.0 - a_uce ** n_up) / (1.0 - a_uce)
     ene = (pitch_power / (g_il + g_iu - 1.0)) ** 0.4
-    log_a = (0.4 * torch.log(a_uce))[..., None]           # [..., Z, 1]
+    log_a = (0.4 * exact.log(a_uce))[..., None]           # [..., Z, 1]
     e2 = ene @ lower_matrix
     i_idx = torch.arange(z, dtype=dtype, device=device)[:, None]
     chunks = []

@@ -21,6 +21,7 @@ from .. import constants as C
 from .. import earparams as EP
 from . import cuda_spectral
 from . import cuda_spread_fft
+from . import exact
 from . import iir
 
 # the tensors of FFTEarConsts, in the JAX package's field names
@@ -53,14 +54,14 @@ class FFTEarConsts(nn.Module):
     of the lower table lower[i, j] = aLe^(i-j) in the band dtype, which
     K3's wrapper takes in place of the table (0.0 for one band).
     group_span [3, Z] int32 and group_weights (spectrum dtype) are
-    group_matrix as S2's compact table (cuda_spectral.group_table), built
+    group_matrix as S2's compact table (exact.group_table), built
     here once."""
 
     def __init__(self, tensors: dict[str, torch.Tensor], group_bin_hi: int):
         super().__init__()
         for name in CONST_FIELDS:
             self.register_buffer(name, tensors[name])
-        span, weights = cuda_spectral.group_table(
+        span, weights = exact.group_table(
             self.group_matrix.cpu().numpy())
         for name, table in (("group_span", span), ("group_weights", weights)):
             self.register_buffer(name, torch.as_tensor(
@@ -118,7 +119,7 @@ def group_into_bands(k: FFTEarConsts, spectrum: torch.Tensor) -> torch.Tensor:
     """Critical-band grouping with the 1e-12 floor;
     src/fftearmodel.c:603-620.  spectrum: the POWER spectrum [..., bins]
     -> [..., Z] (the ear weight is folded into k.group_matrix)."""
-    return torch.clamp_min(spectrum @ k.group_matrix, 1e-12)
+    return torch.clamp_min(exact.band_sum(spectrum, k.group_matrix), 1e-12)
 
 
 def spread(k: FFTEarConsts, pitch_power: torch.Tensor) -> torch.Tensor:

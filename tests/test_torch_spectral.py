@@ -14,6 +14,9 @@ bandwidth 0 and of bandwidth above 346.  The compact group table S2 reads
 is held to the grouping matrix.
 """
 
+import pathlib
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,8 +33,10 @@ from gstpeaq_tpu_torch import earparams as EP
 from gstpeaq_tpu_torch.models import movs as MOVS
 from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_spectral
+from gstpeaq_tpu_torch.ops import exact
 from gstpeaq_tpu_torch.ops import fft_ear as FE
 
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 FRAMES = 24
 # (band count, spread_ref_only, bandwidth): basic, advanced, the advanced
 # FFT chunk step (both signals, no bandwidth), a non-default band count
@@ -368,3 +373,90 @@ def test_spectral_entries_are_bound():
     assert f"constexpr int kRefOnly = {cuda_spectral.REF_ONLY};" in text
     assert f"constexpr int kBandwidth = {cuda_spectral.BANDWIDTH};" in text
     assert f"constexpr int kEhsBins = {cuda_spectral.EHS_BINS};" in text
+
+
+def offset_copy(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """x copied into a fresh buffer `offset` elements past its start."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def pair_movs_values(k, ref, test) -> list:
+    ear = FE.stateless_pair_movs(k, ref, test)
+    return [ear.unsmeared, ear.threshold, ear.noise_in_bands,
+            ear.ehs_difference, *ear.bandwidth]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plain_route_is_steady_across_buffers_and_threads(dtype):
+    """The plain stateless_pair_movs gives the same bits for the same
+    inputs copied to buffers 1, 3 and 7 elements off their start, at 1, 3
+    and 8 intra-op threads, and on a fresh Python thread (ROADMAP.md queue
+    C, C5: EHS's log on a worker thread's first call)."""
+    k = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT), dtype)
+    ref, test = (tt(x) for x in branch_blocks())
+    want = pair_movs_values(k, ref, test)
+    threads = torch.get_num_threads()
+    got = []
+    try:
+        for offset, n in ((1, 1), (3, 3), (7, 8)):
+            torch.set_num_threads(n)
+            got.append(pair_movs_values(k, offset_copy(ref, offset),
+                                        offset_copy(test, offset)))
+        worker = threading.Thread(target=lambda: got.append(
+            pair_movs_values(k, offset_copy(ref, 5), offset_copy(test, 5))))
+        worker.start()
+        worker.join()
+    finally:
+        torch.set_num_threads(threads)
+    assert len(got) == 4
+    for values in got:
+        for g, w in zip(values, want):
+            assert torch.equal(g, w)
+
+
+def test_band_sum_is_the_span_sum(monkeypatch):
+    """exact.band_sum on the CPU is each band's run (group_table, the
+    table FFTEarConsts holds for S2) summed from 0 in ascending bins, bit
+    for bit, for group_matrix and its [:group_bin_hi] rows; the table is
+    built once per matrix view, and again only after the matrix changes
+    (C5)."""
+    k = FE.build_consts(EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT))
+    hi = k.group_bin_hi
+    rng = np.random.default_rng(12)
+    x = tt(10.0 ** rng.uniform(-3, 8, (3, 5, k.group_matrix.shape[0])))
+    span, weights = k.group_span.numpy(), k.group_weights.numpy()
+    want = np.zeros((3, 5, span.shape[1]))
+    for m in range(span[1].max()):
+        inside = m < span[1]
+        row = np.where(inside, span[0] + m, 0)
+        w = np.where(inside, weights[np.where(inside, span[2] + m, 0)], 0.0)
+        want = want + x.numpy()[..., row] * w
+    built = []
+    group_table = exact.group_table
+
+    def counted(gm):
+        built.append(gm.shape)
+        return group_table(gm)
+
+    monkeypatch.setattr(exact, "group_table", counted)
+    matrix = k.group_matrix.clone()
+    for _ in range(2):
+        np.testing.assert_array_equal(exact.band_sum(x, matrix).numpy(), want)
+        np.testing.assert_array_equal(
+            exact.band_sum(x[..., :hi], matrix[:hi]).numpy(), want)
+    assert len(built) == 2
+    matrix.mul_(2.0)
+    np.testing.assert_array_equal(exact.band_sum(x, matrix).numpy(),
+                                  2.0 * want)
+    assert len(built) == 3
+
+
+def test_port_takes_every_log_from_exact():
+    """No module of the port calls torch.log but ops/exact.py."""
+    root = ROOT / "gstpeaq_tpu_torch"
+    calls = [str(p.relative_to(root)) for p in root.rglob("*.py")
+             if "torch.log(" in p.read_text() and p.name != "exact.py"]
+    assert calls == []
