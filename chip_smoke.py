@@ -6,7 +6,7 @@ and check it.  Run from the repository root:
 
 Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
-  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1 and S2 from
+  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1, S2 and G1 from
               gstpeaq_tpu_torch/csrc, one process per source, and ptxas
               reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
@@ -24,12 +24,19 @@ Phases, each on its own lines and ending with its seconds:
               float64 blocks, one frame and a view, S2 with each call
               site's flags and on rows that take each of its branches:
               silent, identical, a removed bin, a zero test, bandwidth 0;
-              their bandwidth indices and gate bits equal) and at the
+              their bandwidth indices and gate bits equal, S1's halves
+              within the bars; G1, the data-boundary gate, bit for bit
+              against the plain gate, with float32 and float64 samples,
+              on the pair's FFT and FB frames and on edge rows: one ulp
+              either side of the threshold, windows across a hop
+              boundary and at frame-local i < 5, one channel crossing, a
+              NaN, mono and 3 channels, one frame, views) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
-              pool's 16; S1 and S2 on each FFT step's blocks) with
+              pool's 16; S1 and S2 on each FFT step's blocks, G1 on
+              every step's chunk) with
               their carried states (K1 and D1 with y0, D3 with
               its state, D1 and D2 on a second FB chunk of the pair's own
               rows; F1 with the first chunk as history), in float32 and
@@ -53,8 +60,9 @@ Phases, each on its own lines and ending with its seconds:
               within 1e-5, a bar that float32 (the control) must miss
   6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
               each with the counts set to 0 just before it: the advanced
-              call goes through all nine kernels and no conv1d (every
-              counted run of phases 6 and 10-13 is held to none); then
+              call goes through all ten kernels, no conv1d and no plain
+              gate on the card (every counted run of phases 6 and 10-13
+              is held to none); then
               one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
               launches each kernel as often as one peaq() does, and one
@@ -86,11 +94,12 @@ Phases, each on its own lines and ending with its seconds:
               (gstpeaq_tpu_torch/tools/bench.py), the phases' wall times,
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank (F1),
-              the bin-domain stage (S1, S2), the other hand kernels and
-              the copies to the card; then the basic path's two passes
-              over the whole signal alone (the threshold gate and the
-              energy totals) at the basic float64 batch's shape, and
-              their share of that batch's device time
+              the bin-domain stage (S1, S2), the gate (G1), the other
+              hand kernels and the copies to the card; then, at the basic
+              float64 batch's shape with float32 and float64 samples, G1
+              and the energy totals summed from S1's halves beside the
+              eager passes over the whole signal they replaced, and each
+              side's share of that batch's device time
   10 streams  parallel/stream.py on a 10-minute stereo program (drift
               corpus v2's 20 items at 30 s, end to end) fed in 1 s pieces
               at chunk_frames 64: PeaqStream and PeaqStreamAdvanced per
@@ -149,8 +158,8 @@ times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
 operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64; F1 67 on
 the FP64 tensor cores), counted from this run's main-shape inputs;
 `library_ms` is K1's grouped causal conv1d at its main shape and F1's
-cuDNN conv1d (its plain version), and null for the other kernels, S1 and
-S2 among them, since no single PyTorch call computes their functions;
+cuDNN conv1d (its plain version), and null for the other kernels, S1, S2
+and G1 among them, since no single PyTorch call computes their functions;
 `launches_by_path` holds phase 6's
 float32 count per path (basic, advanced, and one microbatch of 32 of
 each batch path; 0 where a path does not launch the kernel), `launches`
@@ -211,6 +220,7 @@ from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import cuda_fir
+from gstpeaq_tpu_torch.ops import cuda_gate
 from gstpeaq_tpu_torch.ops import cuda_iir
 from gstpeaq_tpu_torch.ops import cuda_spectral
 from gstpeaq_tpu_torch.ops import cuda_spread_fft
@@ -245,6 +255,7 @@ BATCH_PAIRS = 64
 MICROBATCH = {"basic": 64, "advanced": 32}
 TIERS = ("float64", "float32", "accurate")
 DTYPES = (torch.float32, torch.float64)
+DTYPES_NP = {torch.float32: np.float32, torch.float64: np.float64}
 MODES = ("basic", "advanced")
 KERNELS = {
     "recurrence_banded": dict(
@@ -283,6 +294,12 @@ KERNELS = {
                  "gstpeaq_tpu/models/movs.py:65, "
                  "gstpeaq_tpu/models/movs.py:101, "
                  "gstpeaq_tpu/models/movs.py:175"),
+    # not a TPU kernel either: it replaces the port's eager data-boundary
+    # gate, standing for XLA's fusion of the JAX package's
+    # above_threshold_signal
+    "frame_gate": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/gate.cu",
+        replaces="gstpeaq_tpu/ops/framing.py:92"),
 }
 # the kernels of the bin-domain stage (S1, S2)
 SPECTRAL = ("pair_frames", "spectral_movs")
@@ -296,6 +313,7 @@ COUNTERS = {
     "fir_bank": (cuda_fir, "fir_bank_launches"),
     "pair_frames": (cuda_spectral, "pair_frames_launches"),
     "spectral_movs": (cuda_spectral, "spectral_movs_launches"),
+    "frame_gate": (cuda_gate, "frame_gate_launches"),
 }
 # max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
 # carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
@@ -344,30 +362,31 @@ TOOL_CHUNK = 1024
 # advanced FFT, K1 for the time smear of both signals and K3; advanced FB,
 # D3, F1, D1 and D2 once on both signals, K1 for the forward masking, the
 # level adapter's three and the modulation; K2 never (its kernel takes no
-# state); S1 and S2 once in each FFT step
+# state); S1 and S2 once in each FFT step; G1 once in every step
 STREAM_STEP_LAUNCHES = {
     "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
-              "spectral_movs": 1},
+              "spectral_movs": 1, "frame_gate": 1},
     "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
                      "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
-                     "spectral_movs": 1},
+                     "spectral_movs": 1, "frame_gate": 1},
     "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
                     "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
                     "dc_chain": 1, "fir_bank": 1, "pair_frames": 0,
-                    "spectral_movs": 0}}
-# each mode's launches in one peaq() (phase 6; the CLI runs one)
+                    "spectral_movs": 0, "frame_gate": 1}}
+# each mode's launches in one peaq() (phase 6; the CLI runs one): G1 gates
+# the basic path once and the advanced path's FFT and FB frames once each
 PATH_LAUNCHES = {
     "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
-              "spectral_movs": 1},
+              "spectral_movs": 1, "frame_gate": 1},
     "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
                  "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
                  "dc_chain": 1, "fir_bank": 1, "pair_frames": 1,
-                 "spectral_movs": 1}}
+                 "spectral_movs": 1, "frame_gate": 2}}
 # phase 10's bars: a float64 stream against the one-shot peaq() of the same
 # program, and the float32 / accurate streams against their own one-shot
 # (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
@@ -399,6 +418,10 @@ def ops_of(name: str, inputs) -> float:
         # spectrum (5), d (4), and ~1.5 band weights a bin for each of the
         # three band sums (9)
         return 34 * inputs[0].numel() // 4
+    if name == "frame_gate":
+        # per sample and channel: |x| (1), the window's four adds (4), the
+        # maximum over channels (1) and its hop's two maxima (2)
+        return 8 * inputs[0].numel()
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
     per_element = {"recurrence_banded": 2,      # a y + b
@@ -887,7 +910,8 @@ def frames_case(k, label: str, blocks) -> Case:
 def spectra_of(k, blocks) -> torch.Tensor:
     """The rDFTs S2 reads, [2, ..., F, 1025, 2]: S1's plain frames of
     `blocks` through one torch.fft.rfft."""
-    frames, _ = cuda_spectral.pair_frames_plain(blocks[0], blocks[1], k.hann)
+    frames = cuda_spectral.pair_frames_plain(blocks[0], blocks[1],
+                                             k.hann)[0]
     return torch.view_as_real(torch.fft.rfft(frames, dim=-1))
 
 
@@ -914,16 +938,20 @@ def spectral_check(name: str, got, want, dtype) -> tuple[float, float, bool,
                                                          str]:
     """S1 or S2 against its plain version: each floating output within
     BARS (max|d| / max|ref| over its finite values, each non-finite value
-    equal in place and value), S1's gate bits (energy >= the EHS
-    threshold) and S2's bandwidth indices and validity equal.  Returns the
+    equal in place and value; S1's frames, energies and halves), S1's
+    gate bits (energy >= the EHS threshold) and S2's bandwidth indices and
+    validity equal.  Returns the
     largest max|d|, the largest relative error, whether all holds, and a
     note for the case's line."""
     if name == "pair_frames":
         pairs = list(zip(got, want))
         exact = torch.equal(got[1] >= C.EHS_ENERGY_THRESHOLD,
                             want[1] >= C.EHS_ENERGY_THRESHOLD)
+        halves = ((got[2] - want[2]).abs().max()
+                  / want[2].abs().max().clamp_min(torch.finfo(dtype).tiny))
         note = (f", frames bit-identical: {torch.equal(got[0], want[0])}, "
-                f"gate bits equal: {exact}")
+                f"gate bits equal: {exact}, halves max|d|/max|ref| "
+                f"{halves.item():.3e}")
     else:
         pairs = list(zip(got[:3], want[:3]))
         exact = (got.bandwidth is None) == (want.bandwidth is None)
@@ -994,6 +1022,170 @@ def spectral_cases(dtype, pair10) -> list:
     return cases
 
 
+# G1's two frame forms (frame, hop): the FFT ear's and the FB ear's
+GATE_FORMS = {"FFT": (C.FFT_FRAMESIZE, C.FFT_STEPSIZE),
+              "FB": (C.FB_FRAMESIZE, C.FB_FRAMESIZE)}
+# the FB frames of the 10 s pair (phase 3's per-pair FB case)
+FB_PAIR_FRAMES = 10 * C.SAMPLING_RATE // C.FB_FRAMESIZE
+# G1's tile, in bytes of the spectrum type (csrc/gate.cu kTileBytes)
+GATE_TILE_BYTES = 16384
+
+
+# gate_signal's references by (lead, t), made once for both spectrum types
+# and dropped after phase 7
+GATE_SIGNALS = {}
+
+
+def gate_signal(pair10, lead: int, t: int) -> torch.Tensor:
+    """A reference [lead, CH, t] float32 on the card: the 10 s pair's
+    channels tiled to t samples, each of `lead` rows rolled by an offset of
+    its own (none for one row), then silenced over one stretch and brought
+    near the threshold (x 2.4e-3) over another, each of its own length, so
+    that the frames take both bits.  Made once per (lead, t) (the run has
+    one 10 s pair) and kept in GATE_SIGNALS."""
+    if (lead, t) in GATE_SIGNALS:
+        return GATE_SIGNALS[lead, t]
+    x = torch.as_tensor(np.ascontiguousarray(pair10[0].T), device="cuda")
+    x = x.repeat(1, -(-t // x.shape[-1]))[..., :t]
+    rng = np.random.default_rng(13)
+    offsets = [0] if lead == 1 else rng.integers(1, t, lead)
+    rows = torch.stack([torch.roll(x, int(o), dims=-1) for o in offsets])
+    for r in range(lead):
+        for scale in (0.0, 2.4e-3):
+            start, size = rng.integers(0, t), rng.integers(t // 20, t // 5)
+            rows[r, ..., start:start + size] *= scale
+    GATE_SIGNALS[lead, t] = rows
+    return rows
+
+
+def gate_case(label: str, sig, n: int, form: str, dtype) -> Case:
+    """G1 on `sig` ([..., CH, T]) in the spectrum dtype `dtype` against
+    its plain version (framing.above_threshold_signal of sig cast to
+    dtype)."""
+    frame, hop = GATE_FORMS[form]
+    return Case("frame_gate", label,
+                lambda: cuda_gate.frame_gate(sig, n, frame, hop, dtype),
+                lambda: cuda_gate.frame_gate_plain(sig, n, frame, hop,
+                                                   dtype),
+                (sig,))
+
+
+def gate_edges(form: str, ship, channels: int, seed: int = 5):
+    """Edge rows [3, CH, T] of numpy type `ship` for 23 FFT / 40 FB frames
+    (6 or 12 / 2 or 4 of G1's tiles in that type), and the bits pair 1's
+    frames must take.
+    Pair 0: noise below the threshold with loud bursts, some in one
+    channel alone.  Pair 1: silence holding one case every other hop: a
+    window exactly at the threshold, one ulp above and one below (a lone
+    sample, then five samples whose rounded sum lands there), a loud
+    sample 2 before a hop's end (windows straddling i = 1020..1027), five
+    samples across a hop boundary whose one window holding them all sums
+    to the threshold, a loud sample at frame-local 0 of a tile's first hop
+    (windows at i < 5: they count only for the FFT frame before, in the
+    tile before) and one at frame-local 1 (its window at i = 5 counts),
+    and a NaN beside a loud sample.  Pair 2: pair 0 negated, its first
+    channel silent."""
+    frame, hop = GATE_FORMS[form]
+    fft = frame == 2 * hop
+    n = 23 if fft else 40
+    n_hops = n + fft
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((3, channels, n_hops * hop)) * 2e-4).astype(ship)
+    for h in rng.choice(n_hops, n_hops // 3, replace=False):
+        c = rng.integers(channels) if h % 2 else slice(None)
+        x[0, c, h * hop + rng.integers(hop)] = ship(0.02)
+    x[1] = 0.0
+    th = ship(C.FRAME_THRESHOLD)
+    up, down = np.nextafter(th, ship(1)), np.nextafter(th, ship(0))
+
+    def five(target):
+        # a(j-4) .. a(j), whose window sum (((a(j) + a(j-1)) + ..) + a(j-4))
+        # rounds to target
+        v = rng.uniform(0.1, 0.2, 4).astype(ship) * th
+        part = ((v[0] + v[1]) + v[2]) + v[3]
+        last = ship(target - part)
+        while part + last < target:
+            last = np.nextafter(last, ship(1))
+        while part + last > target:
+            last = np.nextafter(last, ship(0))
+        return [last, v[3], v[2], v[1], v[0]]
+
+    expect = {}
+    for k, (samples, bit) in enumerate(
+            [([th], True), ([up], True), ([down], False), (five(th), True),
+             (five(up), True), (five(down), False)]):
+        start = 2 * k * hop + hop // 2
+        x[1, -1, start:start + len(samples)] = samples
+        expect[2 * k] = bit
+    h = 12
+    loud = ship(0.05)
+    tile = GATE_TILE_BYTES // np.dtype(ship).itemsize // hop
+    edge = -(-(h + 4) // tile) * tile
+    x[1, 0, (h + 1) * hop - 2] = loud
+    x[1, 0, (h + 3) * hop - 3:(h + 3) * hop + 2] = five(th)
+    x[1, 0, edge * hop] = loud
+    x[1, 0, (edge + 2) * hop + 1] = loud
+    x[1, 0, (n_hops - 2) * hop + 40] = loud
+    x[1, 0, (n_hops - 2) * hop + 42] = np.nan
+    expect.update({h - 1: fft, h: True, h + 1: False, h + 2: fft,
+                   h + 3: False, edge - 1: fft, edge: False,
+                   edge + 2: True, n_hops - 2: False})
+    x[2] = -x[0]
+    x[2, 0] = 0.0
+    return x, n, expect
+
+
+def gate_cases(dtype, pair10) -> list:
+    """G1 at the per-pair shapes (the 10 s pair's reference: FFT [1, 2,
+    469 x 1024] as the main case, FB [1, 2, 480000]) and at edges, with
+    float32 samples (as every path ships them) and float64: gate_edges'
+    rows in mono, stereo and 3 channels (their expected bits checked
+    here where the samples' type is `dtype`), one frame, a view G1 reads
+    in place (the advanced path's FFT prefix) and one it copies."""
+    cases = []
+    t_fft = (MAIN[3] + 1) * C.FFT_STEPSIZE
+    for ship in DTYPES:
+        name = str(ship)[6:]
+        sig = gate_signal(pair10, 1, t_fft).to(ship)
+        cases.append(gate_case("main" if ship == torch.float32 else
+                               f"per pair FFT {name} samples "
+                               f"{list(sig.shape)}", sig, MAIN[3], "FFT",
+                               dtype))
+        sig = gate_signal(pair10, 1, 10 * C.SAMPLING_RATE).to(ship)
+        cases.append(gate_case(f"per pair FB {name} samples "
+                               f"{list(sig.shape)}", sig, FB_PAIR_FRAMES,
+                               "FB", dtype))
+        for form, (frame, hop) in GATE_FORMS.items():
+            for channels in (1, 2, 3):
+                x, n, expect = gate_edges(form, DTYPES_NP[ship], channels)
+                x = torch.as_tensor(x, device="cuda")
+                if ship == dtype:
+                    # the cases sit one ulp from the threshold in the
+                    # samples' own type
+                    got = cuda_gate.frame_gate(x, n, frame, hop, dtype)[1]
+                    held = all(bool(got[f]) == b for f, b in expect.items())
+                    print(f"  frame_gate edges {form} {channels} ch {name} "
+                          f"samples: the expected bits held: {held}",
+                          flush=True)
+                    check(held, f"G1 edges {form} {channels} ch {name}: "
+                                f"{got.tolist()}")
+                cases.append(gate_case(f"edges {form} {channels} ch {name} "
+                                       f"samples {list(x.shape)}", x, n,
+                                       form, dtype))
+            one = gate_signal(pair10, 1, frame).to(ship)
+            cases.append(gate_case(f"one frame {form} {name} samples "
+                                   f"{list(one.shape)}", one, 1, form,
+                                   dtype))
+        wide = gate_signal(pair10, 8, t_fft + C.FFT_STEPSIZE).to(ship)
+        view = wide.view(2, 4, 2, -1)[0, ..., :t_fft]
+        cases.append(gate_case(f"a view {list(view.shape)} {name} samples",
+                               view, MAIN[3], "FFT", dtype))
+        view = wide.view(2, 4, 2, -1)[:, :2, ..., :t_fft]
+        cases.append(gate_case(f"a view it copies {list(view.shape)} {name} "
+                               "samples", view, MAIN[3], "FFT", dtype))
+    return cases
+
+
 def kernel_cases(dtype, rng, pair10):
     """Every Case of phase 3, at main-path and edge shapes."""
     dev = "cuda"
@@ -1035,7 +1227,8 @@ def kernel_cases(dtype, rng, pair10):
                           cuda_spread_fft.spread_fft_plain(p, *cp),
                           (p, c[0], c[1], c[3])))
     return (cases + row_cases(t) + spread_edges(t, dtype)
-            + fb_cases(dtype, rng, pair10, t) + spectral_cases(dtype, pair10))
+            + fb_cases(dtype, rng, pair10, t) + spectral_cases(dtype, pair10)
+            + gate_cases(dtype, pair10))
 
 
 def batch_fb_pair(pair10, k, shape) -> torch.Tensor:
@@ -1132,6 +1325,21 @@ def batch_cases(dtype, rng, pair10):
                       lambda: cuda_fb.spread_fb_plain(re, im, cu,
                                                       k.lower_matrix),
                       (re, im, cu)))
+    # G1 on the references of the basic batch and of the advanced batch's
+    # FFT and FB paths, in float32 samples (as the batch ships them; the
+    # batch cases) and float64 (checked only)
+    n_fb = shapes["dc"][-1] // C.FB_FRAMESIZE
+    for ship in DTYPES:
+        for label, lead, n, form in (
+                ("basic FFT", basic[1], basic[-1], "FFT"),
+                ("advanced FFT", shapes["dc"][1], basic[-1], "FFT"),
+                ("advanced FB", shapes["dc"][1], n_fb, "FB")):
+            length = (n + (form == "FFT")) * GATE_FORMS[form][1]
+            sig = gate_signal(pair10, lead, length).to(ship)
+            label = f"batch {label} {list(sig.shape)}"
+            cases.append(gate_case(label if ship == torch.float32 else
+                                   f"float64 samples, {label}", sig, n, form,
+                                   dtype))
     return cases
 
 
@@ -1169,7 +1377,12 @@ def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
                 ("basic", "advanced_fft"), (1, 2, chunk + 1, C.FFT_STEPSIZE)),
             "spectral_movs": dict.fromkeys(
                 ("basic", "advanced_fft"),
-                (2, 1, 2, chunk, C.FFT_FRAMESIZE // 2 + 1, 2))}[name]
+                (2, 1, 2, chunk, C.FFT_FRAMESIZE // 2 + 1, 2)),
+            # G1's reference [N, CH, T]
+            "frame_gate": {**dict.fromkeys(
+                ("basic", "advanced_fft"),
+                (1, 2, (chunk + 1) * C.FFT_STEPSIZE)),
+                "advanced_fb": sh["dc"][1:]}}[name]
 
 
 def stream_cases(dtype, pair10) -> list:
@@ -1217,6 +1430,18 @@ def stream_cases(dtype, pair10) -> list:
             cases.append(movs_case(kf, f"{label} {site} "
                                    f"{list(spectra.shape)}", spectra,
                                    *flags))
+        # G1 in every step: the FFT steps' chunk of chunk + 1 hops and the
+        # FB step's of 16 chunk frames, float32 samples (as the streams
+        # ship them; the stream cases) and float64 (checked only)
+        for ship in DTYPES:
+            for form, n_frames in (("FFT", chunk), ("FB", 16 * chunk)):
+                length = (n_frames + (form == "FFT")) * GATE_FORMS[form][1]
+                sig = gate_signal(pair10, n, length).to(ship)
+                case = f"{label} chunk {chunk} {form} {list(sig.shape)}"
+                cases.append(gate_case(
+                    case if ship == torch.float32
+                    else f"float64 samples, {case}", sig, n_frames, form,
+                    dtype))
         for site in ("basic", "advanced_fft", "fb_frames"):
             shape = shapes[site]
             a = t(np.exp(-srng.uniform(0.01, 0.5, shape[-2])))
@@ -1293,6 +1518,8 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
     launches bit for bit at each of its cases, and is checked at the
     hour's one shot (hour_fir)."""
     print("phase 3 kernels against their plain versions", flush=True)
+    # first, while no case holds memory: its double outputs take 28 GB
+    hour_fir(pair10)
     main = {name: {} for name in KERNELS}
     batch, stream = {}, {}
     for dtype in DTYPES:
@@ -1311,6 +1538,13 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                                                     dtype)
                 line = (f"  {name} {case} {dtype}: max|d|/max|ref| "
                         f"{rel:.3e}{note}")
+            elif name == "frame_gate":
+                want = c.plain()
+                ok = got.shape == want.shape and torch.equal(got, want)
+                err = float(got.shape != want.shape or (got ^ want).any())
+                line = (f"  {name} {case} {dtype}: {int(got.sum())} of "
+                        f"{got.numel()} frames above, bits equal: {ok}")
+                del want
             else:
                 want = stacked(c.plain())
                 err = (got - want).abs().max().item()
@@ -1325,7 +1559,7 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                     line += f", elementwise rel {elem:.3e}"
                     ok = ok and elem < 1e-4
                 del want
-            if name in ("fir_bank", *SPECTRAL):
+            if name in ("fir_bank", "frame_gate", *SPECTRAL):
                 same = torch.equal(got, stacked(c.kernel()))
                 line += f", two launches bit-identical: {same}"
                 ok = ok and same
@@ -1348,7 +1582,6 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                     inputs=c.inputs, max_abs_err=err, bound_ms=bound_ms,
                     bound_by=bound_by, **extra))
             del got, out
-    hour_fir(pair10)
     dc_float32_rounding(rng, pair10)
     determinism(main)
     for dtype in DTYPES:
@@ -1690,17 +1923,38 @@ def count_conv1d() -> None:
     torch.nn.functional.conv1d = counted
 
 
+# framing.above_threshold_signal calls on a CUDA tensor since reset_counts():
+# count_plain_gate() wraps it, so that a main path's run shows that each of
+# its gates went through G1
+PLAIN_GATE_CALLS = [0]
+
+
+def count_plain_gate() -> None:
+    plain = framing.above_threshold_signal
+
+    def counted(sig, *args, **kwargs):
+        if sig.is_cuda:
+            PLAIN_GATE_CALLS[0] += 1
+        return plain(sig, *args, **kwargs)
+
+    framing.above_threshold_signal = counted
+
+
 def reset_counts() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
     CONV1D_CALLS[0] = 0
+    PLAIN_GATE_CALLS[0] = 0
 
 
 def read_counts() -> dict:
     """Each kernel's launches since reset_counts(); fails if a conv1d ran
-    (the FIR bank's plain version: a main path runs F1)."""
+    (the FIR bank's plain version: a main path runs F1) or the plain gate
+    ran on the card (a main path runs G1)."""
     check(CONV1D_CALLS[0] == 0, f"{CONV1D_CALLS[0]} conv1d call(s) on a "
           "main path")
+    check(PLAIN_GATE_CALLS[0] == 0, f"{PLAIN_GATE_CALLS[0]} plain gate "
+          "call(s) on the card on a main path")
     return {name: getattr(module, attr)
             for name, (module, attr) in COUNTERS.items()}
 
@@ -1708,8 +1962,9 @@ def read_counts() -> dict:
 def phase_counters(pair10, pairs) -> dict:
     """Each mode's peaq() of the 10 s pair in each tier, with every count
     set to 0 just before it and read just after.  Each tier makes the same
-    launches: 3/1/1/0/0/0/0/1/1 (basic) and 4/1/1/1/1/1/1/1/1 (advanced)
-    of K1, K2, K3, D1, D2, D3, F1, S1, S2, and no conv1d (read_counts).
+    launches: 3/1/1/0/0/0/0/1/1/1 (basic) and 4/1/1/1/1/1/1/1/1/2
+    (advanced) of K1, K2, K3, D1, D2, D3, F1, S1, S2, G1, and no conv1d
+    and no plain gate on the card (read_counts).
     Then one peaq_batch() of the first 8 and of the first
     32 of `pairs` (one microbatch each) per mode and tier, counted the
     same way: a microbatch launches each kernel as often as one pair does.
@@ -1798,12 +2053,13 @@ def peaq_call(pair10, mode: str, tier: str):
 
 def site_cases(dtype, pair10) -> list:
     """The call sites of the advanced path whose shapes differ from the
-    main-shape cases (those of the basic path, for K1-K3, S1 and S2), on
-    inputs from a generator of their own: K1 smears the reference's 55 FFT
-    bands in time once and runs three times over the 40 FB bands of 2,500
-    frames (forward masking and the level adapter's two smoothers), K2
-    runs over the FB bands, K3 spreads the reference alone, and S2 groups
-    it alone, without the bandwidth, on the 10 s pair's spectra."""
+    main-shape cases (those of the basic path, for K1-K3, S1, S2 and G1),
+    on inputs from a generator of their own: K1 smears the reference's 55
+    FFT bands in time once and runs three times over the 40 FB bands of
+    2,500 frames (forward masking and the level adapter's two smoothers),
+    K2 runs over the FB bands, K3 spreads the reference alone, S2 groups
+    it alone, without the bandwidth, on the 10 s pair's spectra, and G1
+    gates the FB frames of the 10 s pair's reference (float32 samples)."""
     srng = np.random.default_rng(6)
 
     def t(x):
@@ -1841,6 +2097,9 @@ def site_cases(dtype, pair10) -> list:
     spectra = spectra_of(ka, fft_blocks(pair10, 1, MAIN[3]))
     cases.append(movs_case(ka, f"advanced ref only {list(spectra.shape)}",
                            spectra, True, False))
+    sig = gate_signal(pair10, 1, 10 * C.SAMPLING_RATE)
+    cases.append(gate_case(f"advanced FB {list(sig.shape)}", sig,
+                           FB_PAIR_FRAMES, "FB", dtype))
     return cases
 
 
@@ -1945,9 +2204,9 @@ def long_rows() -> dict:
 
 def fir_note(name: str, entry: dict) -> str:
     """For F1: its plain version is also its library call (the cuDNN
-    conv1d, TF32 off), and its share of the uniform conv's bound.  For S1
-    and S2: that no single PyTorch call computes their functions."""
-    if name in SPECTRAL:
+    conv1d, TF32 off), and its share of the uniform conv's bound.  For S1,
+    S2 and G1: that no single PyTorch call computes their functions."""
+    if name in (*SPECTRAL, "frame_gate"):
         return "; library: none (no single PyTorch call)"
     if name != "fir_bank":
         return ""
@@ -2102,6 +2361,7 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
                   f"{c['bound_ms']:.5f} ms ({c['bound_by']}), plain "
                   f"{c['plain_ms']:.4f} ms (median of 3)" + fir_note(
                       c["name"], c))
+    GATE_SIGNALS.clear()
     fir_parts(main)
     fir_mma()
     long = long_rows()
@@ -2203,8 +2463,8 @@ def mixed_lengths(items: int = 8):
 def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     """One peaq_batch() of `pairs` under torch.profiler: device ms (the
     device rows), the FIR bank's (F1's rows), the bin-domain stage's (S1's
-    and S2's rows), the hand kernels' (F1's, S1's and S2's included) and
-    the copies to the card's."""
+    and S2's rows), the gate's (G1's rows), the hand kernels' (F1's, S1's,
+    S2's and G1's included) and the copies to the card's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2221,6 +2481,8 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
             "spectral_ms": sum(e.self_device_time_total for e in device
                                if re.search(r"\b(pair_frames|spectral_movs)"
                                             r"_kernel", e.key)) / 1e3,
+            "gate_ms": sum(e.self_device_time_total for e in device
+                           if "frame_gate_kernel" in e.key) / 1e3,
             "hand_ms": hand / 1e3,
             "h2d_ms": sum(e.self_device_time_total for e in device
                           if "HtoD" in e.key) / 1e3,
@@ -2326,7 +2588,8 @@ def phase_batch(pairs, card: str) -> dict:
                   + f"; peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f}"
                   f" GiB before)", flush=True)
             staged_ms = audio / statistics.median(rates) * 1e3
-            other = prof["hand_ms"] - prof["fir_ms"] - prof["spectral_ms"]
+            other = (prof["hand_ms"] - prof["fir_ms"] - prof["spectral_ms"]
+                     - prof["gate_ms"])
             print(f"    profiled peaq_batch(): device {dev:.1f} ms, busy "
                   f"{dev / (wall * 1e3):.1%} of the unprofiled call and, "
                   f"without the copies to the card, "
@@ -2335,7 +2598,9 @@ def phase_batch(pairs, card: str) -> dict:
                   f"bank (F1) {prof['fir_ms']:.1f} ms "
                   f"({prof['fir_ms'] / dev:.1%}), the bin-domain stage (S1, "
                   f"S2) {prof['spectral_ms']:.2f} ms "
-                  f"({prof['spectral_ms'] / dev:.1%}), the other hand "
+                  f"({prof['spectral_ms'] / dev:.1%}), the gate (G1) "
+                  f"{prof['gate_ms']:.3f} ms ({prof['gate_ms'] / dev:.1%}), "
+                  f"the other hand "
                   f"kernels {other:.1f} ms ({other / dev:.1%}), the "
                   f"profiler's rows of "
                   f"copies to the card {prof['h2d_ms']:.1f} ms "
@@ -2346,39 +2611,84 @@ def phase_batch(pairs, card: str) -> dict:
     return readings
 
 
+def eager_energy_totals(ref_blocks, test_blocks, dtype):
+    """The totalsnr sums per pair as the basic path took them before S1
+    gave their halves: the hop blocks [B, CH, F + 1, 1024] cast to dtype,
+    the first hop block of each frame of ref and of ref - test squared and
+    summed."""
+    rhalf = ref_blocks[..., :-1, :].to(dtype)
+    nhalf = rhalf - test_blocks[..., :-1, :].to(dtype)
+    return (torch.sum(rhalf ** 2, dim=(1, 2, 3)),
+            torch.sum(nhalf ** 2, dim=(1, 2, 3)))
+
+
 def sample_passes(readings: dict) -> None:
-    """The basic path's two passes over the whole signal, alone, at the
+    """The basic path's work over the whole signal outside S1, at the
     basic float64 batch's shape (64 pairs of 10 s stereo in their bucket,
-    [64, 2, 525312] samples): framing.above_threshold_signal (the gate)
-    on the reference and basic.energy_totals on its hop blocks and the
-    test's, each on random samples (cuda_ms, 10 calls a round), beside
-    the bytes bound of its input read once, and their sum's share of the
-    profiled device time of one basic float64 batch (readings)."""
+    [64, 2, 525312] samples), fed float32 samples (as peaq_batch ships
+    them) and float64: G1 (the gate) on the reference and the energy
+    totals summed from S1's halves (basic.energy_totals), beside the eager
+    passes they replaced, the plain gate on the reference cast to float64
+    (framing.above_threshold_signal) and eager_energy_totals on the hop
+    blocks; each on random samples (cuda_ms, 10 calls a round), with the
+    bytes bound of its input read once, G1's bits equal to the plain
+    gate's and the totals within BARS of the eager ones; and each side's
+    sum as a share of the profiled device time of one basic float64
+    batch (readings)."""
     n_frames = batch_shapes()["basic"][-1]
     t = (n_frames + 1) * C.FFT_STEPSIZE
-    gen = torch.Generator(device="cuda").manual_seed(61)
-    ref, test = (torch.randn((MICROBATCH["basic"], 2, t), generator=gen,
-                             device="cuda", dtype=torch.float64) * 0.1
-                 for _ in range(2))
-    blocks = [framing.blocks_hop(x, n_frames) for x in (ref, test)]
-    runs = {"above_threshold_signal": (lambda: framing.above_threshold_signal(
-                ref, n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE), (ref,)),
-            "energy_totals": (lambda: basic.energy_totals(
-                *blocks, None, torch.float64), (ref, test))}
-    total = 0.0
-    parts = []
-    for name, (fn, inputs) in runs.items():
-        ms, _ = cuda_ms(fn, calls=10)
-        total += ms
-        bound_ms = (sum(x.numel() * x.element_size() for x in inputs)
-                    / MEMORY_BYTES_PER_S * 1e3)
-        parts.append(f"{name} {ms:.4f} ms ({bound_ms / ms:.1%} of reading "
-                     f"its input once, {bound_ms:.4f} ms)")
     dev = readings["basic", "float64"]["device_ms"]
-    print(f"  basic float64 sample-domain passes at [{MICROBATCH['basic']}, "
-          f"2, {t}]: " + ", ".join(parts) + f"; together {total:.3f} ms, "
-          f"{total / dev:.1%} of the profiled batch's {dev:.1f} ms of "
-          f"device time", flush=True)
+    hann = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT),
+                           torch.float64, "cuda").hann
+    f64 = torch.float64
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    for ship in DTYPES:
+        ref, test = (torch.randn((MICROBATCH["basic"], 2, t), generator=gen,
+                                 device="cuda", dtype=ship) * 0.1
+                     for _ in range(2))
+        blocks = [framing.blocks_hop(x, n_frames) for x in (ref, test)]
+        halves = cuda_spectral.pair_frames(*blocks, hann)[2]
+        gate = cuda_gate.frame_gate(ref, n_frames, C.FFT_FRAMESIZE,
+                                    C.FFT_STEPSIZE, f64)
+        want = framing.above_threshold_signal(
+            ref.to(f64), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
+        got = torch.stack(basic.energy_totals(halves, None))
+        eager = torch.stack(eager_energy_totals(*blocks, f64))
+        err = ((got - eager).abs().max() / eager.abs().max()).item()
+        print(f"  {str(ship)[6:]} samples: G1's bits equal the plain "
+              f"gate's: {torch.equal(gate, want)}; energy totals from the "
+              f"halves against the eager sums: max|d|/max|ref| {err:.3e}",
+              flush=True)
+        check(torch.equal(gate, want), f"G1 at the batch shape, {ship}")
+        check(err < BARS[f64], f"energy totals from the halves: {err}")
+        runs = {"eager": {
+                    "plain gate": (lambda: framing.above_threshold_signal(
+                        ref.to(f64), n_frames, C.FFT_FRAMESIZE,
+                        C.FFT_STEPSIZE), (ref,)),
+                    "eager_energy_totals": (lambda: eager_energy_totals(
+                        *blocks, f64), (ref, test))},
+                "now": {
+                    "G1": (lambda: cuda_gate.frame_gate(
+                        ref, n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE,
+                        f64), (ref,)),
+                    "energy_totals from halves": (lambda: basic.energy_totals(
+                        halves, None), (halves,))}}
+        for side, fns in runs.items():
+            total = 0.0
+            parts = []
+            for name, (fn, inputs) in fns.items():
+                ms, _ = cuda_ms(fn, calls=10)
+                total += ms
+                bound_ms = (sum(x.numel() * x.element_size() for x in inputs)
+                            / MEMORY_BYTES_PER_S * 1e3)
+                parts.append(f"{name} {ms:.4f} ms ({bound_ms / ms:.1%} of "
+                             f"reading its input once, {bound_ms:.4f} ms)")
+            print(f"  basic float64 passes outside S1 at "
+                  f"[{MICROBATCH['basic']}, 2, {t}], {str(ship)[6:]} "
+                  f"samples, {side}: " + ", ".join(parts) + f"; together "
+                  f"{total:.3f} ms, {total / dev:.1%} of the profiled "
+                  f"batch's {dev:.1f} ms of device time", flush=True)
+        del ref, test, blocks, halves
 
 
 def stream_program() -> tuple[np.ndarray, np.ndarray]:
@@ -3393,6 +3703,7 @@ def main() -> None:
     start = time.perf_counter()
     card = timed(phase_card)
     count_conv1d()
+    count_plain_gate()
     timed(phase_build)
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()

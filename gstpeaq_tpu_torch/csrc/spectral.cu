@@ -16,15 +16,19 @@
 //   frames[1] = hann * (b_f | b_{f+1}) of ref - test, the difference taken
 //               in the spectrum type T
 //   energy[s] = sum of the squares of b_{f+1} of ref (s = 0) and test (1)
+//   halves[s] = sum of the squares of b_f of ref (s = 0) and of ref - test
+//               (1): the frame's first half, the totalsnr energies
+//               (src/gstpeaq.c:913-918), which no pass over the signal
+//               takes any more
 // What bounds it on the H100: bytes, its writes above all (2 x 2048 values
 // a frame against 2 x 1024 read).  Design: one block of 256 threads a
 // frame (two contiguous hop blocks), 16-byte vectors of T, each step of a
 // warp on one contiguous span (a thread's vectors 256 vectors apart); the
 // input is converted to T on the fly (float or double either way), so the
 // rDFT reads one [2, .., F, 2048] tensor and one batched cuFFT call
-// transforms both signals.  Each energy is a fixed-order sum (a thread's
-// samples of b_{f+1} in order, a warp butterfly, the eight warps in
-// order), so two launches give the same bits.
+// transforms both signals.  Each energy and half is a fixed-order sum (a
+// thread's samples of its block in order, a warp butterfly, the eight
+// warps in order), so two launches give the same bits.
 //
 // S2 spectral_movs, per spectrum row (one frame of one channel) from the
 // rDFTs R (of ref) and D (of ref - test), T = R - D, S = R + T:
@@ -200,16 +204,17 @@ template <typename In, typename T>
 __global__ void __launch_bounds__(kThreads)
 pair_frames_kernel(const In* __restrict__ ref, const In* __restrict__ test,
                    const T* __restrict__ hann, T* __restrict__ frames,
-                   T* __restrict__ energy, long long rows, long long n) {
+                   T* __restrict__ energy, T* __restrict__ halves,
+                   long long rows, long long n) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kSteps = kFrame / (kThreads * kVec);
-  __shared__ T part[kWarps][2];
+  __shared__ T part[kWarps][4];
   const long long frame = blockIdx.x;
   const long long r = frame / n;
   const long long f = frame - r * n;
   const long long src = (r * (n + 1) + f) * kHop;
   const long long out = frame * kFrame;
-  T er = T(0), et = T(0);
+  T er = T(0), et = T(0), hr = T(0), hn = T(0);
 #pragma unroll
   for (int k = 0; k < kSteps; ++k) {
     const int j = (k * kThreads + threadIdx.x) * kVec;
@@ -222,12 +227,17 @@ pair_frames_kernel(const In* __restrict__ ref, const In* __restrict__ test,
     for (int e = 0; e < kVec; ++e) {
       const T rr = static_cast<T>(a[e]);
       const T tt = static_cast<T>(b[e]);
+      const T dd = sub_rn(rr, tt);
       x[e] = mul_rn(rr, w[e]);
-      y[e] = mul_rn(sub_rn(rr, tt), w[e]);
-      // the energies of block f + 1: the frame's second half, whole steps
+      y[e] = mul_rn(dd, w[e]);
+      // whole steps: block f + 1 (the frame's second half) gives the
+      // energies, block f the halves
       if (k * kThreads * kVec >= kHop) {
         er += rr * rr;
         et += tt * tt;
+      } else {
+        hr += rr * rr;
+        hn += dd * dd;
       }
     }
     store_vec(frames + out + j, x);
@@ -237,20 +247,22 @@ pair_frames_kernel(const In* __restrict__ ref, const In* __restrict__ test,
   const int warp = threadIdx.x / 32;
   er = warp_sum(er);
   et = warp_sum(et);
+  hr = warp_sum(hr);
+  hn = warp_sum(hn);
   if (threadIdx.x % 32 == 0) {
     part[warp][0] = er;
     part[warp][1] = et;
+    part[warp][2] = hr;
+    part[warp][3] = hn;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    T sr = part[0][0], st = part[0][1];
+  if (threadIdx.x < 4) {
+    const int s = threadIdx.x;
+    T sum = part[0][s];
 #pragma unroll
-    for (int q = 1; q < kWarps; ++q) {
-      sr += part[q][0];
-      st += part[q][1];
-    }
-    energy[frame] = sr;
-    energy[rows * n + frame] = st;
+    for (int q = 1; q < kWarps; ++q) sum += part[q][s];
+    T* out = s < 2 ? energy : halves;
+    out[(s % 2) * rows * n + frame] = sum;
   }
 }
 
@@ -369,7 +381,8 @@ spectral_movs_kernel(const T* __restrict__ spec, const T* __restrict__ level_p,
 template <typename T>
 int launch_pair_frames(const void* ref, const void* test, int in_double,
                        const void* hann, void* frames, void* energy,
-                       long long rows, long long n, void* stream) {
+                       void* halves, long long rows, long long n,
+                       void* stream) {
   if (rows < 0 || n < 0 || (n > 0 && rows > INT_MAX / n)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -380,12 +393,12 @@ int launch_pair_frames(const void* ref, const void* test, int in_double,
       pair_frames_kernel<double, T><<<blocks, kThreads, 0, s>>>(
           static_cast<const double*>(ref), static_cast<const double*>(test),
           static_cast<const T*>(hann), static_cast<T*>(frames),
-          static_cast<T*>(energy), rows, n);
+          static_cast<T*>(energy), static_cast<T*>(halves), rows, n);
     } else {
       pair_frames_kernel<float, T><<<blocks, kThreads, 0, s>>>(
           static_cast<const float*>(ref), static_cast<const float*>(test),
           static_cast<const T*>(hann), static_cast<T*>(frames),
-          static_cast<T*>(energy), rows, n);
+          static_cast<T*>(energy), static_cast<T*>(halves), rows, n);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -420,19 +433,22 @@ extern "C" {
 // Each entry launches on `stream` and returns cudaGetLastError() (0 = ok).
 // The suffix names the spectrum type T (frames, energies, every S2 value).
 // pair_frames: ref/test [rows][n + 1][1024] of float (in_double = 0) or
-// double (1); hann [2048]; frames [2][rows][n][2048]; energy [2][rows][n].
+// double (1); hann [2048]; frames [2][rows][n][2048]; energy and halves
+// [2][rows][n].
 int peaq_pair_frames_f32(const void* ref, const void* test, int in_double,
                          const void* hann, void* frames, void* energy,
-                         long long rows, long long n, void* stream) {
+                         void* halves, long long rows, long long n,
+                         void* stream) {
   return launch_pair_frames<float>(ref, test, in_double, hann, frames,
-                                   energy, rows, n, stream);
+                                   energy, halves, rows, n, stream);
 }
 
 int peaq_pair_frames_f64(const void* ref, const void* test, int in_double,
                          const void* hann, void* frames, void* energy,
-                         long long rows, long long n, void* stream) {
+                         void* halves, long long rows, long long n,
+                         void* stream) {
   return launch_pair_frames<double>(ref, test, in_double, hann, frames,
-                                    energy, rows, n, stream);
+                                    energy, halves, rows, n, stream);
 }
 
 // spectral_movs: spec [2][rows][1025][2] (R, D); level [1]; span [3][z]

@@ -52,7 +52,7 @@ def avg(v, w, mask):
 
 def avg_log(v, w, mask):
     """MODE_AVG_LOG; src/movaccum.c:453-455."""
-    return 10.0 * torch.log10(_msum(w * v, mask) / _msum(w, mask))
+    return 10.0 * exact.log10(_msum(w * v, mask) / _msum(w, mask))
 
 
 def rms(v, w, mask):
@@ -74,7 +74,7 @@ def adb(v, mask):
     num = _msum(v, mask)
     den = _msum(torch.ones_like(v), mask)
     value = torch.where(num == 0.0, -0.5,
-                        torch.log10(torch.clamp_min(num, 1e-300) / den))
+                        exact.log10(torch.clamp_min(num, 1e-300) / den))
     return torch.where(den > 0, value, 0.0)
 
 

@@ -2,7 +2,8 @@
 over a batch of pairs (one pair is a batch of one).
 
 Two paths over the same audio, each with its own frame count and
-data-boundary gating, as in the reference (src/gstpeaq.c:923-1010):
+data-boundary gating (kernel G1 on each), as in the reference
+(src/gstpeaq.c:923-1010):
 
   FFT path  the 55-band FFT ear at frame 2048 / hop 1024, with only the
             reference grouped and spread (kernel K3) and smeared (K1),
@@ -27,6 +28,8 @@ from torch import nn
 
 from .. import constants as C
 from .. import earparams as EP
+from ..ops import cuda_gate
+from ..ops import exact
 from ..ops import fb_ear as FB
 from ..ops import fft_ear as FE
 from ..ops import framing
@@ -116,8 +119,8 @@ class AdvancedPipeline(nn.Module):
         ref_fft = framing.dequantize(ref_fft)
         test_fft = framing.dequantize(test_fft)
         n_fft = ref_fft.shape[-1] // C.FFT_STEPSIZE - 1
-        above_fft = framing.above_threshold_signal(
-            ref_fft.to(sdtype), n_fft, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
+        above_fft = cuda_gate.frame_gate(ref_fft, n_fft, C.FFT_FRAMESIZE,
+                                         C.FFT_STEPSIZE, sdtype)
         fft_valid = valid_mask(n_fft, valid_fft, ref_fft.device)
         if fft_valid is not None:
             above_fft = above_fft & fft_valid
@@ -136,16 +139,17 @@ class AdvancedPipeline(nn.Module):
             self.ehs_window)
         cmf = committed_fft[..., None]
         one = torch.ones_like(fm(nmr_mean))
-        seg_nmr = ch_mean(accum.avg(10.0 * torch.log10(fm(nmr_mean)), one,
+        seg_nmr = ch_mean(accum.avg(10.0 * exact.log10(fm(nmr_mean)), one,
                                     cmf))
         ehs_mov = ch_mean(accum.avg(fm(ehs_val), one,
                                     cmf & ehs_valid.T[..., None]))
 
         # ------------- FB path: ModDiff / NoiseLoudAsym / LinDist ----------
-        fb_pair = framing.dequantize(fb_pair).to(sdtype)
+        fb_pair = framing.dequantize(fb_pair)
         n_fb = fb_pair.shape[-1] // C.FB_FRAMESIZE
-        above_fb = framing.above_threshold_signal(
-            fb_pair[0], n_fb, C.FB_FRAMESIZE, C.FB_FRAMESIZE)
+        above_fb = cuda_gate.frame_gate(fb_pair[0], n_fb, C.FB_FRAMESIZE,
+                                        C.FB_FRAMESIZE, sdtype)
+        fb_pair = fb_pair.to(sdtype)
         fb_valid = valid_mask(n_fb, valid_fb, fb_pair.device)
         if fb_valid is not None:
             above_fb = above_fb & fb_valid
@@ -195,8 +199,7 @@ class AdvancedPipeline(nn.Module):
         mov_vec = torch.stack([mov[name] for name in C.MOV_ADVANCED_NAMES],
                               -1)
         di = self.cognitive(mov_vec, settings.clamp_movs)
-        signal_energy, noise_energy = energy_totals(rblocks, tblocks,
-                                                    fft_valid, sdtype)
+        signal_energy, noise_energy = energy_totals(ear.halves, fft_valid)
         return AdvancedOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
                                total_signal_energy=signal_energy,
                                total_noise_energy=noise_energy)

@@ -12,8 +12,9 @@ pairs; one pair is B = 1) to ODG, DI and the MOVs per pair in three stages:
   C  per-frame MOV terms, masked accumulation and the cognitive model.
 
 The orchestration follows src/gstpeaq.c:849-921: the frame >= 24 gates, the
-loudness-reached +3 delay, the data-boundary masks (accum.py), binaural
-ADB/MFPD and the trailing zero-padded flush frame (padded on the host).
+loudness-reached +3 delay, the data-boundary masks (the gate: kernel G1,
+ops/cuda_gate.py; accum.py), binaural ADB/MFPD, the trailing zero-padded
+flush frame (padded on the host) and the totalsnr sums (S1's halves).
 Pairs of one batch share a frame count (a bucket, parallel/batch.py); each
 pair's frames past its own count are masked out as the reference never
 processes them, so a batch gives each pair what it gives alone.
@@ -28,6 +29,7 @@ from torch import nn
 
 from .. import constants as C
 from .. import earparams as EP
+from ..ops import cuda_gate
 from ..ops import fft_ear as FE
 from ..ops import framing
 from . import accum
@@ -79,19 +81,16 @@ def valid_mask(n_frames: int, valid, device):
     return torch.arange(n_frames, device=device) < valid[:, None]
 
 
-def energy_totals(ref_blocks: torch.Tensor, test_blocks: torch.Tensor,
-                  frame_valid, dtype):
-    """totalsnr bookkeeping per pair (src/gstpeaq.c:913-918) from hop blocks
-    [B, CH, F + 1, 1024]: the first half of frame f is hop block f; frames
-    past a pair's own count are left out."""
-    rhalf = ref_blocks[..., :-1, :].to(dtype)
-    nhalf = rhalf - test_blocks[..., :-1, :].to(dtype)
+def energy_totals(halves: torch.Tensor, frame_valid):
+    """totalsnr bookkeeping per pair (src/gstpeaq.c:913-918): the sums over
+    channels and frames of S1's halves [2, B, CH, F], the energies of each
+    frame's first half (hop block f) of ref and of ref - test; frames past
+    a pair's own count (frame_valid [B, F] False) are left out.  Returns
+    (signal, noise), each [B]."""
     if frame_valid is not None:
-        sel = frame_valid[:, None, :, None]
-        rhalf = torch.where(sel, rhalf, 0.0)
-        nhalf = torch.where(sel, nhalf, 0.0)
-    return (torch.sum(rhalf ** 2, dim=(1, 2, 3)),
-            torch.sum(nhalf ** 2, dim=(1, 2, 3)))
+        halves = torch.where(frame_valid[:, None, :], halves, 0.0)
+    signal, noise = torch.sum(halves, dim=(-2, -1))
+    return signal, noise
 
 
 class BasicPipeline(nn.Module):
@@ -137,8 +136,8 @@ class BasicPipeline(nn.Module):
         ref_sig = framing.dequantize(ref_sig)
         test_sig = framing.dequantize(test_sig)
         n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
-        above = framing.above_threshold_signal(
-            ref_sig.to(sdtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
+        above = cuda_gate.frame_gate(ref_sig, n_frames, C.FFT_FRAMESIZE,
+                                     C.FFT_STEPSIZE, sdtype)
         frame_valid = valid_mask(n_frames, valid_frames, ref_sig.device)
         if frame_valid is not None:
             # frames past a pair's own flush frame can still overlap its
@@ -203,8 +202,7 @@ class BasicPipeline(nn.Module):
         }
         mov_vec = torch.stack([mov[name] for name in C.MOV_BASIC_NAMES], -1)
         di = self.cognitive(mov_vec, settings.clamp_movs)
-        signal_energy, noise_energy = energy_totals(
-            ref_blocks, test_blocks, frame_valid, sdtype)
+        signal_energy, noise_energy = energy_totals(ear.halves, frame_valid)
         return BasicOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
                             total_signal_energy=signal_energy,
                             total_noise_energy=noise_energy)

@@ -47,7 +47,7 @@ def noise_loudness(internal_noise: torch.Tensor, alpha: float,
     noise = internal_noise[:, None]
     sref = thres_fac * mod_ref + s0
     stest = thres_fac * mod_test + s0
-    beta = torch.exp(-alpha * (e_test - e_ref) / e_ref)
+    beta = exact.exp(-alpha * (e_test - e_ref) / e_ref)
     nl = torch.sum(
         (noise / stest) ** 0.23
         * ((1.0 + torch.clamp_min(stest * e_test - sref * e_ref, 0.0)
@@ -121,8 +121,8 @@ def prob_detect(e_ref: torch.Tensor, e_test: torch.Tensor,
 
     e_ref/e_test: [..., CH, Z, F].  Returns (p_bin, steps_bin), each
     [..., F]."""
-    eref_db = 10.0 * torch.log10(e_ref)
-    etest_db = 10.0 * torch.log10(e_test)
+    eref_db = 10.0 * exact.log10(e_ref)
+    etest_db = 10.0 * exact.log10(e_test)
     l = 0.3 * torch.maximum(eref_db, etest_db) + 0.7 * etest_db
     cs = C.PD_S_COEFFS
     l_safe = torch.where(l > 0.0, l, 1.0)

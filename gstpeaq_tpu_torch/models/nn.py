@@ -28,6 +28,8 @@ _STANDARD = {
 
 
 def _sigmoid(x):
+    # torch's exp, not exact.exp: training (sgd_train_step) needs its
+    # autograd
     return 1.0 / (1.0 + torch.exp(-x))
 
 

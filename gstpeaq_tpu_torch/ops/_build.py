@@ -50,9 +50,11 @@ _SPREAD_FB = (_P, _P, _P, _F64, _P, _I64, _I64, _P)
 _DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P)
 _FIR_BANK = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I32, _P)
 _FIR_MMA_RATE = (_I32, _I64, _I32, _P, _P)
-_PAIR_FRAMES = (_P, _P, _I32, _P, _P, _P, _I64, _I64, _P)
+_PAIR_FRAMES = (_P, _P, _I32, _P, _P, _P, _P, _I64, _I64, _P)
 _SPECTRAL_MOVS = (_P, _P, _P, _P, _I32, _P, _I32, _P, _P, _P, _P, _P, _I64,
                   _P)
+_FRAME_GATE = (_P, _I32, _I64, _I32, _I64, _I64, _I64, _I32, _I32, _F64, _P,
+               _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,
@@ -73,6 +75,8 @@ SIGNATURES = {
     "peaq_pair_frames_f64": _PAIR_FRAMES,
     "peaq_spectral_movs_f32": _SPECTRAL_MOVS,
     "peaq_spectral_movs_f64": _SPECTRAL_MOVS,
+    "peaq_frame_gate_f32": _FRAME_GATE,
+    "peaq_frame_gate_f64": _FRAME_GATE,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -190,10 +194,11 @@ def require(name: str, like: torch.Tensor, **operands: torch.Tensor) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def launch(name: str, like: torch.Tensor, *args) -> None:
-    """Call the C entry `peaq_<name>_<f32|f64>` on `like`'s device and its
-    current stream; raise if the launch failed."""
-    fn = getattr(library(), f"peaq_{name}_{_SUFFIX[like.dtype]}")
+def launch(name: str, like: torch.Tensor, *args, dtype=None) -> None:
+    """Call the C entry `peaq_<name>_<f32|f64>` of `dtype` (default
+    `like`'s) on `like`'s device and its current stream; raise if the
+    launch failed."""
+    fn = getattr(library(), f"peaq_{name}_{_SUFFIX[dtype or like.dtype]}")
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream().cuda_stream
         check(fn(*args, stream), name)

@@ -63,7 +63,7 @@ def slope_state_plain(fb_re: torch.Tensor, fb_im: torch.Tensor,
 
     fb_re/fb_im: [..., Z, I]; c1_band = 24 + 230 / fc: [Z]; a: the
     smoother's decay; y0: [..., Z]."""
-    level = 10.0 * torch.log10(fb_re * fb_re + fb_im * fb_im)
+    level = 10.0 * exact.log10(fb_re * fb_re + fb_im * fb_im)
     s = torch.clamp_min(c1_band[:, None] - 0.2 * level, 4.0)
     drive = (1.0 - a) * C.DIST ** s
     return iir.linear_recurrence(a, drive, axis=-1, y0=y0).contiguous()
@@ -132,7 +132,7 @@ def spread_fb_plain(fb_re: torch.Tensor, fb_im: torch.Tensor,
     for jb in range(0, z, PLAIN_BLOCK):
         j = torch.arange(jb, min(jb + PLAIN_BLOCK, z), device=device)
         expo = (j[None, :] - i_idx[:, None]).to(dtype)[..., None]
-        w = torch.where(expo > 0, torch.exp(expo * log_cu), 0.0)
+        w = torch.where(expo > 0, exact.exp(expo * log_cu), 0.0)
         ups_re.append(torch.sum(fb_re[..., :, None, :] * w, dim=-3))
         ups_im.append(torch.sum(fb_im[..., :, None, :] * w, dim=-3))
     a_re = lower_matrix.T @ (fb_re + torch.cat(ups_re, dim=-2))

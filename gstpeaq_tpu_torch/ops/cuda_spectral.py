@@ -13,7 +13,9 @@ that stage is some seventy launches, each reading and writing a whole
 S1 writes what the rDFT reads: the Hann-windowed frames of ref and of
 ref - test in one [2, ..., F, 2048] tensor, so that one batched
 `torch.fft.rfft` (cuFFT, the port's stand-in for XLA's FFT) transforms
-both, and the hop energies of ref and test that gate EHS.  S2 reads the
+both, the hop energies of ref and test that gate EHS, and the energies of
+each frame's first half of ref and of ref - test, which the totalsnr
+bookkeeping sums (models/basic.py::energy_totals).  S2 reads the
 two spectra once and writes only what the MOVs consume: the band powers,
 NMR's noise in bands, the bandwidth indices and EHS's 512-bin log-spectral
 difference; the power and delta-power spectra never reach device memory.
@@ -74,21 +76,25 @@ def _framed(blocks: torch.Tensor) -> torch.Tensor:
 def pair_frames_plain(ref_blocks: torch.Tensor, test_blocks: torch.Tensor,
                       hann: torch.Tensor):
     """The Hann-windowed frames of ref and of ref - test, [2, ..., F, 2048],
-    and the hop energies [2, ..., F] of ref and test over blocks 1..F, in
-    hann's dtype (the spectrum dtype); the difference is taken in that
-    dtype (gstpeaq_tpu/ops/fft_ear.py:527-528, 562)."""
+    the hop energies [2, ..., F] of ref and test over blocks 1..F, and the
+    halves [2, ..., F], the energies of ref and of ref - test over blocks
+    0..F-1 (each frame's first half), in hann's dtype (the spectrum
+    dtype); the difference is taken in that dtype (gstpeaq_tpu/ops/
+    fft_ear.py:527-528, 562; gstpeaq_tpu/models/basic.py:203-211)."""
     ref = ref_blocks.to(hann.dtype)
     test = test_blocks.to(hann.dtype)
-    frames = torch.stack([_framed(ref), _framed(ref - test)]) * hann
+    diff = ref - test
+    frames = torch.stack([_framed(ref), _framed(diff)]) * hann
     energy = torch.sum(torch.stack([ref, test])[..., 1:, :] ** 2, dim=-1)
-    return frames, energy
+    halves = torch.sum(torch.stack([ref, diff])[..., :-1, :] ** 2, dim=-1)
+    return frames, energy, halves
 
 
 def pair_frames(ref_blocks: torch.Tensor, test_blocks: torch.Tensor,
                 hann: torch.Tensor):
     """S1: pair_frames_plain.  ref/test_blocks: hop blocks [..., F + 1,
     1024] of one shape, float32 or float64; hann: [2048] in the spectrum
-    dtype.  Returns (frames, energy), contiguous."""
+    dtype.  Returns (frames, energy, halves), contiguous."""
     global pair_frames_launches
     if ref_blocks.device.type == "cpu":
         return pair_frames_plain(ref_blocks, test_blocks, hann)
@@ -116,15 +122,17 @@ def pair_frames(ref_blocks: torch.Tensor, test_blocks: torch.Tensor,
     lead, n = ref.shape[:-2], ref.shape[-2] - 1
     frames = torch.empty((2, *lead, n, FRAME), dtype=hann.dtype,
                          device=hann.device)
-    energy = torch.empty((2, *lead, n), dtype=hann.dtype, device=hann.device)
+    energy, halves = torch.empty((2, 2, *lead, n), dtype=hann.dtype,
+                                 device=hann.device)
     rows = ref.numel() // ((n + 1) * HOP)
     if rows * n == 0:
-        return frames, energy
+        return frames, energy, halves
     _build.launch("pair_frames", hann, ref.data_ptr(), test.data_ptr(),
                   int(ref.dtype == torch.float64), hann.data_ptr(),
-                  frames.data_ptr(), energy.data_ptr(), rows, n)
+                  frames.data_ptr(), energy.data_ptr(), halves.data_ptr(),
+                  rows, n)
     pair_frames_launches += 1
-    return frames, energy
+    return frames, energy, halves
 
 
 def spectral_movs_plain(spectra: torch.Tensor, level_factor: torch.Tensor,

@@ -63,7 +63,7 @@ def spread_fft_plain(pitch_power: torch.Tensor, a_uc: torch.Tensor,
     for jb in range(0, z, block):
         j = torch.arange(jb, min(jb + block, z), dtype=dtype, device=device)
         expo = j - i_idx                                  # [Z, <=block]
-        w = torch.where(expo > 0, torch.exp(expo * log_a), 0.0)
+        w = torch.where(expo > 0, exact.exp(expo * log_a), 0.0)
         chunks.append(torch.sum(ene[..., None] * w, dim=-2))
     e2 = e2 + torch.cat(chunks, dim=-1)
     return (e2 * e2) * exact.sqrt(e2) / spread_norm

@@ -1,15 +1,17 @@
-"""A correctly rounded square root, and a logarithm that gives one result
-for its input on every run, on every device.
+"""A correctly rounded square root, and logarithms and an exponential that
+give one result for their input on every run, on every device.
 
-On the CPU, torch.sqrt and torch.log go through MKL's vector math library,
-which on a worker thread's first call has returned a whole thread's chunk
-off: sqrt up to 3e-11 (the level adapter's band sums), log up to 2e-10
-(EHS's log-spectral difference), so that a float64 result changed from run
-to run (ROADMAP.md queue C, C3 and C5).  Its sqrt is also up to 1 ulp from
-the IEEE square root.  NumPy's sqrt is the IEEE operation, as is CUDA's,
-and as XLA's is in the JAX package; NumPy's log is one single-threaded
-routine.  The port takes every square root and every natural logarithm
-through `sqrt` and `log` here.
+On the CPU, torch.sqrt, torch.log and torch.log10 go through MKL's vector
+math library, which on a worker thread's first call has returned a whole
+thread's chunk off: sqrt up to 3e-11 (the level adapter's band sums), log
+up to 2e-10 (EHS's log-spectral difference), log10 1.1e-10, so that a
+float64 result changed from run to run (ROADMAP.md queue C, C3, C5 and
+C6); torch.exp takes the same path.  Its sqrt is also up to 1 ulp from the
+IEEE square root.  NumPy's sqrt is the IEEE operation, as is CUDA's, and
+as XLA's is in the JAX package; NumPy's log, log10 and exp are
+single-threaded routines.  The port takes every square root, logarithm
+and exponential through `sqrt`, `log`, `log10` and `exp` here, except
+where a gradient flows (models/nn.py's sigmoid).
 
 MKL's GEMM on the CPU sums in an order that follows the thread count, so a
 band grouping `x @ matrix` moved with it (C5).  `band_sum` groups in one
@@ -36,6 +38,20 @@ def log(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return torch.from_numpy(np.asarray(np.log(x.numpy())))
     return torch.log(x)
+
+
+def log10(x: torch.Tensor) -> torch.Tensor:
+    """The base-10 logarithm of x, elementwise: on the CPU NumPy's."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.log10(x.numpy())))
+    return torch.log10(x)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """e to the x, elementwise: on the CPU NumPy's."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.exp(x.numpy())))
+    return torch.exp(x)
 
 
 def group_table(group_matrix: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -187,12 +187,15 @@ class PairMovs(NamedTuple):
     for the reference alone) in the band dtype; threshold [2, ..., CH, F]
     bool, the EHS energy gate of (ref, test); in the spectrum dtype,
     noise_in_bands [..., CH, F, Z] (NMR), ehs_difference [..., CH, F, 512]
-    (EHS) and bandwidth, (bw_ref, bw_test, valid) [..., CH, F] or None."""
+    (EHS), bandwidth, (bw_ref, bw_test, valid) [..., CH, F] or None, and
+    halves [2, ..., CH, F], the energies of each frame's first half of ref
+    and of ref - test (the totalsnr sums, models/basic.py::energy_totals)."""
     unsmeared: torch.Tensor
     threshold: torch.Tensor
     noise_in_bands: torch.Tensor
     ehs_difference: torch.Tensor
     bandwidth: tuple | None
+    halves: torch.Tensor
 
 
 def stateless_pair_movs(k: FFTEarConsts, ref_blocks: torch.Tensor,
@@ -201,14 +204,15 @@ def stateless_pair_movs(k: FFTEarConsts, ref_blocks: torch.Tensor,
                         bandwidth: bool = True) -> PairMovs:
     """stateless_pair_hop and the bin-domain halves of MOVS.bandwidth,
     MOVS.nmr and MOVS.ehs in two kernels around one rDFT: S1 frames (ref,
-    ref - test) and takes the hop energies, one batched rfft transforms
+    ref - test) and takes the hop energies and the frames' first halves'
+    energies, one batched rfft transforms
     both, S2 forms the band powers, NMR's noise in bands, the bandwidth
     indices and EHS's log-spectral difference, and the band powers, cast
     to the band dtype with the internal noise added, go to K3.  The power
     spectra never form.  spread_ref_only as stateless_pair_hop's;
     bandwidth=False leaves the bandwidth out (the advanced path)."""
-    frames, energy = cuda_spectral.pair_frames(ref_blocks, test_blocks,
-                                               k.hann)
+    frames, energy, halves = cuda_spectral.pair_frames(ref_blocks,
+                                                       test_blocks, k.hann)
     spectra = torch.view_as_real(torch.fft.rfft(frames, dim=-1))
     del frames
     s = cuda_spectral.spectral_movs(
@@ -218,7 +222,7 @@ def stateless_pair_movs(k: FFTEarConsts, ref_blocks: torch.Tensor,
     unsmeared = spread(
         k, s.band_power.to(k.internal_noise.dtype) + k.internal_noise)
     return PairMovs(unsmeared, energy >= C.EHS_ENERGY_THRESHOLD,
-                    s.noise_in_bands, s.ehs_difference, s.bandwidth)
+                    s.noise_in_bands, s.ehs_difference, s.bandwidth, halves)
 
 
 def time_smear(k: FFTEarConsts, unsmeared: torch.Tensor, axis: int = 0,

@@ -45,6 +45,7 @@ from ..models import movs as MOVS
 from ..models import nn as NN
 from ..models.basic import energy_totals
 from ..models.modulation import modulation
+from ..ops import cuda_gate
 from ..ops import exact
 from ..ops import fb_ear as FB
 from ..ops import fft_ear as FE
@@ -254,25 +255,22 @@ def _frames(state_offset: torch.Tensor, n_frames: int) -> torch.Tensor:
         n_frames, device=state_offset.device)
 
 
-def _energy(state: dict, ref_blocks, test_blocks, sdtype) -> dict:
-    signal, noise = energy_totals(ref_blocks, test_blocks, None, sdtype)
+def _energy(state: dict, halves) -> dict:
+    signal, noise = energy_totals(halves, None)
     return {"signal_energy": state["signal_energy"] + signal,
             "noise_energy": state["noise_energy"] + noise}
 
 
 def _fft_front(k, ref_sig, test_sig, bandwidth: bool):
-    """Hop blocks, the threshold gate [N, F] and the stateless ear model
+    """The threshold gate [N, F] and the stateless ear model
     (fft_ear.stateless_pair_movs, both signals spread, the bandwidth where
     asked) of an FFT-path chunk [N, CH, (F + 1) * 1024]."""
-    sdtype = k.hann.dtype
     n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
-    ref_blocks = framing.blocks_hop(ref_sig, n_frames)
-    test_blocks = framing.blocks_hop(test_sig, n_frames)
-    above = framing.above_threshold_signal(
-        ref_sig.to(sdtype), n_frames, C.FFT_FRAMESIZE, C.FFT_STEPSIZE)
-    return (ref_blocks, test_blocks, above,
-            FE.stateless_pair_movs(k, ref_blocks, test_blocks,
-                                   bandwidth=bandwidth))
+    above = cuda_gate.frame_gate(ref_sig, n_frames, C.FFT_FRAMESIZE,
+                                 C.FFT_STEPSIZE, k.hann.dtype)
+    return above, FE.stateless_pair_movs(
+        k, framing.blocks_hop(ref_sig, n_frames),
+        framing.blocks_hop(test_sig, n_frames), bandwidth=bandwidth)
 
 
 def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
@@ -282,11 +280,10 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     settings); state: leaves [N, ...]; ref/test_sig: [N, CH, (F + 1) * 1024]
     float, or int16 PCM dequantized here.  Returns the new state."""
     k, settings = pipe.consts, pipe.settings
-    dtype, sdtype = k.internal_noise.dtype, k.hann.dtype
+    dtype = k.internal_noise.dtype
     ref_sig = framing.dequantize(ref_sig)
     test_sig = framing.dequantize(test_sig)
-    ref_blocks, test_blocks, above, ear = _fft_front(k, ref_sig, test_sig,
-                                                     bandwidth=True)
+    above, ear = _fft_front(k, ref_sig, test_sig, bandwidth=True)
     n_frames = above.shape[-1]
     uns_t = ear.unsmeared.transpose(-1, -2).contiguous()  # [2, N, CH, Z, F]
     exc, smear = FE.time_smear(k, uns_t, axis=-1,
@@ -383,7 +380,7 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
         "has_above": act.has_above,
         "frame_offset": state["frame_offset"] + n_frames,
         "lrf": lrf,
-        **_energy(state, ref_blocks, test_blocks, sdtype),
+        **_energy(state, ear.halves),
     }
 
 
@@ -395,11 +392,10 @@ def fft_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     are spread and smeared, since the state carries both smears (the
     checkpoint layout), though only the reference's excitation is read."""
     kf, settings = pipe.fft, pipe.settings
-    dtype, sdtype = kf.internal_noise.dtype, kf.hann.dtype
+    dtype = kf.internal_noise.dtype
     ref_sig = framing.dequantize(ref_sig)
     test_sig = framing.dequantize(test_sig)
-    ref_blocks, test_blocks, above, ear = _fft_front(kf, ref_sig, test_sig,
-                                                     bandwidth=False)
+    above, ear = _fft_front(kf, ref_sig, test_sig, bandwidth=False)
     exc, smear = FE.time_smear(kf,
                                ear.unsmeared.transpose(-1, -2).contiguous(),
                                axis=-1, state=state["smear"].movedim(1, 0),
@@ -415,14 +411,14 @@ def fft_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     one = torch.ones_like(nmr_mean)
     sums = dict(state["sums"])
     sums["SegmentalNMRB"] = act.update(
-        sums["SegmentalNMRB"], 10.0 * torch.log10(nmr_mean), one, every)
+        sums["SegmentalNMRB"], 10.0 * exact.log10(nmr_mean), one, every)
     valid = ehs_valid[:, None, :]
     sums["EHSB"] = act.update(sums["EHSB"], torch.where(valid, ehs_val, 0.0),
                               valid.to(dtype) * one, every)
     new_state = dict(state)
     new_state.update(sums=sums, smear=smear.movedim(0, 1),
                      has_above_fft=act.has_above,
-                     **_energy(state, ref_blocks, test_blocks, sdtype))
+                     **_energy(state, ear.halves))
     return new_state
 
 
@@ -435,10 +431,11 @@ def fb_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     stacked."""
     kb, settings = pipe.fb, pipe.settings
     sdtype = kb.level_factor.dtype
-    sig = framing.dequantize(torch.stack([ref_sig, test_sig])).to(sdtype)
+    sig = framing.dequantize(torch.stack([ref_sig, test_sig]))
     n_fb = sig.shape[-1] // C.FB_FRAMESIZE
-    above = framing.above_threshold_signal(sig[0], n_fb, C.FB_FRAMESIZE,
-                                           C.FB_FRAMESIZE)
+    above = cuda_gate.frame_gate(sig[0], n_fb, C.FB_FRAMESIZE,
+                                 C.FB_FRAMESIZE, sdtype)
+    sig = sig.to(sdtype)
     exc2, uns2, fb_new = FB.process_signal(
         kb, sig, n_fb, _stacked((state["fb_ref"], state["fb_test"])), True)
     ref_e = exc2[0]
@@ -516,13 +513,13 @@ def read_movs(pipe, state: dict, advanced: bool):
         vals = {name: mean(frac(name)) for name in (
             "BandwidthRefB", "BandwidthTestB", "AvgModDiff1B",
             "AvgModDiff2B", "RelDistFramesB", "EHSB")}
-        vals["TotalNMRB"] = mean(10.0 * torch.log10(frac("TotalNMRB")))
+        vals["TotalNMRB"] = mean(10.0 * exact.log10(frac("TotalNMRB")))
         for name in ("RmsNoiseLoudB", "WinModDiff1B"):
             vals[name] = mean(exact.sqrt(frac(name)))
         num = sums["ADBB"]["committed"][:, 0].to(dtype)
         den = sums["ADBB"]["committed_den"][:, 0].to(dtype)
         vals["ADBB"] = torch.where(
-            den > 0, torch.where(num == 0.0, -0.5, torch.log10(
+            den > 0, torch.where(num == 0.0, -0.5, exact.log10(
                 torch.clamp_min(num, 1e-300) / den)), 0.0)
         vals["MFPDB"] = torch.clamp_min(
             state["mfpd_max_committed"][:, 0], 0.0).to(dtype)

@@ -5,15 +5,15 @@ first call in a process as on their second.  Run from anywhere:
     python3 gstpeaq_tpu_torch/tools/cpu_first_call.py [--runs 32] [--jobs 8]
 
 For each function (torch.log, torch.exp, torch.log10, torch.log1p,
-torch.sqrt and the port's exact.log and exact.sqrt) it starts `runs` fresh
-Python processes, `jobs` at a time so that the machine is busy, each at
-torch's default thread count.  Each process calls the function twice on
+torch.sqrt and the port's exact.log, exact.log10, exact.exp and
+exact.sqrt) it starts `runs` fresh Python processes, `jobs` at a time so
+that the machine is busy, each at torch's default thread count.  Each process calls the function twice on
 the same float64 array [4, 24, 512] made from its own seed, and reports
 how many values the first call gave differently from the second, and the
 largest relative difference.  Prints one line per function: the runs whose
 first call differed, of all runs, and the largest difference seen.  A
 first call that differs is what made a float64 CPU result change from
-run to run (ROADMAP.md queue C, C3 and C5).
+run to run (ROADMAP.md queue C, C3, C5 and C6).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 FUNCTIONS = ("torch.log", "torch.exp", "torch.log10", "torch.log1p",
-             "torch.sqrt", "exact.log", "exact.sqrt")
+             "torch.sqrt", "exact.log", "exact.log10", "exact.exp",
+             "exact.sqrt")
 CHILD = """
 import json, sys
 import numpy as np, torch

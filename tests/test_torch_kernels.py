@@ -485,7 +485,8 @@ def test_build_is_keyed_by_the_sources():
     target sm_90a and never fast math."""
     names = {p.name for p in _build.sources()}
     assert names == {"recurrence.cu", "spread_fft.cu", "fb_spread.cu",
-                     "dc_chain.cu", "fir_bank.cu", "spectral.cu"}
+                     "dc_chain.cu", "fir_bank.cu", "spectral.cu",
+                     "gate.cu"}
     assert _build.library_path().name.startswith("libpeaq_kernels_")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast" in flag for flag in _build.NVCC_FLAGS)

@@ -229,7 +229,8 @@ def test_spectral_stage_matches_jax(band_count, ref_only, bandwidth,
     EHS within 1e-12, bandwidth equal."""
     jk, k, ref, test, out = jax_stage(band_count, ref_only)
     power = out[0]
-    frames, _ = cuda_spectral.pair_frames_plain(tt(ref), tt(test), k.hann)
+    frames, _, _ = cuda_spectral.pair_frames_plain(tt(ref), tt(test),
+                                                   k.hann)
     spectra = torch.view_as_real(tt(np.array(jnp.fft.rfft(
         jnp.asarray(frames.numpy()), axis=-1))))
     s = cuda_spectral.spectral_movs_plain(
@@ -324,9 +325,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     monkeypatch.setattr(cuda_spectral, "spectral_movs_launches", 0)
     k = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT))
     ref, test = (tt(x) for x in branch_blocks())
-    frames, energy = cuda_spectral.pair_frames(ref, test, k.hann)
+    frames, energy, halves = cuda_spectral.pair_frames(ref, test, k.hann)
     want = cuda_spectral.pair_frames_plain(ref, test, k.hann)
     assert torch.equal(frames, want[0]) and torch.equal(energy, want[1])
+    assert torch.equal(halves, want[2])
     assert frames.shape == (2, 2, FRAMES, 2048) and frames.is_contiguous()
     spectra = torch.view_as_real(torch.fft.rfft(frames, dim=-1))
     got = cuda_spectral.spectral_movs(
@@ -460,3 +462,18 @@ def test_port_takes_every_log_from_exact():
     calls = [str(p.relative_to(root)) for p in root.rglob("*.py")
              if "torch.log(" in p.read_text() and p.name != "exact.py"]
     assert calls == []
+
+
+def test_port_takes_every_log10_and_exp_from_exact():
+    """No module of the port calls torch.log10 or torch.exp but
+    ops/exact.py, save models/nn.py's sigmoid, whose autograd training
+    needs (ROADMAP.md queue C, C6)."""
+    root = ROOT / "gstpeaq_tpu_torch"
+    calls = {str(p.relative_to(root)): text.count("torch.log10(")
+             + text.count("torch.exp(")
+             for p in root.rglob("*.py") if p.name != "exact.py"
+             for text in [p.read_text()]}
+    assert {name: n for name, n in calls.items() if n} == {
+        "models/nn.py": 1}
+    assert "return 1.0 / (1.0 + torch.exp(-x))" in (
+        root / "models" / "nn.py").read_text()
