@@ -6,9 +6,9 @@ and check it.  Run from the repository root:
 
 Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
-  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1, S2 and G1 from
-              gstpeaq_tpu_torch/csrc, one process per source, and ptxas
-              reports each kernel's registers and spills
+  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1, S2, G1, L1, L2
+              and M1 from gstpeaq_tpu_torch/csrc, one process per source,
+              and ptxas reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and edge shapes (K1 and K2: the FB
               ear's [2, 2, 40, 2500] and their tile edges F = 1 .. 5121, K1
@@ -30,13 +30,21 @@ Phases, each on its own lines and ending with its seconds:
               on the pair's FFT and FB frames and on edge rows: one ulp
               either side of the threshold, windows across a hop
               boundary and at frame-local i < 5, one channel crossing, a
-              NaN, mono and 3 channels, one frame, views) and at the
+              NaN, mono and 3 channels, one frame, views; L1, L2 and M1,
+              the band-domain epilogues, on the inputs the 10 s pair
+              gives them in one peaq() per mode, at every call site, and
+              for float32 in the accurate tier too (M1 with float64 NMR
+              noise), M1's decisions equal: the disturbed flags, the noise
+              loudness's zeroed frames and, by the steps' bar, the
+              truncated parts of e) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
               pool's 16; S1 and S2 on each FFT step's blocks, G1 on
-              every step's chunk) with
+              every step's chunk; L1, L2 and M1 on the inputs of a real
+              batch's first microbatch and of each stream path's first
+              chunk step) with
               their carried states (K1 and D1 with y0, D3 with
               its state, D1 and D2 on a second FB chunk of the pair's own
               rows; F1 with the first chunk as history), in float32 and
@@ -65,7 +73,9 @@ Phases, each on its own lines and ending with its seconds:
               is held to none); then
               one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
-              launches each kernel as often as one peaq() does, and one
+              launches each kernel as often as one peaq() does (L1 and L2
+              once a level adapter, M1 once basic and twice advanced), and
+              one
               chunk step of each stream path (basic, advanced FFT,
               advanced FB) per tier, at one stream and at 16
   7 times     CUDA-event medians of each kernel and its plain version in
@@ -94,8 +104,12 @@ Phases, each on its own lines and ending with its seconds:
               (gstpeaq_tpu_torch/tools/bench.py), the phases' wall times,
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank (F1),
-              the bin-domain stage (S1, S2), the gate (G1), the other
-              hand kernels and the copies to the card; then, at the basic
+              the bin-domain stage (S1, S2), the gate (G1), the band
+              epilogues (L1, L2, M1, each), the other hand kernels and
+              the copies to the card; the band epilogue's sites in
+              record_function ranges (tools/epilogue_sites.py) with
+              L1's, L2's and M1's device ms, basic and advanced float64;
+              then, at the basic
               float64 batch's shape with float32 and float64 samples, G1
               and the energy totals summed from S1's halves beside the
               eager passes over the whole signal they replaced, and each
@@ -158,8 +172,9 @@ times, bound and launches: `max_abs_err`, `ms`, `plain_ms`, `bound_ms`,
 operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64; F1 67 on
 the FP64 tensor cores), counted from this run's main-shape inputs;
 `library_ms` is K1's grouped causal conv1d at its main shape and F1's
-cuDNN conv1d (its plain version), and null for the other kernels, S1, S2
-and G1 among them, since no single PyTorch call computes their functions;
+cuDNN conv1d (its plain version), and null for the other kernels, S1, S2,
+G1, L1, L2 and M1 among them, since no single PyTorch call computes their
+functions;
 `launches_by_path` holds phase 6's
 float32 count per path (basic, advanced, and one microbatch of 32 of
 each batch path; 0 where a path does not launch the kernel), `launches`
@@ -193,6 +208,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import inspect
 import io
 import json
 import math
@@ -217,6 +233,7 @@ from gstpeaq_tpu_torch import constants as C
 from gstpeaq_tpu_torch import earparams as EP
 from gstpeaq_tpu_torch.models import basic
 from gstpeaq_tpu_torch.ops import _build
+from gstpeaq_tpu_torch.ops import cuda_band
 from gstpeaq_tpu_torch.ops import cuda_dc
 from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import cuda_fir
@@ -233,6 +250,7 @@ from gstpeaq_tpu_torch.parallel import shard
 from gstpeaq_tpu_torch.parallel import stream as PS
 from gstpeaq_tpu_torch.tools import bench as TB
 from gstpeaq_tpu_torch.tools import codec_sweep as CS
+from gstpeaq_tpu_torch.tools import epilogue_sites as ES
 from gstpeaq_tpu_torch.tools import longform_bench as LB
 from gstpeaq_tpu_torch.tools import optimize_settings as OS
 from gstpeaq_tpu_torch.utils import checkpoint as CK
@@ -300,9 +318,28 @@ KERNELS = {
     "frame_gate": dict(
         route="cuda", source="gstpeaq_tpu_torch/csrc/gate.cu",
         replaces="gstpeaq_tpu/ops/framing.py:92"),
+    # nor are these: they replace the port's eager band-domain epilogues,
+    # standing for XLA's fusions of the JAX package's level adapter after
+    # its stage-1 smoothing (L1 up to the num/den smoothers, L2 between
+    # them and the pattern-correction smoother) and of its per-frame MOV
+    # terms (M1)
+    "levcorr": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/band.cu",
+        replaces="gstpeaq_tpu/models/level_adapt.py:45"),
+    "pattern_adapt": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/band.cu",
+        replaces="gstpeaq_tpu/models/level_adapt.py:45"),
+    "band_movs": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/band.cu",
+        replaces="gstpeaq_tpu/models/movs.py:20, "
+                 "gstpeaq_tpu/models/movs.py:46, "
+                 "gstpeaq_tpu/models/movs.py:101, "
+                 "gstpeaq_tpu/models/movs.py:136"),
 }
 # the kernels of the bin-domain stage (S1, S2)
 SPECTRAL = ("pair_frames", "spectral_movs")
+# the kernels of the band-domain epilogues (L1, L2, M1)
+BAND = ("levcorr", "pattern_adapt", "band_movs")
 COUNTERS = {
     "recurrence_banded": (cuda_iir, "recurrence_banded_launches"),
     "fused_mod_smoothers": (cuda_iir, "fused_mod_smoothers_launches"),
@@ -314,6 +351,9 @@ COUNTERS = {
     "pair_frames": (cuda_spectral, "pair_frames_launches"),
     "spectral_movs": (cuda_spectral, "spectral_movs_launches"),
     "frame_gate": (cuda_gate, "frame_gate_launches"),
+    "levcorr": (cuda_band, "levcorr_launches"),
+    "pattern_adapt": (cuda_band, "pattern_adapt_launches"),
+    "band_movs": (cuda_band, "band_movs_launches"),
 }
 # max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
 # carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
@@ -362,31 +402,39 @@ TOOL_CHUNK = 1024
 # advanced FFT, K1 for the time smear of both signals and K3; advanced FB,
 # D3, F1, D1 and D2 once on both signals, K1 for the forward masking, the
 # level adapter's three and the modulation; K2 never (its kernel takes no
-# state); S1 and S2 once in each FFT step; G1 once in every step
+# state); S1 and S2 once in each FFT step; G1 once in every step; L1 and
+# L2 once in each step with a level adapter (basic, FB), M1 once in every
+# step (the FFT step's NMR alone)
 STREAM_STEP_LAUNCHES = {
     "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
-              "spectral_movs": 1, "frame_gate": 1},
+              "spectral_movs": 1, "frame_gate": 1, "levcorr": 1,
+              "pattern_adapt": 1, "band_movs": 1},
     "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
                      "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
-                     "spectral_movs": 1, "frame_gate": 1},
+                     "spectral_movs": 1, "frame_gate": 1, "levcorr": 0,
+                     "pattern_adapt": 0, "band_movs": 1},
     "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
                     "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
                     "dc_chain": 1, "fir_bank": 1, "pair_frames": 0,
-                    "spectral_movs": 0, "frame_gate": 1}}
+                    "spectral_movs": 0, "frame_gate": 1, "levcorr": 1,
+                    "pattern_adapt": 1, "band_movs": 1}}
 # each mode's launches in one peaq() (phase 6; the CLI runs one): G1 gates
-# the basic path once and the advanced path's FFT and FB frames once each
+# the basic path once and the advanced path's FFT and FB frames once each;
+# M1 runs once basic, and twice advanced (the FFT path's NMR, the FB path)
 PATH_LAUNCHES = {
     "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
-              "spectral_movs": 1, "frame_gate": 1},
+              "spectral_movs": 1, "frame_gate": 1, "levcorr": 1,
+              "pattern_adapt": 1, "band_movs": 1},
     "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
                  "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
                  "dc_chain": 1, "fir_bank": 1, "pair_frames": 1,
-                 "spectral_movs": 1, "frame_gate": 2}}
+                 "spectral_movs": 1, "frame_gate": 2, "levcorr": 1,
+                 "pattern_adapt": 1, "band_movs": 2}}
 # phase 10's bars: a float64 stream against the one-shot peaq() of the same
 # program, and the float32 / accurate streams against their own one-shot
 # (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
@@ -422,6 +470,8 @@ def ops_of(name: str, inputs) -> float:
         # per sample and channel: |x| (1), the window's four adds (4), the
         # maximum over channels (1) and its hop's two maxima (2)
         return 8 * inputs[0].numel()
+    if name in BAND:
+        return band_ops(name, inputs)
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
     per_element = {"recurrence_banded": 2,      # a y + b
@@ -619,8 +669,9 @@ def phase_build() -> None:
             m = re.search(rf"({names})(?:_([a-z]+))?_kernelI([fd]+)"
                           rf"((?:Li\d+E)*)", line)
             ints = m and re.findall(r"Li(\d+)E", m[4])
-            labels = ("copies of",) if m and m[1] == "spread_fb" \
-                else ("step",)
+            labels = (("copies of",) if m and m[1] == "spread_fb" else
+                      ("window",) if m and m[1] == "pattern_adapt" else
+                      ("step",))
             entry = m and " ".join(
                 [m[1]] + ([m[2]] if m[2] else [])
                 + ["->".join("double" if c == "d" else "float"
@@ -1186,6 +1237,182 @@ def gate_cases(dtype, pair10) -> list:
     return cases
 
 
+def band_ops(name: str, inputs) -> float:
+    """The operations of one L1, L2 or M1 call on `inputs` (band_reads'),
+    a transcendental counted as one, per band element of one signal (a
+    row, a band, a frame).  L1: sqrt(Pr Pt) and the two sums (4), the
+    level correction (1) and the drive's two products (2).  L2: the
+    comparison and two quotients (3), the window's 2 (W - 1) adds over W
+    = m1c + m2c + 1 bands and the four products (4).  M1: ModDiff and
+    TempWt (13), the adapted excitations (4), a noise loudness set (23:
+    s_ref, s_test, beta, two powers, the excess, its quotient, the sum),
+    the loudness of both signals (16), NMR (4) and the detection
+    probability and steps (36: two log10, l, s(l), e, t^4 or t^6, 0.5^t,
+    trunc, the maxima): basic 96, the FB site 102 (three sets, no NMR or
+    detection), the FFT site 4 (NMR alone)."""
+    x = inputs[0]
+    if name == "levcorr":
+        return 7 * x.numel() // 2
+    z = x.shape[-2]
+    if name == "pattern_adapt":
+        width = z // 36 + z // 25 + 1
+        return (7 + 2 * (width - 1)) * x.numel() // 2
+    if len(inputs) == 2:                        # the FFT site: exc, noise
+        return 4 * x.numel()
+    per = 102 if z == C.FB_BAND_COUNT else 96
+    return per * x.numel() // 2
+
+
+def band_calls(run) -> dict:
+    """The first call of each band kernel (L1, L2, M1) by (kernel, M1's
+    site) that run() makes, as (args, kwargs); the calls run as made."""
+    seen = {}
+    wrappers = {name: getattr(cuda_band, name) for name in BAND}
+
+    def capture(name):
+        def call(*args, **kwargs):
+            site = args[1] if name == "band_movs" else ""
+            seen.setdefault((name, site), (args, kwargs))
+            return wrappers[name](*args, **kwargs)
+        return call
+    try:
+        for name in BAND:
+            setattr(cuda_band, name, capture(name))
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in wrappers.items():
+            setattr(cuda_band, name, fn)
+    return seen
+
+
+def band_reads(name: str, args, kwargs) -> tuple:
+    """The tensors one call of a band kernel reads: L1 exc2 and filt2; L2
+    nd (and a); M1 the excitations, lev_corr, pc, the modulations, the
+    average loudness and NMR's noise, where the site reads them."""
+    if name != "band_movs":
+        return tuple(args[:2])
+    bound = inspect.signature(cuda_band.band_movs_plain).bind(*args,
+                                                               **kwargs)
+    return tuple(bound.arguments[arg] for arg in (
+        "exc", "lev_corr", "pc", "mod2", "avg_loud", "noise")
+        if bound.arguments.get(arg) is not None)
+
+
+def band_case(label: str, name: str, call) -> Case:
+    """A Case of one captured call of a band kernel: the wrapper and the
+    plain version on the call's own arguments."""
+    args, kwargs = call
+    kernel = getattr(cuda_band, name)
+    plain = getattr(cuda_band, f"{name}_plain")
+    return Case(name, label, lambda: kernel(*args, **kwargs),
+                lambda: plain(*args, **kwargs),
+                band_reads(name, args, kwargs))
+
+
+def band_shape(name: str, call) -> list:
+    return list(band_reads(name, *call)[0].shape)
+
+
+def band_check(name: str, got, want, dtype) -> tuple[float, float, bool,
+                                                       str]:
+    """A band kernel's output against its plain version's: each tensor
+    within BARS of its largest value (all finite where the plain version's
+    are), and M1's decisions equal: the disturbed flags, the noise
+    loudness's zeroed frames (nl < nl_min) and, by the steps' bar (a
+    truncation that fell otherwise moves steps_bin by 1 / s, far above
+    it), the truncated parts of e.  Returns (max|d|, max|d| / max|ref|,
+    ok, note)."""
+    err = rel = 0.0
+    ok = True
+    for g, w in zip(tensors_of(got), tensors_of(want)):
+        ok = ok and g.shape == w.shape and g.dtype == w.dtype
+        d = (g.double() - w.double()).abs().max().item() if g.numel() else 0
+        err = max(err, d)
+        rel = max(rel, d / max(w.double().abs().max().item() if w.numel()
+                              else 0.0, torch.finfo(dtype).tiny))
+        ok = ok and bool(torch.equal(torch.isfinite(g), torch.isfinite(w)))
+    note = ""
+    if name == "band_movs":
+        if got.nmr is not None:
+            same = torch.equal(got.nmr[1], want.nmr[1])
+            note += (f", disturbed {int(got.nmr[1].sum())} of "
+                     f"{got.nmr[1].numel()} equal: {same}")
+            ok = ok and same
+        if got.terms is not None:
+            same = torch.equal(got.terms[3:] == 0, want.terms[3:] == 0)
+            note += (f", nl zeroed {int((got.terms[3:] == 0).sum())} equal: "
+                     f"{same}")
+            ok = ok and same
+    return err, rel, ok and rel < BARS[dtype], note
+
+
+@functools.cache
+def bench_pairs():
+    """bench.py's 64 pairs of 10 s stereo (phases 3 and 9)."""
+    return make_pairs(BATCH_PAIRS, 10.0)
+
+
+def band_cases(dtype, pair10) -> list:
+    """L1, L2 and M1 on the inputs the 10 s pair gives them in one peaq()
+    per mode, in dtype's tier (the basic calls the main cases; the advanced
+    path's FB level adapter and M1 at its FFT and FB sites), and, for
+    float32, in the accurate tier too (M1 with float64 NMR noise)."""
+    tiers = [("float64" if dtype == torch.float64 else "float32", "")]
+    if dtype == torch.float32:
+        tiers.append(("accurate", "accurate tier, "))
+    cases = []
+    for tier, note in tiers:
+        for mode in MODES:
+            calls = band_calls(lambda: peaq_call(pair10, mode, tier))
+            for (name, site), call in calls.items():
+                label = ("main" if mode == "basic" and not note else
+                         f"per pair {note}{mode} {site} "
+                         f"{band_shape(name, call)}".replace("  ", " "))
+                cases.append(band_case(label, name, call))
+    return cases
+
+
+def band_batch_cases(dtype) -> list:
+    """L1, L2 and M1 on the inputs of bench's 64 pairs through peaq_batch()
+    (basic microbatch 64, advanced 32: the first microbatch's calls)."""
+    tier = "float64" if dtype == torch.float64 else "float32"
+    cases = []
+    for mode in MODES:
+        calls = band_calls(lambda: PB.peaq_batch(
+            *bench_pairs(), advanced=mode == "advanced", dtype=tier,
+            microbatch=MICROBATCH[mode]))
+        for (name, site), call in calls.items():
+            label = f"batch {mode} {site} {band_shape(name, call)}"
+            cases.append(band_case(label.replace("  ", " "), name, call))
+    return cases
+
+
+def band_stream_cases(dtype, pair10, chunk: int, n: int) -> list:
+    """L1, L2 and M1 on the inputs of one chunk step of each stream path at
+    `chunk` FFT frames and n streams: pools fed the 10 s pair tiled to
+    70 s, one basic step, then an advanced pool's first FFT and FB steps."""
+    tier = "float64" if dtype == torch.float64 else "float32"
+    program = tuple(np.tile(x, (7, 1)) for x in pair10)
+
+    def piece(hi):
+        return tuple(np.broadcast_to(x[:hi], (n, hi, 2)) for x in program)
+    cases = []
+    for mode, need in (("basic", (chunk + 1) * C.FFT_STEPSIZE),
+                       ("advanced", 16 * chunk * C.FB_FRAMESIZE)):
+        pool = PS.PeaqStreamPool(n, chunk_frames=chunk, dtype=tier,
+                                 advanced=mode == "advanced")
+        calls = band_calls(lambda: pool.feed(*piece(need)))
+        for (name, site), call in calls.items():
+            path = {"basic": "basic", "fft": "advanced_fft",
+                    "fb": "advanced_fb"}[site] if site else (
+                "basic" if mode == "basic" else "advanced_fb")
+            cases.append(band_case(f"stream N={n} chunk {chunk} {path} "
+                                   f"{band_shape(name, call)}", name, call))
+        del pool
+    return cases
+
+
 def kernel_cases(dtype, rng, pair10):
     """Every Case of phase 3, at main-path and edge shapes."""
     dev = "cuda"
@@ -1228,7 +1455,7 @@ def kernel_cases(dtype, rng, pair10):
                           (p, c[0], c[1], c[3])))
     return (cases + row_cases(t) + spread_edges(t, dtype)
             + fb_cases(dtype, rng, pair10, t) + spectral_cases(dtype, pair10)
-            + gate_cases(dtype, pair10))
+            + gate_cases(dtype, pair10) + band_cases(dtype, pair10))
 
 
 def batch_fb_pair(pair10, k, shape) -> torch.Tensor:
@@ -1340,7 +1567,7 @@ def batch_cases(dtype, rng, pair10):
             cases.append(gate_case(label if ship == torch.float32 else
                                    f"float64 samples, {label}", sig, n, form,
                                    dtype))
-    return cases
+    return cases + band_batch_cases(dtype)
 
 
 def stream_shapes(n: int, chunk: int = STREAM_CHUNK) -> dict:
@@ -1382,7 +1609,15 @@ def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
             "frame_gate": {**dict.fromkeys(
                 ("basic", "advanced_fft"),
                 (1, 2, (chunk + 1) * C.FFT_STEPSIZE)),
-                "advanced_fb": sh["dc"][1:]}}[name]
+                "advanced_fb": sh["dc"][1:]},
+            # L1's and L2's stacked band tensors, M1's excitations (the
+            # FFT step's reference alone)
+            "levcorr": {"basic": sh["basic"], "advanced_fb": sh["fb_frames"]},
+            "pattern_adapt": {"basic": sh["basic"],
+                              "advanced_fb": sh["fb_frames"]},
+            "band_movs": {"basic": sh["basic"],
+                          "advanced_fft": sh["advanced_fft"][1:],
+                          "advanced_fb": sh["fb_frames"]}}[name]
 
 
 def stream_cases(dtype, pair10) -> list:
@@ -1417,6 +1652,7 @@ def stream_cases(dtype, pair10) -> list:
                      (TOOL_CHUNK, 1), (TOOL_CHUNK, POOL)):
         shapes = stream_shapes(n, chunk)
         label = f"stream N={n}"
+        cases += band_stream_cases(dtype, pair10, chunk, n)
         # S1 and S2 on the FFT steps' blocks: one S1 shape for both
         # steps, S2 with the basic step's flags and the advanced FFT
         # step's (both signals grouped, no bandwidth)
@@ -1538,6 +1774,10 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                                                     dtype)
                 line = (f"  {name} {case} {dtype}: max|d|/max|ref| "
                         f"{rel:.3e}{note}")
+            elif name in BAND:
+                err, rel, ok, note = band_check(name, out, c.plain(), dtype)
+                line = (f"  {name} {case} {dtype}: max|d|/max|ref| "
+                        f"{rel:.3e}{note}")
             elif name == "frame_gate":
                 want = c.plain()
                 ok = got.shape == want.shape and torch.equal(got, want)
@@ -1559,7 +1799,7 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                     line += f", elementwise rel {elem:.3e}"
                     ok = ok and elem < 1e-4
                 del want
-            if name in ("fir_bank", "frame_gate", *SPECTRAL):
+            if name in ("fir_bank", "frame_gate", *SPECTRAL, *BAND):
                 same = torch.equal(got, stacked(c.kernel()))
                 line += f", two launches bit-identical: {same}"
                 ok = ok and same
@@ -2463,8 +2703,9 @@ def mixed_lengths(items: int = 8):
 def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     """One peaq_batch() of `pairs` under torch.profiler: device ms (the
     device rows), the FIR bank's (F1's rows), the bin-domain stage's (S1's
-    and S2's rows), the gate's (G1's rows), the hand kernels' (F1's, S1's,
-    S2's and G1's included) and the copies to the card's."""
+    and S2's rows), the gate's (G1's rows), each band epilogue kernel's
+    (L1's, L2's and M1's rows), the hand kernels' (F1's, S1's, S2's, G1's,
+    L1's, L2's and M1's included) and the copies to the card's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2483,6 +2724,9 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
                                             r"_kernel", e.key)) / 1e3,
             "gate_ms": sum(e.self_device_time_total for e in device
                            if "frame_gate_kernel" in e.key) / 1e3,
+            "band_ms": {name: sum(e.self_device_time_total for e in device
+                                  if re.search(rf"\b{name}_kernel", e.key))
+                        / 1e3 for name in BAND},
             "hand_ms": hand / 1e3,
             "h2d_ms": sum(e.self_device_time_total for e in device
                           if "HtoD" in e.key) / 1e3,
@@ -2588,8 +2832,10 @@ def phase_batch(pairs, card: str) -> dict:
                   + f"; peak memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f}"
                   f" GiB before)", flush=True)
             staged_ms = audio / statistics.median(rates) * 1e3
+            band = prof["band_ms"]
+            band_ms = sum(band.values())
             other = (prof["hand_ms"] - prof["fir_ms"] - prof["spectral_ms"]
-                     - prof["gate_ms"])
+                     - prof["gate_ms"] - band_ms)
             print(f"    profiled peaq_batch(): device {dev:.1f} ms, busy "
                   f"{dev / (wall * 1e3):.1%} of the unprofiled call and, "
                   f"without the copies to the card, "
@@ -2600,15 +2846,47 @@ def phase_batch(pairs, card: str) -> dict:
                   f"S2) {prof['spectral_ms']:.2f} ms "
                   f"({prof['spectral_ms'] / dev:.1%}), the gate (G1) "
                   f"{prof['gate_ms']:.3f} ms ({prof['gate_ms'] / dev:.1%}), "
-                  f"the other hand "
+                  f"the band epilogues (L1, L2, M1) {band_ms:.3f} ms "
+                  f"({band_ms / dev:.1%}: "
+                  + ", ".join(f"{name} {ms:.3f} ms ({ms / dev:.1%})"
+                              for name, ms in band.items())
+                  + "), the other hand "
                   f"kernels {other:.1f} ms ({other / dev:.1%}), the "
                   f"profiler's rows of "
                   f"copies to the card {prof['h2d_ms']:.1f} ms "
                   f"({prof['h2d_ms'] / dev:.1%}); copy rows "
                   f"{prof['copies']}", flush=True)
             print(prof["table"])
+    epilogue_sites(pairs)
     sample_passes(readings)
     return readings
+
+
+def epilogue_sites(pairs) -> None:
+    """The band-domain epilogue's sites in one staged basic float64 and
+    advanced float64 batch of `pairs` (tools/epilogue_sites.py): each
+    site's record_function range (the level adapter after its stage-1
+    smoothing, M1's calls) with the device ms of the PyTorch kernels
+    inside it, which the kernels left, and L1's, L2's, M1's and K1's
+    device ms by kernel name beside the batch's."""
+    for config, got in ES.profile_sites(
+            (("basic", "float64", MICROBATCH["basic"]),
+             ("advanced", "float64", MICROBATCH["advanced"])),
+            pairs).items():
+        dev = got["device_ms"]
+        hand = got["hand_kernels_ms"]
+        check(dev > 0, "the profiler saw no device time")
+        band = sum(hand.get(name, 0.0) for name in BAND)
+        print(f"  epilogue sites, {config}: device {dev:.3f} ms, "
+              f"{got['device_ops']} device ops; ranges (eager kernels "
+              "inside): " + ", ".join(
+                  f"{name} {s['calls']} calls {s['device_ms']:.3f} ms "
+                  f"{s['kernels']} kernels"
+                  for name, s in got["sites"].items())
+              + f"; L1 + L2 + M1 {band:.3f} ms ({band / dev:.1%}: "
+              + ", ".join(f"{name} {hand.get(name, 0.0):.3f} ms"
+                          for name in (*BAND, "recurrence_banded"))
+              + ")", flush=True)
 
 
 def eager_energy_totals(ref_blocks, test_blocks, dtype):
@@ -3715,7 +3993,7 @@ def main() -> None:
     timed(phase_tiers, pair10, odg64)
     timed(phase_adv_float32, pair10, adv64)
     timed(phase_corpus)
-    pairs = make_pairs(BATCH_PAIRS, 10.0)
+    pairs = bench_pairs()
     counts = timed(phase_counters, pair10, pairs)
     walls, long, hour = timed(phase_times, main_kernels, batch_kernels,
                         stream_kernels, pair10)

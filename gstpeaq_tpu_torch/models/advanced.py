@@ -7,11 +7,12 @@ data-boundary gating (kernel G1 on each), as in the reference
 
   FFT path  the 55-band FFT ear at frame 2048 / hop 1024, with only the
             reference grouped and spread (kernel K3) and smeared (K1),
-            feeding SegmentalNMRB and EHSB;
+            feeding SegmentalNMRB and EHSB (NMR's band half: M1);
   FB path   the 40-band filter-bank ear at frame 192 on ref and test of
             every channel at once (ops/fb_ear.py: kernels D3, D1, D2, K1),
             the level adapter and modulation processors at step 192 (K2,
-            K1), feeding RmsModDiffA, RmsNoiseLoudAsymA and AvgLinDistA.
+            K1, L1, L2), the MOV terms (M1), feeding RmsModDiffA,
+            RmsNoiseLoudAsymA and AvgLinDistA.
 
 The five MOVs go through the advanced cognitive network to DI and ODG.
 Pairs of one batch share each path's frame count (its bucket); each pair's
@@ -28,6 +29,7 @@ from torch import nn
 
 from .. import constants as C
 from .. import earparams as EP
+from ..ops import cuda_band
 from ..ops import cuda_gate
 from ..ops import exact
 from ..ops import fb_ear as FB
@@ -131,9 +133,8 @@ class AdvancedPipeline(nn.Module):
                                      spread_ref_only=True, bandwidth=False)
         ref_exc = FE.time_smear(
             kf, ear.unsmeared.transpose(-1, -2).contiguous(), axis=-1)
-        nmr_mean, _ = MOVS.nmr_from_bands(
-            kf.masking_difference, ear.noise_in_bands,
-            ref_exc.transpose(-1, -2))
+        nmr_mean = cuda_band.band_movs(kf, "fft", ref_exc,
+                                       noise=ear.noise_in_bands).nmr[0]
         ehs_val, ehs_valid = MOVS.ehs_from_difference(
             ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
             self.ehs_window)
@@ -155,34 +156,14 @@ class AdvancedPipeline(nn.Module):
             above_fb = above_fb & fb_valid
         _, _, committed_fb = accum.activity(above_fb.T)     # [F, B]
         exc2, uns2 = FB.process_signal(kb, fb_pair, n_fb)  # [2,B,CH,40,F]
-        ref_e = exc2[0]
-        adapted_ref, adapted_test, mod2, avg_loud2 = LA.level_adapt_fused_mod(
+        lev_corr, pc, mod2, avg_loud2 = LA.level_adapt_fused_mod_factors(
             kb.adapt_a, self.avg_matrix, exc2, uns2, C.FB_FRAMESIZE)
-        mod_ref, mod_test = mod2[0], mod2[1]
-        md_gate, nl_gate = loudness_gates(FE.loudness(kb, exc2, axis=-2),
-                                          125, 13)
-
-        md1, _, temp_wt = (fm(x) for x in MOVS.modulation_difference(
-            kb.internal_noise, mod_ref, mod_test, avg_loud2[0],
-            rms_mode=True, lev_wt=1.0))
-        noise = kb.internal_noise
-        nl_asym = fm(MOVS.noise_loudness(
-            noise, 2.5, 0.3, 1.0, 0.1, mod_ref, mod_test, adapted_ref,
-            adapted_test))
-        if settings.swap_mod_patts_for_noise_loudness_movs:
-            missing = fm(MOVS.noise_loudness(
-                noise, 1.5, 0.15, 1.0, 0.0, mod_test, mod_ref, adapted_test,
-                adapted_ref))
-            lin_dist = fm(MOVS.noise_loudness(
-                noise, 1.5, 0.15, 1.0, 0.0, mod_ref, mod_ref, adapted_ref,
-                ref_e))
-        else:
-            missing = fm(MOVS.noise_loudness(
-                noise, 1.5, 0.15, 1.0, 0.0, mod_ref, mod_test, adapted_test,
-                adapted_ref))
-            lin_dist = fm(MOVS.noise_loudness(
-                noise, 1.5, 0.15, 1.0, 0.0, mod_ref, mod_test, adapted_ref,
-                ref_e))
+        band = cuda_band.band_movs(
+            kb, "fb", exc2, lev_corr, pc, mod2, avg_loud2[0],
+            swap=settings.swap_mod_patts_for_noise_loudness_movs)
+        md_gate, nl_gate = loudness_gates(band.loudness, 125, 13)
+        md1, _, temp_wt, nl_asym, missing, lin_dist = (
+            fm(x) for x in band.terms)
 
         cmb = committed_fb[..., None]
         nl_mask = cmb & nl_gate.T[..., None]

@@ -8,8 +8,11 @@ pairs; one pair is B = 1) to ODG, DI and the MOVs per pair in three stages:
      rDFT, the bin-domain stage: S2, spreading: K3);
   B  the recurrences over frames: time smearing (K1), the level adapter's
      stage-1 and the modulation smoothers (K2), the level adapter's
-     num/den and pattern-correction smoothers (K1 twice);
-  C  per-frame MOV terms, masked accumulation and the cognitive model.
+     num/den and pattern-correction smoothers (K1 twice) with its level
+     correction (L1) and pattern adaptation (L2) between them;
+  C  per-frame MOV terms (M1: ModDiff, noise loudness, the gates'
+     loudness, NMR's band half, detection probability; ops/cuda_band.py),
+     masked accumulation and the cognitive model.
 
 The orchestration follows src/gstpeaq.c:849-921: the frame >= 24 gates, the
 loudness-reached +3 delay, the data-boundary masks (the gate: kernel G1,
@@ -29,6 +32,7 @@ from torch import nn
 
 from .. import constants as C
 from .. import earparams as EP
+from ..ops import cuda_band
 from ..ops import cuda_gate
 from ..ops import fft_ear as FE
 from ..ops import framing
@@ -152,28 +156,22 @@ class BasicPipeline(nn.Module):
 
         # ---- stage B: recurrences over frames, in [2, B, CH, Z, F] ----
         uns_t = ear.unsmeared.transpose(-1, -2).contiguous()
-        exc = FE.time_smear(k, uns_t, axis=-1)
-        ref_e, test_e = exc[0], exc[1]                     # [B, CH, Z, F]
-        adapted_ref, adapted_test, mod2, avg_loud2 = LA.level_adapt_fused_mod(
+        exc = FE.time_smear(k, uns_t, axis=-1)             # [2, B, CH, Z, F]
+        lev_corr, pc, mod2, avg_loud2 = LA.level_adapt_fused_mod_factors(
             k.adapt_a, self.avg_matrix, exc, uns_t, C.FFT_STEPSIZE)
-        mod_ref, mod_test = mod2[0], mod2[1]
-        md_gate, nl_gate = loudness_gates(FE.loudness(k, exc, axis=-2),
-                                          24, 3)
 
-        # ---- stage C: per-frame MOV terms, then [B, CH, F] -> [F, B, CH] ----
+        # ---- stage C: per-frame MOV terms (M1), then [B, CH, F] ->
+        # [F, B, CH] ----
+        band = cuda_band.band_movs(
+            k, "basic", exc, lev_corr, pc, mod2, avg_loud2[0],
+            ear.noise_in_bands,
+            use_floor=settings.use_floor_for_steps_above_threshold)
+        md_gate, nl_gate = loudness_gates(band.loudness, 24, 3)
         fm = frame_major
-        md1, md2, temp_wt = (fm(x) for x in MOVS.modulation_difference(
-            k.internal_noise, mod_ref, mod_test, avg_loud2[0],
-            rms_mode=False, lev_wt=100.0))
-        nl = fm(MOVS.noise_loudness(
-            k.internal_noise, 1.5, 0.15, 0.5, 0.0, mod_ref, mod_test,
-            adapted_ref, adapted_test))
+        md1, md2, temp_wt, nl = (fm(x) for x in band.terms)
         bw_ref, bw_test, bw_valid = (fm(x) for x in ear.bandwidth)
-        nmr_mean, disturbed = (fm(x) for x in MOVS.nmr_from_bands(
-            k.masking_difference, ear.noise_in_bands,
-            ref_e.transpose(-1, -2)))
-        p_bin, steps_bin = (x.T for x in MOVS.prob_detect(
-            ref_e, test_e, settings.use_floor_for_steps_above_threshold))
+        nmr_mean, disturbed = (fm(x) for x in band.nmr)
+        p_bin, steps_bin = (x.T for x in band.detect)
         ehs_val, ehs_valid = MOVS.ehs_from_difference(
             ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
             self.ehs_window)

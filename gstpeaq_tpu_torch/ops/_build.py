@@ -37,6 +37,9 @@ BUILD_DIR = PACKAGE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+# flags of one source on top of NVCC_FLAGS: band.cu rounds every product and
+# sum as the eager PyTorch version does, never contracting them into an fma
+SOURCE_FLAGS = {"band.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -55,6 +58,10 @@ _SPECTRAL_MOVS = (_P, _P, _P, _P, _I32, _P, _I32, _P, _P, _P, _P, _P, _I64,
                   _P)
 _FRAME_GATE = (_P, _I32, _I64, _I32, _I64, _I64, _I64, _I32, _I32, _F64, _P,
                _P)
+_LEVCORR = (_P, _P, _I64, _I32, _I32, _P, _P, _P)
+_PATTERN_ADAPT = (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P)
+_BAND_MOVS = (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
+              _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,
@@ -77,6 +84,12 @@ SIGNATURES = {
     "peaq_spectral_movs_f64": _SPECTRAL_MOVS,
     "peaq_frame_gate_f32": _FRAME_GATE,
     "peaq_frame_gate_f64": _FRAME_GATE,
+    "peaq_levcorr_f32": _LEVCORR,
+    "peaq_levcorr_f64": _LEVCORR,
+    "peaq_pattern_adapt_f32": _PATTERN_ADAPT,
+    "peaq_pattern_adapt_f64": _PATTERN_ADAPT,
+    "peaq_band_movs_f32": _BAND_MOVS,
+    "peaq_band_movs_f64": _BAND_MOVS,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -107,6 +120,7 @@ def nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    digest.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -129,7 +143,8 @@ def build() -> tuple[pathlib.Path, float]:
         jobs = []
         try:
             for src in sources():
-                cmd = [compiler, *NVCC_FLAGS, "-c", "-o",
+                cmd = [compiler, *NVCC_FLAGS,
+                       *SOURCE_FLAGS.get(src.name, ()), "-c", "-o",
                        str(work / f"{src.stem}.o"), str(src)]
                 log = work / f"{src.stem}.txt"
                 with open(log, "w") as out:

@@ -45,6 +45,7 @@ from ..models import movs as MOVS
 from ..models import nn as NN
 from ..models.basic import energy_totals
 from ..models.modulation import modulation
+from ..ops import cuda_band
 from ..ops import cuda_gate
 from ..ops import exact
 from ..ops import fb_ear as FB
@@ -289,29 +290,25 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     exc, smear = FE.time_smear(k, uns_t, axis=-1,
                                state=state["smear"].movedim(1, 0),
                                return_state=True)
-    ref_e, test_e = exc[0], exc[1]
-    adapted_ref, adapted_test, la = LA.level_adapt(
-        k.adapt_a, pipe.avg_matrix, ref_e, test_e, state["la"])
+    lev_corr, pc, la = LA.level_adapt_factors(k.adapt_a, pipe.avg_matrix,
+                                              exc, state["la"])
     mod2, avg_loud2, mod = _modulation_pair(k.adapt_a, uns_t,
                                             C.FFT_STEPSIZE, state["mod"])
-    mod_ref, mod_test = mod2[0], mod2[1]
 
+    # per-frame MOV terms (M1), [N, CH, F] ([N, F] binaural)
+    band = cuda_band.band_movs(
+        k, "basic", exc, lev_corr, pc, mod2, avg_loud2[0],
+        ear.noise_in_bands,
+        use_floor=settings.use_floor_for_steps_above_threshold)
     f_glob = _frames(state["frame_offset"], n_frames)
-    lrf = _first_loud(FE.loudness(k, exc, axis=-2), f_glob, state["lrf"])
+    lrf = _first_loud(band.loudness, f_glob, state["lrf"])
     md_gate = f_glob >= 24
     nl_gate = md_gate & (f_glob - 3 >= lrf[:, None])
 
-    # per-frame MOV terms, [N, CH, F] ([N, F] binaural)
-    md1, md2, temp_wt = MOVS.modulation_difference(
-        k.internal_noise, mod_ref, mod_test, avg_loud2[0], rms_mode=False,
-        lev_wt=100.0)
-    nl = MOVS.noise_loudness(k.internal_noise, 1.5, 0.15, 0.5, 0.0, mod_ref,
-                             mod_test, adapted_ref, adapted_test)
+    md1, md2, temp_wt, nl = band.terms
     bw_ref, bw_test, bw_valid = ear.bandwidth
-    nmr_mean, disturbed = MOVS.nmr_from_bands(
-        k.masking_difference, ear.noise_in_bands, ref_e.transpose(-1, -2))
-    p_bin, steps_bin = MOVS.prob_detect(
-        ref_e, test_e, settings.use_floor_for_steps_above_threshold)
+    nmr_mean, disturbed = band.nmr
+    p_bin, steps_bin = band.detect
     ehs_val, ehs_valid = MOVS.ehs_from_difference(
         ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
         pipe.ehs_window)
@@ -400,9 +397,8 @@ def fft_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
                                ear.unsmeared.transpose(-1, -2).contiguous(),
                                axis=-1, state=state["smear"].movedim(1, 0),
                                return_state=True)
-    nmr_mean, _ = MOVS.nmr_from_bands(kf.masking_difference,
-                                      ear.noise_in_bands,
-                                      exc[0].transpose(-1, -2))
+    nmr_mean = cuda_band.band_movs(kf, "fft", exc[0],
+                                   noise=ear.noise_in_bands).nmr[0]
     ehs_val, ehs_valid = MOVS.ehs_from_difference(
         ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
         pipe.ehs_window)
@@ -438,33 +434,20 @@ def fb_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     sig = sig.to(sdtype)
     exc2, uns2, fb_new = FB.process_signal(
         kb, sig, n_fb, _stacked((state["fb_ref"], state["fb_test"])), True)
-    ref_e = exc2[0]
-    adapted_ref, adapted_test, la = LA.level_adapt(
-        kb.adapt_a, pipe.avg_matrix, ref_e, exc2[1], state["la"])
+    lev_corr, pc, la = LA.level_adapt_factors(kb.adapt_a, pipe.avg_matrix,
+                                              exc2, state["la"])
     mod2, avg_loud2, mod = _modulation_pair(kb.adapt_a, uns2,
                                             C.FB_FRAMESIZE, state["mod"])
-    mod_ref, mod_test = mod2[0], mod2[1]
+    band = cuda_band.band_movs(
+        kb, "fb", exc2, lev_corr, pc, mod2, avg_loud2[0],
+        swap=settings.swap_mod_patts_for_noise_loudness_movs)
 
     f_glob = _frames(state["frame_offset_fb"], n_fb)
-    lrf = _first_loud(FE.loudness(kb, exc2, axis=-2), f_glob, state["lrf"])
+    lrf = _first_loud(band.loudness, f_glob, state["lrf"])
     md_gate = f_glob >= 125
     nl_gate = md_gate & (f_glob - 13 >= lrf[:, None])
 
-    noise = kb.internal_noise
-    md1, _, temp_wt = MOVS.modulation_difference(
-        noise, mod_ref, mod_test, avg_loud2[0], rms_mode=True, lev_wt=1.0)
-    nl_asym = MOVS.noise_loudness(noise, 2.5, 0.3, 1.0, 0.1, mod_ref,
-                                  mod_test, adapted_ref, adapted_test)
-    if settings.swap_mod_patts_for_noise_loudness_movs:
-        missing = MOVS.noise_loudness(noise, 1.5, 0.15, 1.0, 0.0, mod_test,
-                                      mod_ref, adapted_test, adapted_ref)
-        lin_dist = MOVS.noise_loudness(noise, 1.5, 0.15, 1.0, 0.0, mod_ref,
-                                       mod_ref, adapted_ref, ref_e)
-    else:
-        missing = MOVS.noise_loudness(noise, 1.5, 0.15, 1.0, 0.0, mod_ref,
-                                      mod_test, adapted_test, adapted_ref)
-        lin_dist = MOVS.noise_loudness(noise, 1.5, 0.15, 1.0, 0.0, mod_ref,
-                                       mod_test, adapted_ref, ref_e)
+    md1, _, temp_wt, nl_asym, missing, lin_dist = band.terms
 
     act = _Activity(state["has_above_fb"], above)
     one = torch.ones_like(md1)
