@@ -38,7 +38,8 @@ Phases, each on its own lines and ending with its seconds:
               loudness's zeroed frames and, by the steps' bar, the
               truncated parts of e) and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
-              stereo, in their buckets) and the streams' chunk shapes (64
+              stereo, in their buckets; M1 there also in mono and in 3
+              channels) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
               pool's 16; S1 and S2 on each FFT step's blocks, G1 on
@@ -88,7 +89,9 @@ Phases, each on its own lines and ending with its seconds:
               library call too, also at the hour's one shot, at each
               count of parts of its groups, and (fir_mma) the FP64 tensor
               cores' rate per f64 mma shape (m8n8k4, m16n8k4, m16n8k8,
-              m16n8k16), each kernel
+              m16n8k16), the card's rate of each library call M1 makes
+              (pow, exp, exp2, log10, a quotient) and M1's math floor
+              at each batch site beside its bytes bound, each kernel
               at the streams' chunk shapes, K1 and K2 on a 10-minute
               program's one-shot FB rows [2, 1, 2, 40, 150000] with their
               plain versions and K1's library call, and peaq() wall time
@@ -666,16 +669,21 @@ def phase_build() -> None:
     names = "|".join(KERNELS)
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(rf"({names})(?:_([a-z]+))?_kernelI([fd]+)"
-                          rf"((?:Li\d+E)*)", line)
-            ints = m and re.findall(r"Li(\d+)E", m[4])
+            m = re.search(rf"({names})(?:_([a-z]+))?_kernelI"
+                          rf"((?:L[ib]\d+E)*)([fd]+)((?:Li\d+E)*)", line)
+            lead = m and re.findall(r"L[ib](\d+)E", m[3])
+            ints = m and re.findall(r"Li(\d+)E", m[5])
             labels = (("copies of",) if m and m[1] == "spread_fb" else
                       ("window",) if m and m[1] == "pattern_adapt" else
                       ("step",))
+            # M1: rows a tile, the FB site's sets, the ring's stages
+            firsts = (("rows", "fb", "stages") if m and m[1] == "band_movs"
+                      else ("arg",) * 8)
             entry = m and " ".join(
                 [m[1]] + ([m[2]] if m[2] else [])
                 + ["->".join("double" if c == "d" else "float"
-                            for c in m[3])]
+                            for c in m[4])]
+                + [f"{label} {i}" for label, i in zip(firsts, lead)]
                 + [f"{label} {i}" for label, i in zip(labels, ints)])
         elif entry and "spill" in line:
             spills = line.strip()
@@ -1263,6 +1271,50 @@ def band_ops(name: str, inputs) -> float:
     return per * x.numel() // 2
 
 
+# M1's library calls per band element of one signal (a row, a band, a
+# frame) at each site, as csrc/band.cu's band_movs_kernel makes them
+# (band_math_floor).  basic: the noise loudness (exp, two pow, three
+# quotients), the two loudnesses (a pow each), ModDiff and TempWt (three
+# quotients), the adapted reference (one), NMR (two), the detection (two
+# log10, pow(S1 / l, S2), exp2, two quotients); the FB site three noise
+# loudness sets, the last two sharing their lead pow and quotient; the FFT
+# site NMR alone.
+M1_CALLS = {"basic": {"pow": 5, "exp": 1, "exp2": 1, "log10": 2, "div": 11},
+            "fb": {"pow": 7, "exp": 3, "div": 12},
+            "fft": {"div": 2}}
+
+
+def band_math_rates(iters: int = 128) -> dict:
+    """The card's rate of each of M1's library calls (cuda_band.MATH_OPS),
+    calls a second per dtype: cuda_band.math_rate on 132 x 8 blocks of 256
+    threads, each `iters` steps of MATH_CHAINS chains in registers (CUDA
+    events, median of 5).  A step is the call and one add."""
+    rates = {}
+    for dtype in DTYPES:
+        out = torch.empty(132 * 8 * 256, dtype=dtype, device="cuda")
+        rates[dtype] = {}
+        for op in cuda_band.MATH_OPS:
+            ms, _ = cuda_ms(lambda: cuda_band.math_rate(op, iters, out),
+                            calls=1, rounds=5, warmup=1)
+            rates[dtype][op] = (cuda_band.MATH_CHAINS * iters
+                                * out.numel() / ms * 1e3)
+    return rates
+
+
+def band_math_floor(site: str, inputs, dtype, rates: dict,
+                    calls=M1_CALLS) -> float:
+    """M1's math floor in ms at `site` on `inputs` (band_reads'): each
+    band element's library calls (`calls`) at the card's measured rates
+    (band_math_rates), and band_ops' other operations at the peak rate."""
+    x = inputs[0]
+    elements = x.numel() // (1 if site == "fft" else 2)
+    per = band_ops("band_movs", inputs) / elements
+    used = calls[site]
+    ms = sum(n * elements / rates[dtype][op] for op, n in used.items())
+    rest = max(per - sum(used.values()), 0.0) * elements
+    return (ms + rest / PEAK_OPS_PER_S[dtype]) * 1e3
+
+
 def band_calls(run) -> dict:
     """The first call of each band kernel (L1, L2, M1) by (kernel, M1's
     site) that run() makes, as (args, kwargs); the calls run as made."""
@@ -1373,9 +1425,43 @@ def band_cases(dtype, pair10) -> list:
     return cases
 
 
+def band_channels(call, pick: list):
+    """A captured M1 call with the channels `pick` of its pairs: each band
+    input's channel axis (-3 of [..., CH, Z, F] and of the noise's
+    [..., CH, F, Z], -2 of lev_corr's [..., CH, F]) indexed by pick."""
+    args, kwargs = call
+    bound = inspect.signature(cuda_band.band_movs_plain).bind(*args,
+                                                               **kwargs)
+    axes = {"exc": -3, "lev_corr": -2, "pc": -3, "mod2": -3, "avg_loud": -3,
+            "noise": -3}
+    for arg, axis in axes.items():
+        t = bound.arguments.get(arg)
+        if t is not None:
+            bound.arguments[arg] = t.index_select(
+                t.dim() + axis, torch.tensor(pick, device=t.device))
+    return bound.args, bound.kwargs
+
+
+def band_channel_case(label: str, call, pick: list) -> Case:
+    """M1 on a captured call's inputs with the channels `pick`
+    (band_channels), derived anew at each run so that the case holds no
+    memory of its own; not timed (no inputs for a bound)."""
+    def run(fn):
+        args, kwargs = band_channels(call, pick)
+        return fn(*args, **kwargs)
+    shape = band_shape("band_movs", call)
+    shape[-3] = len(pick)
+    return Case("band_movs", f"{label} at the basic batch shape {shape}",
+                lambda: run(cuda_band.band_movs),
+                lambda: run(cuda_band.band_movs_plain))
+
+
 def band_batch_cases(dtype) -> list:
     """L1, L2 and M1 on the inputs of bench's 64 pairs through peaq_batch()
-    (basic microbatch 64, advanced 32: the first microbatch's calls)."""
+    (basic microbatch 64, advanced 32: the first microbatch's calls), and
+    M1 at the basic site on those pairs in mono and in 3 channels (the
+    stereo inputs' channels 0, and 0, 1, 0): a pair of one channel is one
+    tile's row, three take the detection's blocks of their own."""
     tier = "float64" if dtype == torch.float64 else "float32"
     cases = []
     for mode in MODES:
@@ -1385,6 +1471,10 @@ def band_batch_cases(dtype) -> list:
         for (name, site), call in calls.items():
             label = f"batch {mode} {site} {band_shape(name, call)}"
             cases.append(band_case(label.replace("  ", " "), name, call))
+        if mode == "basic":
+            for label, pick in (("mono", [0]), ("3 channels", [0, 1, 0])):
+                cases.append(band_channel_case(
+                    label, calls["band_movs", "basic"], pick))
     return cases
 
 
@@ -2572,6 +2662,18 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
                   + fir_note(c.name, {}))
             if c.name == "recurrence_banded":
                 k1_library(*c.inputs, c.case)
+    rates = band_math_rates()
+    for dtype, by_op in rates.items():
+        print(f"  band math rates {dtype}, G calls/s: " + ", ".join(
+            f"{op} {rate / 1e9:.1f}" for op, rate in by_op.items()))
+    for dtype, entry in batch.items():
+        for c in entry["cases"]:
+            if c["name"] == "band_movs":
+                site = c["case"].split()[2]
+                floor = band_math_floor(site, c["inputs"], dtype, rates)
+                print(f"  band_movs {c['case']} {dtype}: math floor "
+                      f"{floor:.4f} ms ({M1_CALLS[site]} an element), "
+                      f"bytes bound {c['bound_ms']:.4f} ms", flush=True)
     for dtype, entry in batch.items():
         for c in entry["cases"]:
             c["ms"], host = cuda_ms(c.pop("kernel"), calls=5,

@@ -62,6 +62,14 @@ MAX_BANDS = 256
 MAX_WINDOW = 16
 
 
+# the library calls csrc/band.cu's math_rate_kernel times: name -> its op
+# code (kMath*); "muladd" is the loop's own multiply and add; each thread
+# runs MATH_CHAINS independent chains (kChains)
+MATH_OPS = {"pow": 0, "exp": 1, "exp2": 2, "log10": 3, "div": 4,
+            "muladd": 5}
+MATH_CHAINS = 8
+
+
 class BandMovs(NamedTuple):
     """M1's outputs, None where the site does not form them.  terms
     [n, ..., F]: TERMS[site] in order, band dtype; loudness [2, ..., F]:
@@ -340,3 +348,18 @@ def band_movs(k, site: str, exc: torch.Tensor, lev_corr=None, pc=None,
                       _data(terms), _data(loud), _data(nmr), _data(detect))
         band_movs_launches += 1
     return BandMovs(terms, loud, nmr, detect)
+
+
+def math_rate(op: str, iters: int, out: torch.Tensor) -> None:
+    """Launch the throughput probe of M1's library call `op` (MATH_OPS) in
+    out's dtype on out's card: out.numel() / 256 blocks of 256 threads,
+    each running `iters` steps of MATH_CHAINS independent chains in
+    registers; out
+    [blocks x 256], contiguous, takes each thread's sum.  Not counted: no
+    path of the port runs it (chip_smoke.py phase 7 and tools/band_ab.py
+    do)."""
+    _build.require("band_math_rate", out)
+    if out.numel() % 256:
+        raise ValueError("math_rate: out must hold 256 values a block")
+    _build.launch("band_math_rate", out, MATH_OPS[op], iters,
+                  out.numel() // 256, out.data_ptr())

@@ -12,12 +12,20 @@ basic band count (109), the FB ear's (40) and another basic one (80).  The
 identical pair's level correction is exactly 1; the advanced swap flag
 swaps the noise loudness's inputs; L2's register window is re-enacted in
 numpy from its source and gives band_average's bits; the kernels'
-constants are the model's; a CPU tensor takes the plain version and any
-other device but CUDA raises; and every call site of the pipelines, the
-batch and the streams goes through the wrappers, once per call.
+constants are the model's; M1's reformulations (where no decision reads
+the value: l^4 as products, 0.5^tb as exp2, the quotients by s through
+1 / s, the loudness's th e / et as e (th / et), one lead factor for the FB
+site's last two noise loudness sets) hold within 1e-14 of the plain forms
+on the inputs the 10 s pair gives M1; a CPU tensor takes the plain version
+and any other device but CUDA raises; and every call site of the
+pipelines, the batch and the streams goes through the wrappers, once per
+call.
 """
 
+import functools
+import inspect
 import re
+import sys
 import types
 
 import jax
@@ -421,11 +429,169 @@ def test_kernel_constants_are_the_models():
         assert int(re.search(rf"k{name} = (\d+);", src)[1]) == bit
     assert re.search(r"kMaxBands = (\d+);", src)[1] == str(
         cuda_band.MAX_BANDS)
-    for name in ("levcorr", "pattern_adapt", "band_movs"):
+    # M1's tiles: the seven staged band inputs, taken from the C entry's
+    # in[9] (exc_ref, exc_test, lev_corr, pc_ref, pc_test, mod_ref,
+    # mod_test, avg_loud, noise) in MovsArgs::in's order; the per-band
+    # constants the table holds; a ring of this band and the next, none
+    # (kDirect) for NMR alone in float
+    entry = ("exc_ref", "exc_test", "lev_corr", "pc_ref", "pc_test",
+             "mod_ref", "mod_test", "avg_loud", "noise")
+    ins = int(re.search(r"kIns = (\d+);", src)[1])
+    order = [int(i) for i in re.search(
+        r"const int order\[kIns\] = \{([0-9, ]+)\};", src)[1].split(",")]
+    assert ins == len(order) == 7
+    assert [entry[i] for i in order] == [
+        "exc_ref", "exc_test", "pc_ref", "pc_test", "mod_ref", "mod_test",
+        "avg_loud"]
+    rows = {int(j or bool(z)) for j, z in re.findall(
+        r"s_c\[(?:(\d) \* )?(z \+ )?b\]", src)}
+    assert rows == set(range(int(re.search(r"kConsts = (\d+);", src)[1])))
+    assert int(re.search(r"kStages = (\d+);", src)[1]) == 2
+    assert int(re.search(r"kDirect = (\d+);", src)[1]) == 0
+    assert "sizeof(T) == 4 ? kDirect : kStages" in src
+    # the math probe's op codes and chains are the wrapper's
+    for name, code in cuda_band.MATH_OPS.items():
+        const = {"muladd": "MulAdd"}.get(name, name.capitalize())
+        assert int(re.search(rf"kMath{const} = (\d+);", src)[1]) == code
+    assert int(re.search(r"kChains = (\d+);", src)[1]) == \
+        cuda_band.MATH_CHAINS
+    for name in ("levcorr", "pattern_adapt", "band_movs", "band_math_rate"):
         for suffix in ("f32", "f64"):
             assert f"peaq_{name}_{suffix}" in _build.SIGNATURES
             assert f"int peaq_{name}_{suffix}(" in src
     assert _build.SOURCE_FLAGS["band.cu"] == ("-fmad=false",)
+
+
+@functools.cache
+def pair10_movs() -> dict:
+    """M1's arguments at each site ("basic", "fft", "fb") by name, as the
+    port's plain route gives them for chip_smoke's seeded 10 s pair in
+    float64: one basic and one advanced peaq() on the CPU, band_movs
+    captured."""
+    root = str(_build.PACKAGE.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    seen = {}
+    real = cuda_band.band_movs
+    signature = inspect.signature(cuda_band.band_movs_plain)
+
+    def capture(*args, **kwargs):
+        bound = signature.bind(*args, **kwargs)
+        bound.apply_defaults()
+        seen.setdefault(bound.arguments["site"], dict(bound.arguments))
+        return real(*args, **kwargs)
+    cuda_band.band_movs = capture
+    try:
+        for advanced in (False, True):
+            api.peaq(*chip_smoke.ten_second_pair(), advanced=advanced,
+                     device="cpu")
+    finally:
+        cuda_band.band_movs = real
+    return seen
+
+
+def rel_each(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / |want| over the elements, exact zeros equal."""
+    assert got.shape == want.shape
+    zero = want == 0
+    assert torch.equal(got[zero], want[zero])
+    return ((got - want)[~zero] / want[~zero]).abs().max().item()
+
+
+def fb_leads(arguments: dict, swap: bool) -> list:
+    """The lead factors (noise / s_test)^0.23 of the FB site's three noise
+    loudness sets, as band_movs_plain forms them (noise_loudness spied)."""
+    leads = []
+    real = MOVS.noise_loudness
+
+    def spy(noise, alpha, thres_fac, s0, nl_min, mod_ref, mod_test, e_ref,
+            e_test):
+        leads.append((noise[:, None] / (thres_fac * mod_test + s0)) ** 0.23)
+        return real(noise, alpha, thres_fac, s0, nl_min, mod_ref, mod_test,
+                    e_ref, e_test)
+    MOVS.noise_loudness = spy
+    try:
+        cuda_band.band_movs_plain(**{**arguments, "swap": swap})
+    finally:
+        MOVS.noise_loudness = real
+    return leads
+
+
+REFORMS = [("basic", "loudness"), ("basic", "l4"), ("basic", "exp2"),
+           ("basic", "one_over_s"), ("fb", "loudness"), ("fb", "lead")]
+
+
+@pytest.mark.parametrize("site, form", REFORMS)
+def test_m1_reformulations_hold_on_the_pairs_inputs(site, form):
+    """Each value csrc/band.cu forms with less work than the plain version
+    (where no decision reads it), on the float64 inputs the plain route
+    gives M1 for the 10 s pair, within 1e-14 of the plain form: the
+    loudness's (th e) / et as e (th / et); s(l)'s l^4 as (l l)(l l); 0.5^tb
+    as exp2(-tb) (relative where it is a normal number; below that both
+    give 1 - 0.5^tb = 1); e / s and |trunc(e)| / s as products with 1 / s.
+    The decisions that read the log10 (l > 0, trunc and floor of e) take
+    the kernel's l bit for bit.  The FB site's missing-components and
+    LinDist sets have one lead factor, bit for bit, under both swap flags:
+    the kernel's, (noise / (0.15 x + 1))^0.23 with x the test's modulation,
+    or the reference's where swapped."""
+    arguments = pair10_movs()[site]
+    k, exc = arguments["k"], arguments["exc"]
+    assert exc.dtype == torch.float64
+    if form == "loudness":
+        th = k.threshold[:, None]
+        et = k.excitation_threshold[:, None]
+        for e in exc:
+            assert rel_each(e * (th / et), th * e / et) < 1e-14
+        return
+    if form == "lead":
+        mod_ref, mod_test = arguments["mod2"]
+        noise = k.internal_noise[:, None]
+        for swap in (False, True):
+            _, missing, lin_dist = fb_leads(arguments, swap)
+            assert torch.equal(missing, lin_dist)
+            x = mod_ref if swap else mod_test
+            assert torch.equal(missing, (noise / (0.15 * x + 1.0)) ** 0.23)
+        return
+    eref_db = 10.0 * exact.log10(exc[0])
+    etest_db = 10.0 * exact.log10(exc[1])
+    l_plain = 0.3 * torch.maximum(eref_db, etest_db) + 0.7 * etest_db
+    l_kernel = (0.3 * torch.where(eref_db > etest_db, eref_db, etest_db)
+                + 0.7 * etest_db)
+    assert torch.equal(l_plain, l_kernel)
+    audible = l_plain > 0.0
+    assert audible.any()
+    ls = torch.where(audible, l_plain, 1.0)
+    e = eref_db - etest_db
+    cs = C.PD_S_COEFFS
+
+    def s_of(l4):
+        return torch.where(audible, cs[0] * (cs[1] / ls) ** cs[2]
+                           + cs[3] * l4 + cs[4] * ls ** 3
+                           - cs[5] * ls * ls + cs[6] * ls - cs[7], 1e30)
+    s = s_of(ls ** 4)
+    if form == "l4":
+        l2 = ls * ls
+        assert rel_each(l2 * l2, ls ** 4) < 1e-14
+        assert rel_each(s_of(l2 * l2), s) < 1e-14
+        assert torch.equal(l2 * ls, ls * ls * ls)
+    elif form == "exp2":
+        t = e / s
+        t4 = (t * t) * (t * t)
+        tb = torch.where(eref_db > etest_db, t4, t4 * (t * t))
+        plain, reform = 0.5 ** tb, torch.exp2(-tb)
+        normal = plain >= torch.finfo(torch.float64).tiny
+        assert normal.any()
+        assert rel_each(reform[normal], plain[normal]) < 1e-14
+        for x in (plain, reform):
+            assert torch.equal(1.0 - x[~normal],
+                               torch.ones_like(x[~normal]))
+    else:
+        rs = 1.0 / s
+        assert rel_each(e * rs, e / s) < 1e-14
+        for use_floor in (False, True):
+            whole = (torch.floor(e) if use_floor else torch.trunc(e)).abs()
+            assert rel_each(whole * rs, whole / s) < 1e-14
 
 
 def test_cpu_tensors_take_the_plain_versions_and_others_raise(monkeypatch):
