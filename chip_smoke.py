@@ -30,7 +30,9 @@ Phases, each on its own lines and ending with its seconds:
               on the pair's FFT and FB frames and on edge rows: one ulp
               either side of the threshold, windows across a hop
               boundary and at frame-local i < 5, one channel crossing, a
-              NaN, mono and 3 channels, one frame, views; L1, L2 and M1,
+              NaN, mono and 3 channels, rows one sample off 16 bytes (its
+              cp.async path), spans ending at the NaN's hop, one frame,
+              views; L1, L2 and M1,
               the band-domain epilogues, on the inputs the 10 s pair
               gives them in one peaq() per mode, at every call site, and
               for float32 in the accurate tier too (M1 with float64 NMR
@@ -670,11 +672,12 @@ def phase_build() -> None:
     for line in path.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             m = re.search(rf"({names})(?:_([a-z]+))?_kernelI"
-                          rf"((?:L[ib]\d+E)*)([fd]+)((?:Li\d+E)*)", line)
+                          rf"((?:L[ib]\d+E)*)([fd]+)((?:L[ib]\d+E)*)", line)
             lead = m and re.findall(r"L[ib](\d+)E", m[3])
-            ints = m and re.findall(r"Li(\d+)E", m[5])
+            ints = m and re.findall(r"L[ib](\d+)E", m[5])
             labels = (("copies of",) if m and m[1] == "spread_fb" else
                       ("window",) if m and m[1] == "pattern_adapt" else
+                      ("16-byte loads",) if m and m[1] == "frame_gate" else
                       ("step",))
             # M1: rows a tile, the FB site's sets, the ring's stages
             firsts = (("rows", "fb", "stages") if m and m[1] == "band_movs"
@@ -1086,8 +1089,6 @@ GATE_FORMS = {"FFT": (C.FFT_FRAMESIZE, C.FFT_STEPSIZE),
               "FB": (C.FB_FRAMESIZE, C.FB_FRAMESIZE)}
 # the FB frames of the 10 s pair (phase 3's per-pair FB case)
 FB_PAIR_FRAMES = 10 * C.SAMPLING_RATE // C.FB_FRAMESIZE
-# G1's tile, in bytes of the spectrum type (csrc/gate.cu kTileBytes)
-GATE_TILE_BYTES = 16384
 
 
 # gate_signal's references by (lead, t), made once for both spectrum types
@@ -1117,13 +1118,34 @@ def gate_signal(pair10, lead: int, t: int) -> torch.Tensor:
     return rows
 
 
-def gate_case(label: str, sig, n: int, form: str, dtype) -> Case:
-    """G1 on `sig` ([..., CH, T]) in the spectrum dtype `dtype` against
-    its plain version (framing.above_threshold_signal of sig cast to
-    dtype)."""
+@contextlib.contextmanager
+def gate_spans(span):
+    """G1's plan with each pair's frames in spans of `span` frames (None:
+    the planner's own), by swapping cuda_gate.gate_plan for the time."""
+    plan = cuda_gate.gate_plan
+    if span is not None:
+        def forced(pairs, channels, n_frames, *args):
+            spans = -(-n_frames // span)
+            return plan(pairs, channels, n_frames, *args)._replace(
+                span=span, spans=spans, grid=pairs * spans)
+        cuda_gate.gate_plan = forced
+    try:
+        yield
+    finally:
+        cuda_gate.gate_plan = plan
+
+
+def gate_case(label: str, sig, n: int, form: str, dtype,
+              span=None) -> Case:
+    """G1 on `sig` ([..., CH, T]) in the spectrum dtype `dtype` (each
+    pair's frames in spans of `span` where given) against its plain
+    version (framing.above_threshold_signal of sig cast to dtype)."""
     frame, hop = GATE_FORMS[form]
-    return Case("frame_gate", label,
-                lambda: cuda_gate.frame_gate(sig, n, frame, hop, dtype),
+
+    def kernel():
+        with gate_spans(span):
+            return cuda_gate.frame_gate(sig, n, frame, hop, dtype)
+    return Case("frame_gate", label, kernel,
                 lambda: cuda_gate.frame_gate_plain(sig, n, frame, hop,
                                                    dtype),
                 (sig,))
@@ -1142,8 +1164,8 @@ def gate_edges(form: str, ship, channels: int, seed: int = 5):
     to the threshold, a loud sample at frame-local 0 of a tile's first hop
     (windows at i < 5: they count only for the FFT frame before, in the
     tile before) and one at frame-local 1 (its window at i = 5 counts),
-    and a NaN beside a loud sample.  Pair 2: pair 0 negated, its first
-    channel silent."""
+    and a NaN beside a loud sample (its frame and the one before stay
+    below).  Pair 2: pair 0 negated, its first channel silent."""
     frame, hop = GATE_FORMS[form]
     fft = frame == 2 * hop
     n = 23 if fft else 40
@@ -1178,7 +1200,8 @@ def gate_edges(form: str, ship, channels: int, seed: int = 5):
         expect[2 * k] = bit
     h = 12
     loud = ship(0.05)
-    tile = GATE_TILE_BYTES // np.dtype(ship).itemsize // hop
+    tile = cuda_gate.gate_plan(1, channels, 0, hop, fft, torch.float32,
+                               1).tile_hops
     edge = -(-(h + 4) // tile) * tile
     x[1, 0, (h + 1) * hop - 2] = loud
     x[1, 0, (h + 3) * hop - 3:(h + 3) * hop + 2] = five(th)
@@ -1188,7 +1211,7 @@ def gate_edges(form: str, ship, channels: int, seed: int = 5):
     x[1, 0, (n_hops - 2) * hop + 42] = np.nan
     expect.update({h - 1: fft, h: True, h + 1: False, h + 2: fft,
                    h + 3: False, edge - 1: fft, edge: False,
-                   edge + 2: True, n_hops - 2: False})
+                   edge + 2: True, n_hops - 3: False, n_hops - 2: False})
     x[2] = -x[0]
     x[2, 0] = 0.0
     return x, n, expect
@@ -1199,8 +1222,13 @@ def gate_cases(dtype, pair10) -> list:
     469 x 1024] as the main case, FB [1, 2, 480000]) and at edges, with
     float32 samples (as every path ships them) and float64: gate_edges'
     rows in mono, stereo and 3 channels (their expected bits checked
-    here where the samples' type is `dtype`), one frame, a view G1 reads
-    in place (the advanced path's FFT prefix) and one it copies."""
+    here where the samples' type is `dtype`), the stereo rows one sample
+    off 16 bytes (in place in a wider tensor: all but one of their rows
+    start off 16-byte alignment, so their copies take cp.async) and
+    across span boundaries (spans of half the NaN hop's index, so that
+    the NaN-and-loud hop is one span's first and the span before's one
+    more hop), one frame, a view G1 reads in place (the advanced path's
+    FFT prefix) and one it copies."""
     cases = []
     t_fft = (MAIN[3] + 1) * C.FFT_STEPSIZE
     for ship in DTYPES:
@@ -1218,19 +1246,27 @@ def gate_cases(dtype, pair10) -> list:
             for channels in (1, 2, 3):
                 x, n, expect = gate_edges(form, DTYPES_NP[ship], channels)
                 x = torch.as_tensor(x, device="cuda")
-                if ship == dtype:
-                    # the cases sit one ulp from the threshold in the
-                    # samples' own type
-                    got = cuda_gate.frame_gate(x, n, frame, hop, dtype)[1]
-                    held = all(bool(got[f]) == b for f, b in expect.items())
-                    print(f"  frame_gate edges {form} {channels} ch {name} "
-                          f"samples: the expected bits held: {held}",
-                          flush=True)
-                    check(held, f"G1 edges {form} {channels} ch {name}: "
-                                f"{got.tolist()}")
-                cases.append(gate_case(f"edges {form} {channels} ch {name} "
-                                       f"samples {list(x.shape)}", x, n,
-                                       form, dtype))
+                rows = [(f"{channels} ch", x, None)]
+                if channels == 2:
+                    wide = x.new_zeros((*x.shape[:-1], x.shape[-1] + 1))
+                    wide[..., 1:] = x
+                    span = (n + (frame == 2 * hop) - 2) // 2
+                    rows += [("one sample off 16 bytes", wide[..., 1:], None),
+                             (f"in spans of {span}", x, span)]
+                for label, sig, span in rows:
+                    label = f"edges {form} {label} {name} samples"
+                    case = gate_case(f"{label} {list(sig.shape)}", sig, n,
+                                     form, dtype, span)
+                    if ship == dtype:
+                        # the cases sit one ulp from the threshold in the
+                        # samples' own type
+                        got = case.kernel()[1]
+                        held = all(bool(got[f]) == b
+                                   for f, b in expect.items())
+                        print(f"  frame_gate {label}: the expected bits "
+                              f"held: {held}", flush=True)
+                        check(held, f"G1 {label}: {got.tolist()}")
+                    cases.append(case)
             one = gate_signal(pair10, 1, frame).to(ship)
             cases.append(gate_case(f"one frame {form} {name} samples "
                                    f"{list(one.shape)}", one, 1, form,

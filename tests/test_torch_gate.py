@@ -8,13 +8,23 @@ inputs made with numpy from a seed that hold the rows the card is checked
 on: windows one ulp either side of the threshold, windows across a hop
 boundary, windows at frame-local i < 5 that must not count, one channel
 crossing alone, a NaN sample, mono and 3 channels, a view.  The kernel's
-tile walk (csrc/gate.cu) is re-enacted in numpy from the source's
-constants: every sample read once, and the frame bits equal the plain
-version's.  S1's plain halves give the totalsnr energies of the formula
-they replaced and of JAX's, and their sums are steady across threads.
+walk (csrc/gate.cu) is re-enacted in numpy from the source's constants and
+the host planner's launch (cuda_gate.gate_plan): the spans, the staged
+tiles and their halos, each thread's run of windows, the segmented
+reduction of each hop's maxima and the frames each block owns, one hop
+past its span in the FFT form: every frame written once, every covered
+sample read once besides a halo and that hop, and the frame bits equal
+the plain version's, also at every hop size the wrapper takes.  The
+planner covers every frame of every pair once.  S1's plain halves give
+the totalsnr energies of the formula they replaced and of JAX's, and
+their sums are steady across threads.
 """
 
 import re
+
+from hypothesis import given
+from hypothesis import settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -35,12 +45,13 @@ from gstpeaq_tpu_torch.ops import framing
 from gstpeaq_tpu_torch.parallel import stream as PS
 
 TH = C.FRAME_THRESHOLD
-# (frame, hop, frames): the FFT form over 6 of G1's float tiles of 4 hops
-# (12 double tiles of 2), the FB form over 2 of 21 hops (4 of 10)
+# (frame, hop, frames): the FFT form over 12 of G1's tiles of 2 hops, the
+# FB form over 4 of 10
 FORMS = {"fft": (C.FFT_FRAMESIZE, C.FFT_STEPSIZE, 23),
          "fb": (C.FB_FRAMESIZE, C.FB_FRAMESIZE, 40)}
 DTYPES = (np.float32, np.float64)
 NUMPY = {torch.float32: np.float32, torch.float64: np.float64}
+TORCH = {np.float32: torch.float32, np.float64: torch.float64}
 
 
 def hops_of(form: str) -> tuple[int, int, int, int]:
@@ -64,8 +75,8 @@ def gate_rows(form: str, dtype, channels: int = 2, seed: int = 5):
     tile's first hop (its windows end at i < 5 of that frame: they count
     only for the FFT frame before, in the tile before) and one at
     frame-local 1 (its window at i = 5 counts), and a NaN beside a loud
-    sample (its frame stays below).  Pair 2: pair 0 negated, its first
-    channel silent."""
+    sample (its frame and the one before stay below).  Pair 2: pair 0
+    negated, its first channel silent."""
     frame, hop, n, n_hops = hops_of(form)
     rng = np.random.default_rng(seed)
     t = n_hops * hop
@@ -98,7 +109,7 @@ def gate_rows(form: str, dtype, channels: int = 2, seed: int = 5):
         expect[2 * k] = bit
     h = 2 * len(cases)
     loud = dtype(0.05)
-    tile = tile_of(dtype) // hop
+    tile = tile_of(hop, dtype)
     edge = -(-(h + 4) // tile) * tile
     x[1, 0, (h + 1) * hop - 2] = loud                 # across a boundary
     x[1, 0, (h + 3) * hop - 3:(h + 3) * hop + 2] = five(th)
@@ -111,7 +122,7 @@ def gate_rows(form: str, dtype, channels: int = 2, seed: int = 5):
     expect.update({h - 1: fft, h: True, h + 1: False, h + 2: fft,
                    h + 3: False,
                    edge - 1: fft, edge: False, edge + 2: True,
-                   n_hops - 2: False})
+                   n_hops - 3: False, n_hops - 2: False})
     x[2] = -x[0]
     x[2, 0] = 0.0
     return x, expect
@@ -164,74 +175,310 @@ def source_constants() -> dict:
     text = (_build.CSRC / "gate.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+)",
                                 text)[1])
-            for name in ("kThreads", "kTileBytes", "kHalo", "kTailFrom")}
+            for name in ("kThreads", "kResident", "kStages", "kTileBytes",
+                         "kMaxTileHops", "kMaxStep", "kHalo", "kTailFrom")}
 
 
-def tile_of(dtype) -> int:
-    """G1's tile in samples of the spectrum dtype (gate.cu tile_of)."""
-    return source_constants()["kTileBytes"] // np.dtype(dtype).itemsize
-
-
-def kernel_walk(x: np.ndarray, n: int, frame: int, hop: int, dtype):
-    """G1 re-enacted: one block a (pair, tile of tile_of // hop hops), the
-    channels' |x| staged in `dtype` with a kHalo halo, the window sums at
-    each position summed in the kernel's order, their maximum over
-    channels, each hop's tail and full maxima, and out[f] set where a
-    hop's bit is set.  Returns the bits and each sample's count of main
-    (non-halo) loads."""
+def tile_of(hop: int, dtype) -> int:
+    """G1's tile in hops of `hop` samples of numpy type `dtype`: whole
+    hops of at most kTileBytes, at most kMaxTileHops of them, at least
+    one."""
     k = source_constants()
+    return max(1, min(k["kMaxTileHops"],
+                      k["kTileBytes"] // np.dtype(dtype).itemsize // hop))
+
+
+def test_planner_constants_are_the_sources():
+    """cuda_gate's copies of gate.cu's constants equal the source's, and
+    the planner's tiles are tile_of's."""
+    k = source_constants()
+    assert {"kThreads": cuda_gate.THREADS, "kResident": cuda_gate.RESIDENT,
+            "kStages": cuda_gate.STAGES,
+            "kTileBytes": cuda_gate.TILE_BYTES,
+            "kMaxTileHops": cuda_gate.MAX_TILE_HOPS,
+            "kMaxStep": cuda_gate.MAX_STEP, "kHalo": cuda_gate.HALO,
+            "kTailFrom": 5} == k
+    for hop in (6, 7, 192, 1024, 2048, 2049, 4096):
+        for dtype in DTYPES:
+            assert cuda_gate.gate_plan(
+                1, 2, 9, hop, True, TORCH[dtype], 132).tile_hops == tile_of(
+                    hop, dtype)
+
+
+def warp_partials(tail, head, hops, q, threads):
+    """gate.cu's segmented reduction of one tile's run maxima: the shuffle
+    rounds within each warp (lane l takes lane l + off's maxima where both
+    lanes' runs lie in one hop), then the partial each hop's first lane in
+    a warp writes.  Returns the partials' tail and full maxima by thread
+    (-inf where no partial is written)."""
+    idle = 1 << 30
+    tid = np.arange(threads)
+    lane = tid % 32
+    hop_of = np.where(tid < hops * q, tid // q, idle)
+    first = (lane == 0) | (hop_of != np.roll(hop_of, 1))
+    tl, fl = tail.copy(), np.maximum(tail, head)
+    off = 1
+    while off < 32:
+        src = np.where(lane + off < 32, tid + off, tid)
+        same = hop_of[src] == hop_of
+        tl = np.where(same, np.maximum(tl[src], tl), tl)
+        fl = np.where(same, np.maximum(fl[src], fl), fl)
+        off *= 2
+    keep = first & (hop_of != idle)
+    return np.where(keep, tl, -np.inf), np.where(keep, fl, -np.inf)
+
+
+def kernel_walk(x: np.ndarray, n: int, frame: int, hop: int, dtype,
+                plan) -> tuple:
+    """G1 re-enacted from gate.cu's constants under `plan` (gate_plan's):
+    one block a (pair, span of plan.span frames), reading its span's hops
+    (one more in the FFT form) in tiles of plan.tile_hops hops, channel by
+    channel through a stage of plan.stage samples (the tile at kHalo, the
+    kHalo samples before it, none before the signal's first: the windows
+    there take them as 0); each thread's run of plan.run positions inside
+    one hop, its windows summed in the kernel's order in `dtype`, the
+    maxima of their numbers at offsets >= kTailFrom and below and whether
+    a NaN lies among the samples they read (offsets 1 .. hop - 1 for the
+    tail windows, -4 .. 4 for the head; a run counts its own samples and
+    those of its halo before the hop: the float samples' bookkeeping,
+    whose maxima the double samples' max_nan equals), over the tile's
+    channels;
+    the warps' segmented reduction into partials and each hop's bits from
+    its partials; frame h - 1 set by hop h of its span (FFT: the tail bit
+    before it, carried across tiles) or frame h (FB).  Returns the bits,
+    each frame's writes and each sample's reads, the reads outside the
+    main pass allowed (each tile's halo and the hop past each span) and
+    the tiles walked."""
+    k = source_constants()
+    threads, halo, tail_from = k["kThreads"], k["kHalo"], k["kTailFrom"]
+    fft = int(frame == 2 * hop)
+    pairs, channels, t = x.shape
+    q, run, th = plan.runs_per_hop, plan.run, dtype(TH)
+    assert plan.tile_hops * q <= threads
+    out = np.full((pairs, n), -1, np.int8)          # no fill: -1 unwritten
+    writes = np.zeros((pairs, n), int)
+    reads = np.zeros(x.shape, int)
+    again = np.zeros(t, bool)
+    starts = np.arange(0, hop, run)                  # a hop's runs' offsets
+    assert len(starts) == q
+    offsets = np.arange(hop)
+    tiles_walked = 0
+    for p in range(pairs):
+        for si in range(plan.spans):
+            f0 = si * plan.span
+            f1 = min(f0 + plan.span, n)
+            assert f0 < f1                            # no span is empty
+            h_end = f1 + fft
+            if fft and f1 < n:
+                again[f1 * hop:(f1 + 1) * hop] = True
+            carry = False
+            for h0 in range(f0, h_end, plan.tile_hops):
+                tiles_walked += 1
+                hops = min(plan.tile_hops, h_end - h0)
+                j0, size = h0 * hop, hops * hop
+                lead = halo if j0 > 0 else 0
+                again[j0 - lead:j0] = True
+                tail = np.full(threads, -np.inf, dtype)
+                head = tail.copy()
+                nan_tail = np.zeros(threads, bool)
+                nan_head = nan_tail.copy()
+                for c in range(channels):
+                    assert halo + size <= plan.stage
+                    stage = np.full(plan.stage, np.nan, x.dtype)   # stale
+                    stage[halo - lead:halo + size] = x[p, c,
+                                                       j0 - lead:j0 + size]
+                    reads[p, c, j0 - lead:j0 + size] += 1
+                    if lead == 0:
+                        stage[:halo] = 0
+                    a = np.abs(stage.astype(dtype))
+                    i = halo + np.arange(size)
+                    w = a[i]
+                    for back in range(1, halo + 1):
+                        w = w + a[i - back]
+                    w = np.where(np.isnan(w), -np.inf, w).reshape(hops, hop)
+                    late = offsets >= tail_from
+                    runs_tail = np.maximum.reduceat(
+                        np.where(late, w, -np.inf), starts, axis=1)
+                    runs_head = np.maximum.reduceat(
+                        np.where(late, -np.inf, w), starts, axis=1)
+                    r = hops * q
+                    tail[:r] = np.maximum(runs_tail.reshape(-1), tail[:r])
+                    head[:r] = np.maximum(runs_head.reshape(-1), head[:r])
+                    nan = np.isnan(stage)
+                    for t_run in range(r):
+                        hl, k_run = divmod(t_run, q)
+                        off0 = k_run * run
+                        base = halo + hl * hop
+                        own = nan[base + off0:base + min(off0 + run, hop)]
+                        o = off0 + np.arange(own.size)
+                        nan_tail[t_run] |= own[o >= 1].any()
+                        nan_head[t_run] |= own[o < tail_from].any()
+                        if off0 < tail_from:
+                            nan_head[t_run] |= nan[base + off0 - halo:
+                                                   base].any()
+                tail = np.where(nan_tail, np.nan, tail).astype(dtype)
+                head = np.where(nan_head, np.nan, head).astype(dtype)
+                part_t, part_f = warp_partials(tail, head, hops, q, threads)
+                bits = []
+                for lane in range(hops):
+                    pieces = [lane * q]
+                    while (pieces[-1] // 32 + 1) * 32 < (lane + 1) * q:
+                        pieces.append((pieces[-1] // 32 + 1) * 32)
+                    bits.append((np.max(part_t[pieces]) >= th,
+                                 np.max(part_f[pieces]) >= th))
+                for lane, (tb, fb) in enumerate(bits):
+                    h = h0 + lane
+                    if fft:
+                        prev = carry if lane == 0 else bits[lane - 1][0]
+                        if h - 1 >= f0:
+                            out[p, h - 1] = prev or fb
+                            writes[p, h - 1] += 1
+                    else:
+                        out[p, h] = tb
+                        writes[p, h] += 1
+                carry = bits[-1][0]
+    return out, writes, reads, again, tiles_walked
+
+
+def walk_plans(pairs: int, channels: int, n: int, frame: int, hop: int,
+               dtype) -> list:
+    """The planner's launches at 1, 2 and 132 SMs, and one with spans of
+    half the hop before the last (the edge rows' NaN-and-loud hop: a span
+    starts there, and the span before reads it as its one more hop)."""
     fft = frame == 2 * hop
-    n_hops = n + fft
-    tile_len = tile_of(dtype)
-    tile_hops = tile_len // hop
-    tiles = -(-n_hops // tile_hops)
-    out = np.zeros((x.shape[0], n), bool)
-    reads = np.zeros(x.shape[-1], int)
-    halo = k["kHalo"]
-    for p in range(x.shape[0]):
-        for tile in range(tiles):
-            h0 = tile * tile_hops
-            hops = min(tile_hops, n_hops - h0)
-            size, j0 = hops * hop, h0 * hop
-            m = np.full(tile_len, -np.inf, dtype)
-            for c in range(x.shape[1]):
-                s = np.zeros(halo + tile_len, dtype)
-                lo = max(j0 - halo, 0)
-                row = x[p, c].astype(dtype)
-                s[halo - (j0 - lo):halo] = np.abs(row[lo:j0])
-                s[halo:halo + size] = np.abs(row[j0:j0 + size])
-                if p == 0 and c == 0:
-                    reads[j0:j0 + size] += 1
-                i = np.arange(tile_len)
-                w = s[halo + i]
-                for back in range(1, halo + 1):
-                    w = w + s[halo + i - back]
-                w = np.where(j0 + i >= halo, w, dtype(0))
-                m = np.maximum(m, w)
-            for hl in range(hops):
-                g = m[hl * hop:(hl + 1) * hop]
-                h = h0 + hl
-                if g[k["kTailFrom"]:].max() >= dtype(TH) and h < n:
-                    out[p, h] = True
-                if fft and g.max() >= dtype(TH) and 1 <= h <= n:
-                    out[p, h - 1] = True
-    return out, reads
+    plans = [cuda_gate.gate_plan(pairs, channels, n, hop, fft, dtype, sms)
+             for sms in (1, 2, 132)]
+    span = max(1, (n + fft - 2) // 2)
+    spans = -(-n // span)
+    return plans + [plans[-1]._replace(span=span, spans=spans,
+                                       grid=pairs * spans)]
 
 
+def check_walk(x: np.ndarray, n: int, frame: int, hop: int, dtype,
+               plan) -> np.ndarray:
+    """kernel_walk under `plan`: each frame written once, each covered
+    sample read at least once, again only in a halo or the hop past a
+    span, nothing past the covered samples.  Returns the bits."""
+    got, writes, reads, again, tiles = kernel_walk(x, n, frame, hop, dtype,
+                                                   plan)
+    assert (writes == 1).all() and (got >= 0).all()
+    covered = (n + (frame == 2 * hop)) * hop
+    assert (reads[..., :covered] >= 1).all()
+    assert (reads[..., covered:] == 0).all()
+    assert (reads[..., ~again] <= 1).all()
+    extra = reads.sum() - reads[..., :covered].size
+    halos = source_constants()["kHalo"] * x.shape[1] * tiles
+    past = (frame == 2 * hop) * hop * x.shape[1] * x.shape[0] * (
+        plan.spans - 1)
+    assert extra <= halos + past
+    return got.astype(bool)
+
+
+@pytest.mark.parametrize("channels", [2, 1, 3])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("form", list(FORMS))
-def test_kernel_walk_reads_once_and_equals_the_plain_gate(form, dtype):
-    """G1's walk over tiles, halos and set-only bits, re-enacted from
-    gate.cu's constants, gives the plain gate's bits on the edge rows (a
-    sample at a tile's first hop sets a frame of the tile before), and
-    reads each covered sample once (a halo aside) and nothing past them."""
+def test_kernel_walk_reads_once_and_equals_the_plain_gate(form, dtype,
+                                                          channels):
+    """G1's walk re-enacted from gate.cu's constants and gate_plan's
+    launches (several spans a pair, a span starting at the NaN-and-loud
+    hop), on the edge rows: the plain gate's bits (a sample at a tile's
+    first hop sets a frame of the tile before), each frame written once
+    on an output with no fill, each covered sample read once besides a
+    halo and the hop past a span, nothing past them."""
     frame, hop, n, n_hops = hops_of(form)
-    x, _ = gate_rows(form, dtype, 3)
-    got, reads = kernel_walk(x, n, frame, hop, dtype)
-    want = cuda_gate.frame_gate_plain(torch.from_numpy(x), n, frame, hop)
-    np.testing.assert_array_equal(got, want.numpy())
-    assert (reads[:n_hops * hop] == 1).all() and reads.size == n_hops * hop
-    assert tile_of(dtype) // hop < n_hops                 # two tiles
+    x, _ = gate_rows(form, dtype, channels)
+    want = cuda_gate.frame_gate_plain(torch.from_numpy(x), n, frame,
+                                      hop).numpy()
+    plans = walk_plans(3, channels, n, frame, hop, torch.from_numpy(x).dtype)
+    assert max(p.spans for p in plans) > 1
+    assert plans[0].tile_hops < n_hops                    # two tiles
+    for plan in plans:
+        np.testing.assert_array_equal(
+            check_walk(x, n, frame, hop, dtype, plan), want)
+
+
+@pytest.mark.parametrize("fft", [True, False])
+@pytest.mark.parametrize("hop", [6, 7, 13, 100, 191, 1000, 2049, 4096])
+def test_kernel_walk_at_every_hop_size(hop, fft):
+    """The walk at hops the wrapper takes beside the two forms' (6 to
+    4,096 samples: runs that do not divide a hop, tiles of one hop or of
+    32, idle threads, the scalar loads' odd hops), float32 samples gated
+    in float64 and float32, on rows with loud bursts and a NaN: the plain
+    gate's bits, each frame written once."""
+    rng = np.random.default_rng(hop)
+    frame = 2 * hop if fft else hop
+    n = max(3, min(40, 20000 // hop))
+    x = (rng.standard_normal((2, 2, (n + fft) * hop + 3)) * 2e-4).astype(
+        np.float32)
+    loud = rng.choice(x.size, max(4, (n + fft) // 2), replace=False)
+    x.reshape(-1)[loud] = 0.02
+    # NaNs at hop offsets -1, 0, 1, 4, 5 and the last, each in a hop with a
+    # loud sample in its tail, so that a NaN missed would set a bit
+    for k, o in enumerate((-1, 0, 1, 4, 5, hop - 1)):
+        start = (1 + 3 * k % max(1, n + fft - 2)) * hop
+        loud = hop - 1 if o != hop - 1 else 5
+        if loud != o:
+            x[k % 2, 1 - k % 2, start + loud] = 0.02
+        x[k % 2, k % 2, start + o] = np.nan
+    for dtype in DTYPES:
+        want = cuda_gate.frame_gate_plain(torch.from_numpy(x), n, frame,
+                                          hop, TORCH[dtype]).numpy()
+        assert 0 < want.sum() < want.size
+        for plan in walk_plans(2, 2, n, frame, hop, torch.float32):
+            np.testing.assert_array_equal(
+                check_walk(x, n, frame, hop, dtype, plan), want)
+
+
+@settings(max_examples=300, deadline=None)
+@given(pairs=st.integers(1, 70), channels=st.integers(1, 3),
+       n_frames=st.integers(0, 3000), fft=st.booleans(),
+       in_dtype=st.sampled_from([torch.float32, torch.float64]),
+       sms=st.integers(1, 132))
+def test_gate_plan_covers_every_frame_once(pairs, channels, n_frames, fft,
+                                           in_dtype, sms):
+    """gate_plan puts every frame of every pair in exactly one span, no
+    span empty, one block a span within a grid of max(pairs, RESIDENT x
+    SMs) blocks; a hop's runs cover it, one thread each, within a block;
+    a stage holds a tile and its halo in whole 16-byte vectors, and the
+    block's shared memory fits an SM's 227 KB."""
+    hop = C.FFT_STEPSIZE if fft else C.FB_FRAMESIZE
+    plan = cuda_gate.gate_plan(pairs, channels, n_frames, hop, fft,
+                               in_dtype, sms)
+    size = torch.empty((), dtype=in_dtype).element_size()
+    assert plan.tile_hops * plan.runs_per_hop <= cuda_gate.THREADS
+    assert (plan.runs_per_hop - 1) * plan.run < hop <= (
+        plan.runs_per_hop * plan.run)
+    assert plan.run % (16 // size) == 0
+    assert plan.stage >= plan.tile_hops * hop + cuda_gate.HALO
+    assert plan.stage * size % 16 == 0 and plan.shared <= 232448
+    if n_frames == 0:
+        assert plan.grid == 0
+        return
+    covered = np.zeros(n_frames, int)
+    for si in range(plan.spans):
+        part = covered[si * plan.span:(si + 1) * plan.span]
+        assert part.size > 0
+        part += 1
+    assert (covered == 1).all()
+    assert plan.grid == pairs * plan.spans
+    assert plan.grid <= max(pairs, cuda_gate.RESIDENT * sms)
+
+
+@pytest.mark.parametrize("label, pairs, n_frames, hop, fft", [
+    ("basic FFT", 64, 512, C.FFT_STEPSIZE, True),
+    ("advanced FFT", 32, 512, C.FFT_STEPSIZE, True),
+    ("advanced FB", 32, 2560, C.FB_FRAMESIZE, False)])
+def test_gate_plan_at_the_batch_shapes(label, pairs, n_frames, hop, fft):
+    """At the batch shapes on an H100's 132 SMs, with float32 samples:
+    one wave of blocks (at most RESIDENT an SM) and the FFT form's one hop
+    past each span at most 3% of the samples read; 16 KB tiles of whole
+    hops (4,096 float samples), 16-sample runs."""
+    plan = cuda_gate.gate_plan(pairs, 2, n_frames, hop, fft, torch.float32,
+                               132)
+    assert 0.9 * 132 * cuda_gate.RESIDENT <= plan.grid <= (
+        132 * cuda_gate.RESIDENT)
+    assert int(fft) / (plan.span + int(fft)) <= 0.03
+    assert plan.run == 16 and plan.tile_hops == 4096 // hop
 
 
 def test_cpu_tensor_takes_the_plain_gate_and_others_raise(monkeypatch):
@@ -252,11 +499,13 @@ def test_cpu_tensor_takes_the_plain_gate_and_others_raise(monkeypatch):
 
 
 def test_gate_entries_are_bound():
-    """The C entries of csrc/gate.cu have their ctypes signatures."""
+    """The C entries of csrc/gate.cu have their ctypes signatures, one
+    argument type a parameter."""
     text = (_build.CSRC / "gate.cu").read_text()
     for suffix in ("f32", "f64"):
-        assert f"peaq_frame_gate_{suffix}" in _build.SIGNATURES
-        assert f"int peaq_frame_gate_{suffix}(" in text
+        name = f"peaq_frame_gate_{suffix}"
+        params = re.search(rf"int {name}\(([^)]*)\)", text)[1]
+        assert len(_build.SIGNATURES[name]) == params.count(",") + 1
 
 
 def counted_gate(monkeypatch) -> list:
