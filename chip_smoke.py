@@ -6,8 +6,8 @@ and check it.  Run from the repository root:
 
 Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
-  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1, S2, G1, L1, L2
-              and M1 from gstpeaq_tpu_torch/csrc, one process per source,
+  2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1, S2, G1, L1, L2,
+              M1 and E1 from gstpeaq_tpu_torch/csrc, one process per source,
               and ptxas reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and edge shapes (K1 and K2: the FB
@@ -38,13 +38,18 @@ Phases, each on its own lines and ending with its seconds:
               for float32 in the accurate tier too (M1 with float64 NMR
               noise), M1's decisions equal: the disturbed flags, the noise
               loudness's zeroed frames and, by the steps' bar, the
-              truncated parts of e) and at the
+              truncated parts of e); E1, EHS after S2, on the pair's own
+              log-spectral differences under each setting of its two
+              flags, on rows all zero, with -inf below 256, above it and
+              at 511, +inf and NaN (exactly 0 where its plain version is),
+              on branch_blocks' rows, in mono, in 3 channels and on one
+              frame, within 1e-10 / 2e-4 a frame; and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets; M1 there also in mono and in 3
               channels) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
-              pool's 16; S1 and S2 on each FFT step's blocks, G1 on
+              pool's 16; S1, S2 and E1 on each FFT step's blocks, G1 on
               every step's chunk; L1, L2 and M1 on the inputs of a real
               batch's first microbatch and of each stream path's first
               chunk step) with
@@ -71,9 +76,10 @@ Phases, each on its own lines and ending with its seconds:
               within 1e-5, a bar that float32 (the control) must miss
   6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
               each with the counts set to 0 just before it: the advanced
-              call goes through all ten kernels, no conv1d and no plain
-              gate on the card (every counted run of phases 6 and 10-13
-              is held to none); then
+              call goes through all ten kernels, no conv1d, no plain
+              gate, no plain EHS and no irfft (cuFFT C2R) on the card
+              (every counted run of phases 6 and 10-13 is held to none);
+              then
               one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
               launches each kernel as often as one peaq() does (L1 and L2
@@ -110,10 +116,11 @@ Phases, each on its own lines and ending with its seconds:
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank (F1),
               the bin-domain stage (S1, S2), the gate (G1), the band
-              epilogues (L1, L2, M1, each), the other hand kernels and
-              the copies to the card; the band epilogue's sites in
-              record_function ranges (tools/epilogue_sites.py) with
-              L1's, L2's and M1's device ms, basic and advanced float64;
+              epilogues (L1, L2, M1, each), EHS (E1), the other hand
+              kernels and the copies to the card; every eager site in a
+              record_function range (tools/epilogue_sites.py) with the
+              device ms outside them and L1's, L2's, M1's, K1's and E1's
+              device ms, basic and advanced float64;
               then, at the basic
               float64 batch's shape with float32 and float64 samples, G1
               and the energy totals summed from S1's halves beside the
@@ -178,8 +185,8 @@ operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64; F1 67 on
 the FP64 tensor cores), counted from this run's main-shape inputs;
 `library_ms` is K1's grouped causal conv1d at its main shape and F1's
 cuDNN conv1d (its plain version), and null for the other kernels, S1, S2,
-G1, L1, L2 and M1 among them, since no single PyTorch call computes their
-functions;
+G1, L1, L2, M1 and E1 among them, since no single PyTorch call computes
+their functions;
 `launches_by_path` holds phase 6's
 float32 count per path (basic, advanced, and one microbatch of 32 of
 each batch path; 0 where a path does not launch the kernel), `launches`
@@ -237,9 +244,11 @@ from gstpeaq_tpu_torch import conformance
 from gstpeaq_tpu_torch import constants as C
 from gstpeaq_tpu_torch import earparams as EP
 from gstpeaq_tpu_torch.models import basic
+from gstpeaq_tpu_torch.models import movs as MOVS
 from gstpeaq_tpu_torch.ops import _build
 from gstpeaq_tpu_torch.ops import cuda_band
 from gstpeaq_tpu_torch.ops import cuda_dc
+from gstpeaq_tpu_torch.ops import cuda_ehs
 from gstpeaq_tpu_torch.ops import cuda_fb
 from gstpeaq_tpu_torch.ops import cuda_fir
 from gstpeaq_tpu_torch.ops import cuda_gate
@@ -340,6 +349,11 @@ KERNELS = {
                  "gstpeaq_tpu/models/movs.py:46, "
                  "gstpeaq_tpu/models/movs.py:101, "
                  "gstpeaq_tpu/models/movs.py:136"),
+    # nor is this: it replaces the port's eager EHS after S2, standing for
+    # XLA's FFTs (or DFT-GEMMs) of the JAX package's ehs
+    "ehs_frames": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/ehs.cu",
+        replaces="gstpeaq_tpu/models/movs.py:175"),
 }
 # the kernels of the bin-domain stage (S1, S2)
 SPECTRAL = ("pair_frames", "spectral_movs")
@@ -359,6 +373,7 @@ COUNTERS = {
     "levcorr": (cuda_band, "levcorr_launches"),
     "pattern_adapt": (cuda_band, "pattern_adapt_launches"),
     "band_movs": (cuda_band, "band_movs_launches"),
+    "ehs_frames": (cuda_ehs, "ehs_frames_launches"),
 }
 # max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
 # carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
@@ -371,6 +386,12 @@ COUNTERS = {
 # the noise case), so it is held at 1e-10.
 BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
+# E1 (ehs_frames) frame by frame, |kernel - plain| <= bar max(1, |plain|):
+# its direct lags and small FFT round otherwise than the plain version's
+# three cuFFT transforms, a normalisation by sqrt(d0 dk) lifts that, and a
+# peak is a maximum over ascending bins; and exactly 0 wherever the plain
+# version gives 0 on a row that is all zero or holds a NaN or an infinity
+EHS_BARS = {torch.float32: 2e-4, torch.float64: 1e-10}
 # the bound's rates: an H100 SXM's device memory and its peaks outside the
 # tensor cores at its full 700 W (NVIDIA's data sheet)
 MEMORY_BYTES_PER_S = 3.35e12
@@ -409,37 +430,38 @@ TOOL_CHUNK = 1024
 # level adapter's three and the modulation; K2 never (its kernel takes no
 # state); S1 and S2 once in each FFT step; G1 once in every step; L1 and
 # L2 once in each step with a level adapter (basic, FB), M1 once in every
-# step (the FFT step's NMR alone)
+# step (the FFT step's NMR alone); E1 once in each FFT step
 STREAM_STEP_LAUNCHES = {
     "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
               "spectral_movs": 1, "frame_gate": 1, "levcorr": 1,
-              "pattern_adapt": 1, "band_movs": 1},
+              "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 1},
     "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
                      "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
                      "spectral_movs": 1, "frame_gate": 1, "levcorr": 0,
-                     "pattern_adapt": 0, "band_movs": 1},
+                     "pattern_adapt": 0, "band_movs": 1, "ehs_frames": 1},
     "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
                     "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
                     "dc_chain": 1, "fir_bank": 1, "pair_frames": 0,
                     "spectral_movs": 0, "frame_gate": 1, "levcorr": 1,
-                    "pattern_adapt": 1, "band_movs": 1}}
+                    "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 0}}
 # each mode's launches in one peaq() (phase 6; the CLI runs one): G1 gates
 # the basic path once and the advanced path's FFT and FB frames once each;
-# M1 runs once basic, and twice advanced (the FFT path's NMR, the FB path)
+# M1 runs once basic, and twice advanced (the FFT path's NMR, the FB path);
+# E1 once in each mode (its FFT path)
 PATH_LAUNCHES = {
     "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
               "spectral_movs": 1, "frame_gate": 1, "levcorr": 1,
-              "pattern_adapt": 1, "band_movs": 1},
+              "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 1},
     "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
                  "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
                  "dc_chain": 1, "fir_bank": 1, "pair_frames": 1,
                  "spectral_movs": 1, "frame_gate": 2, "levcorr": 1,
-                 "pattern_adapt": 1, "band_movs": 2}}
+                 "pattern_adapt": 1, "band_movs": 2, "ehs_frames": 1}}
 # phase 10's bars: a float64 stream against the one-shot peaq() of the same
 # program, and the float32 / accurate streams against their own one-shot
 # (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
@@ -477,6 +499,11 @@ def ops_of(name: str, inputs) -> float:
         return 8 * inputs[0].numel()
     if name in BAND:
         return band_ops(name, inputs)
+    if name == "ehs_frames":
+        # per row, the FFT form's work: 2.5 N log2 N for each of the three
+        # 512-point transforms and the 256-point one, and ~10 a lag (the
+        # products, the running update, the normalisation, the window)
+        return EHS_ROW_OPS * (inputs[0].numel() // cuda_ehs.ROW)
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
     per_element = {"recurrence_banded": 2,      # a y + b
@@ -495,6 +522,9 @@ def ops_of(name: str, inputs) -> float:
     if name == "spread_fft":
         return (z * (z - 1) + 2 * z + 15 * z) * lines
     return (2 * z * (z - 1) + 4 * z + 3 * z) * lines
+
+
+EHS_ROW_OPS = (3 * 2.5 * 512 * 9 + 2.5 * 256 * 8 + 10 * C.MAXLAG)
 
 
 def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
@@ -1038,6 +1068,24 @@ def spectral_check(name: str, got, want, dtype) -> tuple[float, float, bool,
     return err, rel, placed and exact and rel < BARS[dtype], note
 
 
+def ehs_check(got, want, d, dtype) -> tuple[float, float, bool, str]:
+    """E1 against its plain version on rows d: every frame within
+    EHS_BARS of it (max(1, |plain|) a frame), none NaN, and exactly 0 on
+    every row that is all zero or holds a NaN or an infinity, as the plain
+    version is there.  Returns the largest |d|, the largest relative
+    error, whether all holds, and a note for the case's line."""
+    err = (got - want).abs()
+    rel = (err / want.abs().clamp_min(1.0)).max().item()
+    edge = (d == 0).all(dim=-1) | ~torch.isfinite(d).all(dim=-1)
+    zeros = bool((got[edge] == 0).all() and (want[edge] == 0).all())
+    finite = bool(torch.isfinite(got).all())
+    note = (f", {int(edge.sum())} zero or non-finite rows exactly 0: "
+            f"{zeros}, {int((want == 0).sum())} of {want.numel()} plain "
+            "values 0")
+    ok = finite and zeros and rel <= EHS_BARS[dtype]
+    return err.max().item() if err.numel() else 0.0, rel, ok, note
+
+
 def branch_blocks(pair10) -> torch.Tensor:
     """Hop blocks [2, 1, CH, 41, 1024] of the 10 s pair whose rows take
     every branch of S2: blocks 0-4 silent in both signals (pr = pt = 0,
@@ -1081,6 +1129,68 @@ def spectral_cases(dtype, pair10) -> list:
                             ("advanced", ka, (True, False)),
                             ("advanced FFT step", ka, (False, False))):
         cases.append(movs_case(k, f"branches {label}", branches, *flags))
+    return cases
+
+
+def ehs_difference(k, spectra) -> torch.Tensor:
+    """EHS's log-spectral difference d [..., CH, F, 512] that S2's plain
+    version gives for `spectra` (spectra_of's) in k's spectrum dtype; its
+    temporaries are handed back to the card (the batch's run to GBs)."""
+    with api.full_precision_matmuls():
+        d = cuda_spectral.spectral_movs_plain(
+            spectra, k.level_factor, k.group_matrix, k.group_bin_hi,
+            k.ehs_zero, False, False).ehs_difference
+    torch.cuda.empty_cache()
+    return d
+
+
+def ehs_case(label: str, d, subtract_dc: bool = False,
+             centered: bool = False) -> Case:
+    """E1 on d with one setting of the two flags that reach it against
+    its plain version; its inputs d and the window."""
+    window = torch.as_tensor(EP.ehs_correlation_window(centered),
+                             dtype=d.dtype, device=d.device)
+    flags = "".join((", subtract_dc" * subtract_dc,
+                     ", centered window" * centered))
+    return Case("ehs_frames", label + flags,
+                lambda: cuda_ehs.ehs_frames(d, window, subtract_dc),
+                lambda: MOVS.ehs_values(d, window, subtract_dc),
+                (d, window))
+
+
+def ehs_edges(d) -> torch.Tensor:
+    """A copy of d [1, 2, F >= 8, 512] with the rows E1 must give the
+    plain version's 0 on: an all-zero row, -inf at a bin below 256, at
+    one above and at 511 (which no lag reads), +inf, and a NaN."""
+    e = d.clone()
+    e[0, 0, 0] = 0.0
+    e[0, 1, 1, 100] = -math.inf
+    e[0, 0, 2, 300] = -math.inf
+    e[0, 1, 3, 511] = -math.inf
+    e[0, 0, 4, 256] = math.inf
+    e[0, 1, 5, 7] = math.nan
+    return e
+
+
+def ehs_cases(dtype, pair10) -> list:
+    """E1 at the per-pair shape on the 10 s pair's own d (the main case,
+    [1, 2, 468, 512]) under each setting of its two flags, on the edge
+    rows (ehs_edges), on branch_blocks' rows (silent, identical, a test
+    60 dB down, a test of zeros: -inf), in mono and in 3 channels, and on
+    one frame."""
+    kb = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT), dtype, "cuda")
+    d = ehs_difference(kb, spectra_of(kb, fft_blocks(pair10, 1, MAIN[3])))
+    cases = [ehs_case("main", d)]
+    for flags in ((True, False), (False, True), (True, True)):
+        cases.append(ehs_case(f"{list(d.shape)}", d, *flags))
+    edges = ehs_edges(d)
+    branches = ehs_difference(kb, spectra_of(kb, branch_blocks(pair10)))
+    for label, x in (("edges", edges), ("branches", branches),
+                     ("mono", d[:, :1].contiguous()),
+                     ("3 channels", torch.cat([d, d[:, :1]], dim=1)),
+                     ("one frame", d[..., :1, :].contiguous())):
+        for flags in ((False, False), (True, True)):
+            cases.append(ehs_case(f"{label} {list(x.shape)}", x, *flags))
     return cases
 
 
@@ -1581,7 +1691,8 @@ def kernel_cases(dtype, rng, pair10):
                           (p, c[0], c[1], c[3])))
     return (cases + row_cases(t) + spread_edges(t, dtype)
             + fb_cases(dtype, rng, pair10, t) + spectral_cases(dtype, pair10)
-            + gate_cases(dtype, pair10) + band_cases(dtype, pair10))
+            + gate_cases(dtype, pair10) + band_cases(dtype, pair10)
+            + ehs_cases(dtype, pair10))
 
 
 def batch_fb_pair(pair10, k, shape) -> torch.Tensor:
@@ -1656,6 +1767,11 @@ def batch_cases(dtype, rng, pair10):
         del blocks
         cases.append(movs_case(kf, f"batch {label} {list(spectra.shape)}",
                                spectra, *flags))
+        # E1 on S2's d of the same spectra, with and without the mean
+        # subtracted
+        d = ehs_difference(kf, spectra)
+        cases.append(ehs_case(f"batch {label} {list(d.shape)}", d))
+        cases.append(ehs_case(f"batch {label} {list(d.shape)}", d, True))
     k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
     x = batch_fb_pair(pair10, k, shapes["dc"])
     cases.append(Case("dc_chain", f"batch {list(x.shape)}",
@@ -1743,7 +1859,10 @@ def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
                               "advanced_fb": sh["fb_frames"]},
             "band_movs": {"basic": sh["basic"],
                           "advanced_fft": sh["advanced_fft"][1:],
-                          "advanced_fb": sh["fb_frames"]}}[name]
+                          "advanced_fb": sh["fb_frames"]},
+            # E1's d [N, CH, F, 512]
+            "ehs_frames": dict.fromkeys(
+                ("basic", "advanced_fft"), (1, 2, chunk, cuda_ehs.ROW))}[name]
 
 
 def stream_cases(dtype, pair10) -> list:
@@ -1787,6 +1906,10 @@ def stream_cases(dtype, pair10) -> list:
                                  f"{list(blocks.shape[1:])}", blocks))
         spectra = spectra_of(kb, blocks)
         del blocks
+        # E1 in each FFT step
+        d = ehs_difference(kb, spectra)
+        cases.append(ehs_case(f"{label} basic, advanced_fft "
+                              f"{list(d.shape)}", d))
         for site, kf, flags in (("basic", kb, (False, True)),
                                 ("advanced_fft", ka, (False, False))):
             cases.append(movs_case(kf, f"{label} {site} "
@@ -1904,6 +2027,11 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                 err, rel, ok, note = band_check(name, out, c.plain(), dtype)
                 line = (f"  {name} {case} {dtype}: max|d|/max|ref| "
                         f"{rel:.3e}{note}")
+            elif name == "ehs_frames":
+                err, rel, ok, note = ehs_check(got, c.plain(), c.inputs[0],
+                                               dtype)
+                line = (f"  {name} {case} {dtype}: max|d|/max(1, |ref|) "
+                        f"{rel:.3e}{note}")
             elif name == "frame_gate":
                 want = c.plain()
                 ok = got.shape == want.shape and torch.equal(got, want)
@@ -1925,7 +2053,8 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                     line += f", elementwise rel {elem:.3e}"
                     ok = ok and elem < 1e-4
                 del want
-            if name in ("fir_bank", "frame_gate", *SPECTRAL, *BAND):
+            if name in ("fir_bank", "frame_gate", "ehs_frames", *SPECTRAL,
+                        *BAND):
                 same = torch.equal(got, stacked(c.kernel()))
                 line += f", two launches bit-identical: {same}"
                 ok = ok and same
@@ -2306,21 +2435,53 @@ def count_plain_gate() -> None:
     framing.above_threshold_signal = counted
 
 
+# movs.ehs_values (E1's plain version) and torch.fft.irfft calls on a CUDA
+# tensor since reset_counts(): count_plain_ehs() wraps both, so that a main
+# path's run shows that its EHS went through E1 and that no cuFFT C2R
+# transform is left on it
+PLAIN_EHS_CALLS = [0]
+C2R_CALLS = [0]
+
+
+def count_plain_ehs() -> None:
+    plain, irfft = MOVS.ehs_values, torch.fft.irfft
+
+    def counted(d, *args, **kwargs):
+        if d.is_cuda:
+            PLAIN_EHS_CALLS[0] += 1
+        return plain(d, *args, **kwargs)
+
+    def counted_irfft(x, *args, **kwargs):
+        if x.is_cuda:
+            C2R_CALLS[0] += 1
+        return irfft(x, *args, **kwargs)
+
+    MOVS.ehs_values = counted
+    torch.fft.irfft = counted_irfft
+
+
 def reset_counts() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
     CONV1D_CALLS[0] = 0
     PLAIN_GATE_CALLS[0] = 0
+    PLAIN_EHS_CALLS[0] = 0
+    C2R_CALLS[0] = 0
 
 
 def read_counts() -> dict:
     """Each kernel's launches since reset_counts(); fails if a conv1d ran
-    (the FIR bank's plain version: a main path runs F1) or the plain gate
-    ran on the card (a main path runs G1)."""
+    (the FIR bank's plain version: a main path runs F1), the plain gate
+    or EHS's plain version ran on the card (a main path runs G1 and E1),
+    or a C2R transform (torch.fft.irfft) did."""
     check(CONV1D_CALLS[0] == 0, f"{CONV1D_CALLS[0]} conv1d call(s) on a "
           "main path")
     check(PLAIN_GATE_CALLS[0] == 0, f"{PLAIN_GATE_CALLS[0]} plain gate "
           "call(s) on the card on a main path")
+    check(PLAIN_EHS_CALLS[0] == 0, f"{PLAIN_EHS_CALLS[0]} plain EHS "
+          "call(s) on the card on a main path")
+    check(C2R_CALLS[0] == 0, f"{C2R_CALLS[0]} irfft call(s) on the card "
+          "on a main path")
     return {name: getattr(module, attr)
             for name, (module, attr) in COUNTERS.items()}
 
@@ -2842,8 +3003,9 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     """One peaq_batch() of `pairs` under torch.profiler: device ms (the
     device rows), the FIR bank's (F1's rows), the bin-domain stage's (S1's
     and S2's rows), the gate's (G1's rows), each band epilogue kernel's
-    (L1's, L2's and M1's rows), the hand kernels' (F1's, S1's, S2's, G1's,
-    L1's, L2's and M1's included) and the copies to the card's."""
+    (L1's, L2's and M1's rows), EHS's (E1's rows), the hand kernels' (F1's,
+    S1's, S2's, G1's, L1's, L2's, M1's and E1's included) and the copies
+    to the card's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -2862,6 +3024,8 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
                                             r"_kernel", e.key)) / 1e3,
             "gate_ms": sum(e.self_device_time_total for e in device
                            if "frame_gate_kernel" in e.key) / 1e3,
+            "ehs_ms": sum(e.self_device_time_total for e in device
+                          if "ehs_frames_kernel" in e.key) / 1e3,
             "band_ms": {name: sum(e.self_device_time_total for e in device
                                   if re.search(rf"\b{name}_kernel", e.key))
                         / 1e3 for name in BAND},
@@ -2973,7 +3137,7 @@ def phase_batch(pairs, card: str) -> dict:
             band = prof["band_ms"]
             band_ms = sum(band.values())
             other = (prof["hand_ms"] - prof["fir_ms"] - prof["spectral_ms"]
-                     - prof["gate_ms"] - band_ms)
+                     - prof["gate_ms"] - band_ms - prof["ehs_ms"])
             print(f"    profiled peaq_batch(): device {dev:.1f} ms, busy "
                   f"{dev / (wall * 1e3):.1%} of the unprofiled call and, "
                   f"without the copies to the card, "
@@ -2988,7 +3152,8 @@ def phase_batch(pairs, card: str) -> dict:
                   f"({band_ms / dev:.1%}: "
                   + ", ".join(f"{name} {ms:.3f} ms ({ms / dev:.1%})"
                               for name, ms in band.items())
-                  + "), the other hand "
+                  + f"), EHS (E1) {prof['ehs_ms']:.3f} ms "
+                  f"({prof['ehs_ms'] / dev:.1%}), the other hand "
                   f"kernels {other:.1f} ms ({other / dev:.1%}), the "
                   f"profiler's rows of "
                   f"copies to the card {prof['h2d_ms']:.1f} ms "
@@ -3001,12 +3166,15 @@ def phase_batch(pairs, card: str) -> dict:
 
 
 def epilogue_sites(pairs) -> None:
-    """The band-domain epilogue's sites in one staged basic float64 and
-    advanced float64 batch of `pairs` (tools/epilogue_sites.py): each
-    site's record_function range (the level adapter after its stage-1
-    smoothing, M1's calls) with the device ms of the PyTorch kernels
-    inside it, which the kernels left, and L1's, L2's, M1's and K1's
-    device ms by kernel name beside the batch's."""
+    """The device time of one staged basic float64 and advanced float64
+    batch of `pairs` split by site (tools/epilogue_sites.py): each eager
+    function the pipelines call in a record_function range (the FFT ear's
+    front and smear, EHS's E1 call and its gate, the band epilogue's
+    sites, the accumulators, the gates, the cognitive model, the FB ear's
+    casts and masking) with the device ms of the PyTorch kernels inside
+    it, the device ms outside every range and hand kernel with the
+    top-level operations that launched it, and L1's, L2's, M1's, K1's and
+    E1's device ms by kernel name beside the batch's."""
     for config, got in ES.profile_sites(
             (("basic", "float64", MICROBATCH["basic"]),
              ("advanced", "float64", MICROBATCH["advanced"])),
@@ -3014,16 +3182,22 @@ def epilogue_sites(pairs) -> None:
         dev = got["device_ms"]
         hand = got["hand_kernels_ms"]
         check(dev > 0, "the profiler saw no device time")
+        check(hand.get("ehs_frames", 0.0) > 0, f"{config}: no E1 time")
         band = sum(hand.get(name, 0.0) for name in BAND)
-        print(f"  epilogue sites, {config}: device {dev:.3f} ms, "
+        print(f"  sites, {config}: device {dev:.3f} ms, "
               f"{got['device_ops']} device ops; ranges (eager kernels "
               "inside): " + ", ".join(
                   f"{name} {s['calls']} calls {s['device_ms']:.3f} ms "
                   f"{s['kernels']} kernels"
-                  for name, s in got["sites"].items())
-              + f"; L1 + L2 + M1 {band:.3f} ms ({band / dev:.1%}: "
+                  for name, s in sorted(got["sites"].items(),
+                                        key=lambda kv: -kv[1]["device_ms"]))
+              + f"; outside every range and hand kernel "
+              f"{got['outside_ms']:.3f} ms (" + ", ".join(
+                  f"{op} {ms:.3f} ms" for op, ms in got["outside_ops"].items())
+              + f"); L1 + L2 + M1 {band:.3f} ms ({band / dev:.1%}: "
               + ", ".join(f"{name} {hand.get(name, 0.0):.3f} ms"
-                          for name in (*BAND, "recurrence_banded"))
+                          for name in (*BAND, "recurrence_banded",
+                                       "ehs_frames"))
               + ")", flush=True)
 
 
@@ -4120,6 +4294,7 @@ def main() -> None:
     card = timed(phase_card)
     count_conv1d()
     count_plain_gate()
+    count_plain_ehs()
     timed(phase_build)
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()

@@ -7,7 +7,8 @@ data-boundary gating (kernel G1 on each), as in the reference
 
   FFT path  the 55-band FFT ear at frame 2048 / hop 1024, with only the
             reference grouped and spread (kernel K3) and smeared (K1),
-            feeding SegmentalNMRB and EHSB (NMR's band half: M1);
+            feeding SegmentalNMRB and EHSB (NMR's band half: M1; EHS:
+            E1);
   FB path   the 40-band filter-bank ear at frame 192 on ref and test of
             every channel at once (ops/fb_ear.py: kernels D3, D1, D2, K1),
             the level adapter and modulation processors at step 192 (K2,
@@ -30,6 +31,7 @@ from torch import nn
 from .. import constants as C
 from .. import earparams as EP
 from ..ops import cuda_band
+from ..ops import cuda_ehs
 from ..ops import cuda_gate
 from ..ops import exact
 from ..ops import fb_ear as FB
@@ -135,9 +137,9 @@ class AdvancedPipeline(nn.Module):
             kf, ear.unsmeared.transpose(-1, -2).contiguous(), axis=-1)
         nmr_mean = cuda_band.band_movs(kf, "fft", ref_exc,
                                        noise=ear.noise_in_bands).nmr[0]
-        ehs_val, ehs_valid = MOVS.ehs_from_difference(
-            ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
-            self.ehs_window)
+        ehs_val = cuda_ehs.ehs_frames(ear.ehs_difference, self.ehs_window,
+                                      settings.ehs_subtract_dc_before_window)
+        ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
         cmf = committed_fft[..., None]
         one = torch.ones_like(fm(nmr_mean))
         seg_nmr = ch_mean(accum.avg(10.0 * exact.log10(fm(nmr_mean)), one,
@@ -150,7 +152,6 @@ class AdvancedPipeline(nn.Module):
         n_fb = fb_pair.shape[-1] // C.FB_FRAMESIZE
         above_fb = cuda_gate.frame_gate(fb_pair[0], n_fb, C.FB_FRAMESIZE,
                                         C.FB_FRAMESIZE, sdtype)
-        fb_pair = fb_pair.to(sdtype)
         fb_valid = valid_mask(n_fb, valid_fb, fb_pair.device)
         if fb_valid is not None:
             above_fb = above_fb & fb_valid

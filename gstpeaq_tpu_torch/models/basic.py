@@ -12,7 +12,8 @@ pairs; one pair is B = 1) to ODG, DI and the MOVs per pair in three stages:
      correction (L1) and pattern adaptation (L2) between them;
   C  per-frame MOV terms (M1: ModDiff, noise loudness, the gates'
      loudness, NMR's band half, detection probability; ops/cuda_band.py),
-     masked accumulation and the cognitive model.
+     EHS from S2's log-spectral difference (E1, ops/cuda_ehs.py), masked
+     accumulation and the cognitive model.
 
 The orchestration follows src/gstpeaq.c:849-921: the frame >= 24 gates, the
 loudness-reached +3 delay, the data-boundary masks (the gate: kernel G1,
@@ -33,6 +34,7 @@ from torch import nn
 from .. import constants as C
 from .. import earparams as EP
 from ..ops import cuda_band
+from ..ops import cuda_ehs
 from ..ops import cuda_gate
 from ..ops import fft_ear as FE
 from ..ops import framing
@@ -172,10 +174,10 @@ class BasicPipeline(nn.Module):
         bw_ref, bw_test, bw_valid = (fm(x) for x in ear.bandwidth)
         nmr_mean, disturbed = (fm(x) for x in band.nmr)
         p_bin, steps_bin = (x.T for x in band.detect)
-        ehs_val, ehs_valid = MOVS.ehs_from_difference(
-            ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
-            self.ehs_window)
-        ehs_val = fm(ehs_val)
+        ehs_val = fm(cuda_ehs.ehs_frames(
+            ear.ehs_difference, self.ehs_window,
+            settings.ehs_subtract_dc_before_window))
+        ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
 
         # ---- accumulate, [F, B, CH] -> [B] ----
         cm = committed[..., None]

@@ -176,16 +176,21 @@ def ehs_log_difference(ref_power: torch.Tensor, test_power: torch.Tensor,
     return torch.where(ehs_zero, 0.0, d)
 
 
-def ehs_from_difference(d: torch.Tensor, ref_thresh: torch.Tensor,
-                        test_thresh: torch.Tensor, settings: C.Settings,
-                        window: torch.Tensor):
-    """Error harmonic structure per frame from the log-spectral difference
-    d [CH, F, 512] (ehs_log_difference), the rest of ehs.
-    ref/test_thresh: [CH, F] bool; window: the [256] correlation window.
-    Returns (ehs_value [CH, F], valid [F]); the value is meaningless where
-    valid is False."""
+def ehs_valid(ref_thresh: torch.Tensor,
+              test_thresh: torch.Tensor) -> torch.Tensor:
+    """EHS's frame gate [..., F] from ref/test_thresh [..., CH, F] bool:
+    either signal's energy threshold reached in some channel."""
+    return torch.any(ref_thresh | test_thresh, dim=-2)
+
+
+def ehs_values(d: torch.Tensor, window: torch.Tensor,
+               subtract_dc: bool) -> torch.Tensor:
+    """Error harmonic structure (x 1000) of each row of the log-spectral
+    difference d [..., 512] (ehs_log_difference); window: the [256]
+    correlation window; subtract_dc: Settings'
+    ehs_subtract_dc_before_window.  Returns [...].  The plain version of
+    kernel E1 (ops/cuda_ehs.py)."""
     n = C.MAXLAG
-    valid = torch.any(ref_thresh | test_thresh, dim=-2)   # over channels
     # c[i] = sum_{k<256} d[k] d[k+i], through the frequency domain like the
     # reference
     f1 = torch.fft.rfft(d, dim=-1)
@@ -199,19 +204,31 @@ def ehs_from_difference(d: torch.Tensor, ref_thresh: torch.Tensor,
          torch.cumsum(dsq[..., n:2 * n - 1] - dsq[..., :n - 1], dim=-1)],
         dim=-1)
     cnorm = corr / exact.sqrt(d0 * dk)
-    if settings.ehs_subtract_dc_before_window:
+    if subtract_dc:
         cwin = (cnorm - torch.mean(cnorm, dim=-1, keepdim=True)) * window
     else:
         cwin = cnorm * window
     cfft = torch.fft.rfft(cwin, dim=-1)
     power = cfft.real ** 2 + cfft.imag ** 2
-    if not settings.ehs_subtract_dc_before_window:
+    if not subtract_dc:
         power = torch.cat([torch.zeros_like(power[..., :1]), power[..., 1:]],
                           dim=-1)
     # max over bins exceeding their predecessor; NaN-proof: NaN > x is False
     ascending = power[..., 1:] > power[..., :-1]
     ehs_val = torch.amax(torch.where(ascending, power[..., 1:], 0.0), dim=-1)
-    return 1000.0 * ehs_val, valid
+    return 1000.0 * ehs_val
+
+
+def ehs_from_difference(d: torch.Tensor, ref_thresh: torch.Tensor,
+                        test_thresh: torch.Tensor, settings: C.Settings,
+                        window: torch.Tensor):
+    """Error harmonic structure per frame from the log-spectral difference
+    d [CH, F, 512] (ehs_log_difference), the rest of ehs: ehs_values and
+    ehs_valid.  ref/test_thresh: [CH, F] bool; window: the [256]
+    correlation window.  Returns (ehs_value [CH, F], valid [F]); the value
+    is meaningless where valid is False."""
+    return (ehs_values(d, window, settings.ehs_subtract_dc_before_window),
+            ehs_valid(ref_thresh, test_thresh))
 
 
 def ehs(ref_power: torch.Tensor, test_power: torch.Tensor,

@@ -46,6 +46,7 @@ from ..models import nn as NN
 from ..models.basic import energy_totals
 from ..models.modulation import modulation
 from ..ops import cuda_band
+from ..ops import cuda_ehs
 from ..ops import cuda_gate
 from ..ops import exact
 from ..ops import fb_ear as FB
@@ -309,9 +310,9 @@ def basic_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
     bw_ref, bw_test, bw_valid = ear.bandwidth
     nmr_mean, disturbed = band.nmr
     p_bin, steps_bin = band.detect
-    ehs_val, ehs_valid = MOVS.ehs_from_difference(
-        ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
-        pipe.ehs_window)
+    ehs_val = cuda_ehs.ehs_frames(ear.ehs_difference, pipe.ehs_window,
+                                  settings.ehs_subtract_dc_before_window)
+    ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
 
     # ---- streaming accumulation ----
     act = _Activity(state["has_above"], above)
@@ -399,9 +400,9 @@ def fft_chunk_step(pipe, state: dict, ref_sig: torch.Tensor,
                                return_state=True)
     nmr_mean = cuda_band.band_movs(kf, "fft", exc[0],
                                    noise=ear.noise_in_bands).nmr[0]
-    ehs_val, ehs_valid = MOVS.ehs_from_difference(
-        ear.ehs_difference, ear.threshold[0], ear.threshold[1], settings,
-        pipe.ehs_window)
+    ehs_val = cuda_ehs.ehs_frames(ear.ehs_difference, pipe.ehs_window,
+                                  settings.ehs_subtract_dc_before_window)
+    ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
     act = _Activity(state["has_above_fft"], above)
     every = torch.ones_like(above)
     one = torch.ones_like(nmr_mean)
