@@ -41,9 +41,11 @@ Phases, each on its own lines and ending with its seconds:
               truncated parts of e); E1, EHS after S2, on the pair's own
               log-spectral differences under each setting of its two
               flags, on rows all zero, with -inf below 256, above it and
-              at 511, +inf and NaN (exactly 0 where its plain version is),
-              on branch_blocks' rows, in mono, in 3 channels and on one
-              frame, within 1e-10 / 2e-4 a frame; and at the
+              at 511, +inf and NaN, NaN and +inf at 511 alone, d[0:256]
+              zero (d0 = 0; exactly 0 where its plain version is), on
+              branch_blocks' rows, on frames scaled 1e-30 .. 1e+30 (1e-6
+              .. 1e+6 in float), in mono, in 3 channels and on one frame,
+              within 1e-10 / 2e-4 a frame; and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets; M1 there also in mono and in 3
               channels) and the streams' chunk shapes (64
@@ -387,10 +389,11 @@ COUNTERS = {
 BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 DC_BARS = {torch.float32: 2e-3, torch.float64: 1e-10}
 # E1 (ehs_frames) frame by frame, |kernel - plain| <= bar max(1, |plain|):
-# its direct lags and small FFT round otherwise than the plain version's
-# three cuFFT transforms, a normalisation by sqrt(d0 dk) lifts that, and a
-# peak is a maximum over ascending bins; and exactly 0 wherever the plain
-# version gives 0 on a row that is all zero or holds a NaN or an infinity
+# its transforms round otherwise than the plain version's three cuFFT
+# transforms, a normalisation by sqrt(d0 dk) lifts that, and a peak is a
+# maximum over ascending bins; and exactly 0 wherever the plain version
+# gives 0 on a row that is all zero, has d0 = 0 or holds a NaN or an
+# infinity
 EHS_BARS = {torch.float32: 2e-4, torch.float64: 1e-10}
 # the bound's rates: an H100 SXM's device memory and its peaks outside the
 # tensor cores at its full 700 W (NVIDIA's data sheet)
@@ -500,9 +503,7 @@ def ops_of(name: str, inputs) -> float:
     if name in BAND:
         return band_ops(name, inputs)
     if name == "ehs_frames":
-        # per row, the FFT form's work: 2.5 N log2 N for each of the three
-        # 512-point transforms and the 256-point one, and ~10 a lag (the
-        # products, the running update, the normalisation, the window)
+        # per row, the real-input FFT form's work (EHS_ROW_OPS)
         return EHS_ROW_OPS * (inputs[0].numel() // cuda_ehs.ROW)
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
@@ -524,7 +525,15 @@ def ops_of(name: str, inputs) -> float:
     return (2 * z * (z - 1) + 4 * z + 3 * z) * lines
 
 
-EHS_ROW_OPS = (3 * 2.5 * 512 * 9 + 2.5 * 256 * 8 + 10 * C.MAXLAG)
+# E1's operations a row, its inputs being real, 2.5 N log2 N a complex
+# N-point transform: the 512-point transform of h + i d, both rows in one;
+# the conjugate-symmetry split and R = D conj H (10 a bin of 257); the
+# pairing of R[k] with R[256 - k] into the even and odd lags' spectra with
+# a twiddle (12 a bin of 256); their 256-point complex inverse; ~10 a lag
+# (the running update, the normalisation, the mean, the window); the
+# window's 128-point transform; its split and powers (15 a bin of 129)
+EHS_ROW_OPS = (2.5 * 512 * 9 + 10 * 257 + 12 * 256 + 2.5 * 256 * 8
+               + 10 * C.MAXLAG + 2.5 * 128 * 7 + 15 * 129)
 
 
 def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
@@ -1071,15 +1080,17 @@ def spectral_check(name: str, got, want, dtype) -> tuple[float, float, bool,
 def ehs_check(got, want, d, dtype) -> tuple[float, float, bool, str]:
     """E1 against its plain version on rows d: every frame within
     EHS_BARS of it (max(1, |plain|) a frame), none NaN, and exactly 0 on
-    every row that is all zero or holds a NaN or an infinity, as the plain
-    version is there.  Returns the largest |d|, the largest relative
-    error, whether all holds, and a note for the case's line."""
+    every row that is all zero, whose d[0:256] is zero (d0 = 0) or that
+    holds a NaN or an infinity, as the plain version is there.  Returns
+    the largest |d|, the largest relative error, whether all holds, and a
+    note for the case's line."""
     err = (got - want).abs()
     rel = (err / want.abs().clamp_min(1.0)).max().item()
-    edge = (d == 0).all(dim=-1) | ~torch.isfinite(d).all(dim=-1)
+    edge = ((d[..., :C.MAXLAG] == 0).all(dim=-1)
+            | ~torch.isfinite(d).all(dim=-1))
     zeros = bool((got[edge] == 0).all() and (want[edge] == 0).all())
     finite = bool(torch.isfinite(got).all())
-    note = (f", {int(edge.sum())} zero or non-finite rows exactly 0: "
+    note = (f", {int(edge.sum())} zero, d0 = 0 or non-finite rows exactly 0: "
             f"{zeros}, {int((want == 0).sum())} of {want.numel()} plain "
             "values 0")
     ok = finite and zeros and rel <= EHS_BARS[dtype]
@@ -1159,9 +1170,11 @@ def ehs_case(label: str, d, subtract_dc: bool = False,
 
 
 def ehs_edges(d) -> torch.Tensor:
-    """A copy of d [1, 2, F >= 8, 512] with the rows E1 must give the
+    """A copy of d [1, 2, F >= 10, 512] with the rows E1 must give the
     plain version's 0 on: an all-zero row, -inf at a bin below 256, at
-    one above and at 511 (which no lag reads), +inf, and a NaN."""
+    one above and at 511, +inf, and a NaN; a NaN and +inf at 511 alone
+    (which no lag reads, but which enters E1's transform); and two rows
+    whose d[0:256] is zero (d0 = 0: energy only in d[256:512])."""
     e = d.clone()
     e[0, 0, 0] = 0.0
     e[0, 1, 1, 100] = -math.inf
@@ -1169,15 +1182,59 @@ def ehs_edges(d) -> torch.Tensor:
     e[0, 1, 3, 511] = -math.inf
     e[0, 0, 4, 256] = math.inf
     e[0, 1, 5, 7] = math.nan
+    e[0, 0, 6, 511] = math.nan
+    e[0, 1, 7, 511] = math.inf
+    e[0, 0, 8, :C.MAXLAG] = 0.0
+    e[0, 1, 9, :C.MAXLAG] = 0.0
     return e
+
+
+# the powers of ten ehs_scaled scales frames by: 1e-30 .. 1e+30 in double;
+# in float the plain version's own products (d0 dk, its spectra's) leave
+# float's range past ~1e-10 .. 1e+8 and it gives 0 there, so 1e-6 .. 1e+6
+EHS_SCALES = {torch.float64: range(-30, 31, 5),
+              torch.float32: range(-6, 7, 2)}
+
+
+def ehs_scaled(d) -> torch.Tensor:
+    """d's first frames [1, 2, n, 512], frame f scaled by 10^EHS_SCALES[f]
+    (computed in double): rows spanning 1e-30 to 1e+30 in magnitude in
+    double, each through E1's transform at its own scale."""
+    p = torch.tensor(list(EHS_SCALES[d.dtype]), dtype=torch.float64,
+                     device=d.device)
+    scaled = d[:, :, :len(p)].double() * (10.0 ** p)[:, None]
+    return scaled.to(d.dtype).contiguous()
+
+
+# the powers of ten ehs_lifted scales d[0:256] by against d[256:512]: in
+# double 1e-2 .. 1e-4, where E1 lifts h by s = 2^7 .. 2^13 and the plain
+# version's own rounding (~eps |d| / |h|) stays far under the bar; in
+# float, whose plain version rounds in float, 1e-1 .. 1e-3 (s = 2^3 ..
+# 2^10), where that rounding is still well under the bar
+EHS_LIFTS = {torch.float64: (-2, -3, -4), torch.float32: (-1, -2, -3)}
+
+
+def ehs_lifted(d) -> torch.Tensor:
+    """A copy of d whose frame f has d[0:256] scaled by 10^EHS_LIFTS[f
+    mod n] (computed in double) against d[256:512], as a codec transparent
+    at low frequencies and distorting the highs gives: rows on which E1
+    lifts h by its power of two s before the transform."""
+    p = torch.tensor(EHS_LIFTS[d.dtype], dtype=torch.float64,
+                     device=d.device)
+    lift = (10.0 ** p)[torch.arange(d.shape[-2], device=d.device) % len(p)]
+    x = d.double()
+    x = torch.cat([x[..., :C.MAXLAG] * lift[:, None], x[..., C.MAXLAG:]],
+                  dim=-1)
+    return x.to(d.dtype).contiguous()
 
 
 def ehs_cases(dtype, pair10) -> list:
     """E1 at the per-pair shape on the 10 s pair's own d (the main case,
     [1, 2, 468, 512]) under each setting of its two flags, on the edge
     rows (ehs_edges), on branch_blocks' rows (silent, identical, a test
-    60 dB down, a test of zeros: -inf), in mono and in 3 channels, and on
-    one frame."""
+    60 dB down, a test of zeros: -inf), on frames scaled 1e-30 .. 1e+30
+    (ehs_scaled), on frames whose d[0:256] lies far below d[256:512]
+    (ehs_lifted), in mono and in 3 channels, and on one frame."""
     kb = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT), dtype, "cuda")
     d = ehs_difference(kb, spectra_of(kb, fft_blocks(pair10, 1, MAIN[3])))
     cases = [ehs_case("main", d)]
@@ -1186,6 +1243,8 @@ def ehs_cases(dtype, pair10) -> list:
     edges = ehs_edges(d)
     branches = ehs_difference(kb, spectra_of(kb, branch_blocks(pair10)))
     for label, x in (("edges", edges), ("branches", branches),
+                     ("scaled", ehs_scaled(d)),
+                     ("lifted", ehs_lifted(d)),
                      ("mono", d[:, :1].contiguous()),
                      ("3 channels", torch.cat([d, d[:, :1]], dim=1)),
                      ("one frame", d[..., :1, :].contiguous())):
@@ -2063,6 +2122,11 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                       "version")
             extra = ({"padded_bound_ms": fir_bound(dtype, c.inputs, got)[2]}
                      if name == "fir_bank" and c.inputs else {})
+            if name == "ehs_frames" and dtype == torch.float32:
+                # E1 computes float rows in double: its bound at the
+                # FP64 rate beside the float one
+                extra["double_rate_bound_ms"] = bound(
+                    name, torch.float64, c.inputs, out)[0]
             if case in ("F=468", "main", "Z=109"):
                 bound_ms, bound_by = bound(name, dtype, c.inputs, out)
                 main[name][dtype] = dict(max_abs_err=err, kernel=c.kernel,
@@ -2729,12 +2793,51 @@ def long_rows() -> dict:
     return out
 
 
+def ehs_shared() -> int:
+    """E1's dynamic shared memory a block: csrc/ehs.cu's kShared, its
+    expression taken over the source's own integer constants."""
+    text = (_build.CSRC / "ehs.cu").read_text()
+    names = {k: int(v) for k, v in re.findall(
+        r"\b(k\w+) = (\d+)[;,]", text)}
+    expr = " ".join(re.search(r"constexpr int kShared = ([^;]+);",
+                              text)[1].split())
+    assert re.fullmatch(r"[\w *+]+", expr), expr
+    return eval(expr, {"__builtins__": {}}, names)
+
+
+def ehs_report() -> None:
+    """E1's registers, spills and static shared memory from the build's
+    ptxas report (_build's log), and the dynamic shared memory a block of
+    its launches."""
+    entry, spills = None, ""
+    for line in _build.library_path().with_suffix(".log").read_text(
+            ).splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"ehs_frames_kernelI([fd])", line)
+            entry = m and {"f": torch.float32, "d": torch.float64}[m[1]]
+        elif entry and "spill" in line:
+            spills = line.strip()
+        elif entry and "Used" in line:
+            print(f"  ehs_frames {entry} rows: "
+                  f"{line.split(':', 1)[1].strip()}; {spills}; dynamic "
+                  f"shared memory {ehs_shared()} B a block of "
+                  f"{cuda_ehs.WARPS} row warps and a helper, "
+                  f"{cuda_ehs.RESIDENT} blocks an SM", flush=True)
+            entry = None
+
+
 def fir_note(name: str, entry: dict) -> str:
     """For F1: its plain version is also its library call (the cuDNN
     conv1d, TF32 off), and its share of the uniform conv's bound.  For S1,
-    S2 and G1: that no single PyTorch call computes their functions."""
+    S2 and G1: that no single PyTorch call computes their functions.  For
+    E1 on float rows, which it computes in double: its share of the bound
+    at the FP64 rate."""
     if name in (*SPECTRAL, "frame_gate"):
         return "; library: none (no single PyTorch call)"
+    if name == "ehs_frames" and "double_rate_bound_ms" in entry:
+        b = entry["double_rate_bound_ms"]
+        return (f"; computed in double: {b / entry['ms']:.1%} of the bound "
+                f"at the FP64 rate, {b:.5f} ms")
     if name != "fir_bank":
         return ""
     entry["library_ms"] = entry["plain_ms"]
@@ -2834,6 +2937,7 @@ def phase_times(main: dict, batch: dict, stream: dict, pair10,
     copy of its results to the host.  Returns the median wall ms per
     (mode, tier), long_rows' readings and hour_times'."""
     print("phase 7 times", flush=True)
+    ehs_report()
     for name, by_dtype in main.items():
         for dtype, entry in by_dtype.items():
             entry["ms"], host = cuda_ms(entry.pop("kernel"), calls=20,

@@ -63,7 +63,7 @@ _PATTERN_ADAPT = (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P, _P)
 _BAND_MOVS = (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
               _P)
 _BAND_MATH_RATE = (_I32, _I64, _I32, _P, _P)
-_EHS_FRAMES = (_P, _P, _I64, _I32, _I32, _P, _P)
+_EHS_FRAMES = (_P, _P, _I64, _I32, _I32, _I32, _P, _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,

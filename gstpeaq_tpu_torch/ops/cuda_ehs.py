@@ -7,8 +7,10 @@ is some 28 launches a call over the log-spectral difference d [..., CH,
 F, 512] that S2 writes: four cuFFT transforms (three of them for the
 lags), their products, a cumsum, the normalisation, the window, a mean,
 the powers and their peak.  E1 reads each row of d once and writes its
-EHS value; the source says what bounds it and what its design does
-about it.
+EHS value: the lags through one complex 512-point transform a row and a
+half-length real inverse, a warp a row, on a persistent grid whose rows
+are staged into L2 a round ahead by TMA; the source says what bounds it
+and what its design does about it.
 
 The wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  It
@@ -17,22 +19,42 @@ counts its launches in `ehs_frames_launches`, one per call with a row.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .. import constants as C
 from ..models import movs as MOVS
 from . import _build
 
-# csrc/ehs.cu's constants (tests/test_torch_ehs.py holds them equal)
+# csrc/ehs.cu's constants that the launch needs (tests/test_torch_ehs.py
+# holds them equal; the rest of its layout the tests read from the source)
 ROW = 2 * C.MAXLAG      # d's bins a row
 LAGS = C.MAXLAG         # the lags and the window's length
-WARPS = 4               # rows a block, a compute warp each
+WARPS = 15              # rows a block at most, a warp each
+RESIDENT = 1            # blocks an SM
 ehs_frames_launches = 0
 
 
-def ehs_grid(rows: int) -> int:
-    """E1's blocks for `rows` rows: WARPS rows a block."""
-    return -(-rows // WARPS)
+class EhsGrid(NamedTuple):
+    """E1's launch: `per_block` rows a block and round (a warp each),
+    `blocks` persistent blocks."""
+    per_block: int
+    blocks: int
+
+
+def ehs_grid(rows: int, sms: int) -> EhsGrid:
+    """E1's launch for `rows` rows on a card of `sms` SMs: RESIDENT blocks
+    an SM at most, each taking as few rows a round as spread the rows over
+    all of them, WARPS at most."""
+    per_block = max(1, min(WARPS, -(-rows // (RESIDENT * sms))))
+    return EhsGrid(per_block, min(-(-rows // per_block), RESIDENT * sms))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ehs_frames(d: torch.Tensor, window: torch.Tensor,
@@ -61,9 +83,15 @@ def ehs_frames(d: torch.Tensor, window: torch.Tensor,
     window = window.contiguous()
     _build.require("ehs_frames", x, window=window)
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        # the kernel stages its rows into L2 with TMA prefetches, which
+        # take 16-byte aligned rows
+        x = x.clone()
     out = torch.empty(d.shape[:-1], dtype=d.dtype, device=d.device)
     rows = x.shape[0]
+    grid = ehs_grid(rows, _sms(x.device.index))
     _build.launch("ehs_frames", out, x.data_ptr(), window.data_ptr(), rows,
-                  int(bool(subtract_dc)), ehs_grid(rows), out.data_ptr())
+                  int(bool(subtract_dc)), grid.per_block, grid.blocks,
+                  out.data_ptr())
     ehs_frames_launches += 1
     return out

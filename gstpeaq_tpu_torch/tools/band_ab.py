@@ -40,7 +40,6 @@ import argparse
 import json
 import pathlib
 import shutil
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -217,31 +216,15 @@ def main(argv=None) -> int:
         return split()
     if not args.parent:
         parser.error("give --parent DIR or --split")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    sys.path.insert(0, str(ROOT))
+    from gstpeaq_tpu_torch.tools import ab
+    card = ab.card()
     print(card, flush=True)
-    parent = str(pathlib.Path(args.parent).resolve())
-    runs = []
-    for root in (parent, str(ROOT), str(ROOT), parent):
-        done = subprocess.run(
-            [sys.executable, __file__, "--child", root],
-            capture_output=True, text=True, cwd=root)
-        if done.returncode:
-            sys.stderr.write(done.stdout[-4000:] + done.stderr[-4000:])
-            return done.returncode
-        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    runs = ab.runs(__file__, args.parent)
     print("dtype, kernel and case: ms, parent / this / this / parent "
           "(share of the bytes bound)")
-    for dtype in ("float32", "float64"):
-        for label, first in runs[0][dtype].items():
-            cells = []
-            for run in runs:
-                t = run[dtype].get(label)
-                cells.append("-" if t is None else
-                             f"{t['ms']:.4f} ({t['bound_ms'] / t['ms']:.1%})")
-            print(f"  {dtype} {label}: " + " / ".join(cells))
+    ab.table(runs, lambda t: f"{t['ms']:.4f} "
+             f"({t['bound_ms'] / t['ms']:.1%})")
     print(json.dumps({"card": card, "runs": runs}))
     return 0
 

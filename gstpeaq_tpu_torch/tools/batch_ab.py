@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -83,21 +82,11 @@ def main(argv=None) -> int:
         child(args.child)
         return 0
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    runs = []
-    parent = str(pathlib.Path(args.parent).resolve())
-    for root in (parent, str(ROOT), str(ROOT), parent):
-        done = subprocess.run(
-            [sys.executable, __file__, "--parent", parent, "--child", root],
-            capture_output=True, text=True, cwd=root)
-        if done.returncode:
-            print(done.stderr[-3000:], file=sys.stderr)
-            return done.returncode
-        runs.append(json.loads(done.stdout.splitlines()[-1]))
-        print(f"  {runs[-1]}", flush=True)
+    sys.path.insert(0, str(ROOT))
+    from gstpeaq_tpu_torch.tools import ab
+    card = ab.card()
+    runs = ab.runs(__file__, args.parent, "--parent", args.parent,
+                   echo=True)
     print(card)
     print(json.dumps({"card": card, "runs": runs}))
     return 0

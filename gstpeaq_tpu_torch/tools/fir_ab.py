@@ -24,7 +24,6 @@ import argparse
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -93,23 +92,13 @@ def main(argv=None) -> int:
     if args.child:
         child(args.child)
         return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    sys.path.insert(0, str(ROOT))
+    from gstpeaq_tpu_torch.tools import ab
+    card = ab.card()
     print(card, flush=True)
-    parent = str(pathlib.Path(args.parent).resolve())
-    runs = []
-    for root in (parent, str(ROOT), str(ROOT), parent):
-        done = subprocess.run(
-            [sys.executable, __file__, "--parent", parent, "--child", root],
-            check=True, capture_output=True, text=True, cwd=root)
-        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    runs = ab.runs(__file__, args.parent, "--parent", args.parent)
     print("dtype, shape: ms, parent / this / this / parent")
-    for dtype in ("float32", "float64"):
-        for label, *_ in SHAPES:
-            print(f"  {dtype} {label:16s} " + " / ".join(
-                f"{run[dtype][label]:.4f}" for run in runs))
+    ab.table(runs, lambda t: f"{t:.4f}", ms=lambda t: t)
     print(json.dumps({"card": card, "runs": runs}))
     return 0
 

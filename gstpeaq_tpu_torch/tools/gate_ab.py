@@ -37,7 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -177,40 +176,17 @@ def main(argv=None) -> int:
         return split()
     if not args.parent:
         parser.error("give --parent DIR or --split")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    sys.path.insert(0, str(ROOT))
+    from gstpeaq_tpu_torch.tools import ab
+    card = ab.card()
     print(card, flush=True)
-    parent = str(pathlib.Path(args.parent).resolve())
-    runs = []
-    for root in (parent, str(ROOT), str(ROOT), parent):
-        done = subprocess.run(
-            [sys.executable, __file__, "--child", root],
-            capture_output=True, text=True, cwd=root)
-        if done.returncode:
-            sys.stderr.write(done.stdout[-4000:] + done.stderr[-4000:])
-            return done.returncode
-        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+    runs = ab.runs(__file__, args.parent)
     print("dtype, case: ms, parent / this / this / parent (share of the "
           "bytes bound); bits equal the plain gate's in every run")
-    worst = 0.0
-    for dtype in ("float32", "float64"):
-        for label in runs[1][dtype]:
-            cells = []
-            for run in runs:
-                t = run[dtype].get(label)
-                cells.append("-" if t is None else
-                             f"{t['ms']:.4f} ({t['bound_ms'] / t['ms']:.1%})"
-                             + ("" if t["equal"] else " BITS DIFFER"))
-            print(f"  {dtype} {label}: " + " / ".join(cells))
-            old = [run[dtype][label]["ms"] for run in (runs[0], runs[3])
-                   if label in run[dtype]]
-            if old:
-                new = min(runs[1][dtype][label]["ms"],
-                          runs[2][dtype][label]["ms"])
-                worst = max(worst, new / min(old))
-    equal = all(t["equal"] for run in runs for d in ("float32", "float64")
+    worst = ab.table(runs, lambda t: f"{t['ms']:.4f} "
+                     f"({t['bound_ms'] / t['ms']:.1%})"
+                     + ("" if t["equal"] else " BITS DIFFER"))
+    equal = all(t["equal"] for run in runs for d in ab.DTYPES
                 for t in run[d].values())
     print(f"worst this / parent (this's faster run against the parent's "
           f"faster): {worst:.3f}; bits equal everywhere: {equal}")

@@ -28,7 +28,6 @@ import argparse
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -113,28 +112,16 @@ def main(argv=None) -> int:
         return 0
 
     sys.path.insert(0, str(ROOT))
+    from gstpeaq_tpu_torch.tools import ab
     from gstpeaq_tpu_torch.tools import longform_bench as L
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = ab.card()
     ref, test = (np.concatenate(x) for x in zip(
         *L.feeds(*L.base_program(), 60 * SR)))
-    runs = []
     with tempfile.TemporaryDirectory() as tmp:
         program = str(pathlib.Path(tmp) / "program.npz")
         np.savez(program, ref=ref, test=test)
-        parent = str(pathlib.Path(args.parent).resolve())
-        for root in (parent, str(ROOT), str(ROOT), parent):
-            done = subprocess.run(
-                [sys.executable, __file__, "--parent", parent, "--child",
-                 root, "--program", program], capture_output=True,
-                text=True, cwd=root)
-            if done.returncode:
-                print(done.stderr[-3000:], file=sys.stderr)
-                return done.returncode
-            runs.append(json.loads(done.stdout.splitlines()[-1]))
-            print(f"  {runs[-1]}", flush=True)
+        runs = ab.runs(__file__, args.parent, "--parent", args.parent,
+                       "--program", program, echo=True)
     print(card)
     print(json.dumps({"card": card, "chunk_frames": CHUNK, "runs": runs}))
     return 0
