@@ -23,7 +23,10 @@ Phases, each on its own lines and ending with its seconds:
               ear's bin-domain stage, on the pair's own frames, S1 also on
               float64 blocks, one frame and a view, S2 with each call
               site's flags and on rows that take each of its branches:
-              silent, identical, a removed bin, a zero test, bandwidth 0;
+              silent, identical, a removed bin, a zero test, bandwidth 0,
+              and without the bandwidth flag on spectra whose bins from
+              group_bin_hi up hold other values (against the plain
+              version on the spectra as they were);
               their bandwidth indices and gate bits equal, S1's halves
               within the bars; G1, the data-boundary gate, bit for bit
               against the plain gate, with float32 and float64 samples,
@@ -100,8 +103,10 @@ Phases, each on its own lines and ending with its seconds:
               count of parts of its groups, and (fir_mma) the FP64 tensor
               cores' rate per f64 mma shape (m8n8k4, m16n8k4, m16n8k8,
               m16n8k16), the card's rate of each library call M1 makes
-              (pow, exp, exp2, log10, a quotient) and M1's math floor
-              at each batch site beside its bytes bound, each kernel
+              (pow, exp, exp2, log10, a quotient) and S2 makes (sqrt,
+              log1p) and M1's math floor at each batch site beside its
+              bytes bound, S2's bound over the bins its call reads beside
+              the one first counted (all 1,025 bins), each kernel
               at the streams' chunk shapes, K1 and K2 on a 10-minute
               program's one-shot FB rows [2, 1, 2, 40, 150000] with their
               plain versions and K1's library call, and peaq() wall time
@@ -492,10 +497,18 @@ def ops_of(name: str, inputs) -> float:
         # and on ref - test (2); its squares and sums into the energies (4)
         return 10 * inputs[0].numel()
     if name == "spectral_movs":
-        # per bin of a row: T (2), pr and pt (8), dp (6), the noise
-        # spectrum (5), d (4), and ~1.5 band weights a bin for each of the
-        # three band sums (9)
-        return 34 * inputs[0].numel() // 4
+        # per row, over the bins the call reads (inputs[0] is cut to them,
+        # movs_case): T (2), pr and pt (8) at each; dp (6) and the noise
+        # spectrum (5) below the band runs' end (group_span's); d (4) at
+        # each of EHS's 512; a multiply and an add for each band weight
+        # (group_weights: 874 at 109 bands, 820 at 55) in each of the three
+        # band sums (6)
+        spectra, span, weights = inputs[0], inputs[2], inputs[3]
+        bins = spectra.shape[-2]
+        rows = spectra.numel() // (4 * bins)
+        hi = int((span[0] + span[1]).max())
+        return rows * (10 * bins + 11 * hi + 4 * cuda_spectral.EHS_BINS
+                       + 6 * weights.numel())
     if name == "frame_gate":
         # per sample and channel: |x| (1), the window's four adds (4), the
         # maximum over channels (1) and its hop's two maxima (2)
@@ -553,6 +566,22 @@ def bound(name: str, dtype, inputs, output) -> tuple[float, str]:
     by_ops = ops_of(name, inputs) / PEAK_OPS_PER_S[dtype] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def spectral_bound_first(dtype, inputs, output) -> float:
+    """S2's bound in ms as this script first counted it: all 1,025 bins
+    of both spectra read, and 34 operations a bin (~1.5 band weights a bin
+    in each of the three band sums), whatever the call's flags.  bound()
+    counts only the bins the call reads; phase 7 prints both."""
+    spectra = inputs[0]
+    rows = spectra.numel() // (4 * spectra.shape[-2])
+    full = rows * 4 * cuda_spectral.BINS
+    moved = (full * spectra.element_size()
+             + sum(t.numel() * t.element_size()
+                   for t in (*inputs[1:], *tensors_of(output))))
+    by_bytes = moved / MEMORY_BYTES_PER_S * 1e3
+    by_ops = 34 * full / 4 / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(by_bytes, by_ops)
 
 
 def fir_bound(dtype, inputs, out) -> tuple[float, str, float]:
@@ -1017,22 +1046,41 @@ def spectra_of(k, blocks) -> torch.Tensor:
 
 
 def movs_case(k, label: str, spectra, ref_only: bool,
-              bandwidth: bool) -> Case:
+              bandwidth: bool, plain_spectra=None) -> Case:
     """S2 on `spectra` with the flags of a call site against its plain
-    version (its grouping a float32 GEMM with TF32 off)."""
+    version (its grouping a float32 GEMM with TF32 off) on
+    `plain_spectra` (default `spectra`).  The case's inputs hold the
+    spectra cut to the bins the call reads (cuda_spectral.bins_read), so
+    that bound() counts those bytes alone."""
+    want = spectra if plain_spectra is None else plain_spectra
+
     def plain():
         with api.full_precision_matmuls():
             return cuda_spectral.spectral_movs_plain(
-                spectra, k.level_factor, k.group_matrix, k.group_bin_hi,
+                want, k.level_factor, k.group_matrix, k.group_bin_hi,
                 k.ehs_zero, ref_only, bandwidth)
+    bins = cuda_spectral.bins_read(k.group_bin_hi, bandwidth)
     return Case("spectral_movs", label,
                 lambda: cuda_spectral.spectral_movs(
                     spectra, k.level_factor, k.group_matrix, k.group_bin_hi,
                     k.group_span, k.group_weights, k.ehs_zero, ref_only,
                     bandwidth),
                 plain,
-                (spectra, k.level_factor, k.group_span, k.group_weights,
-                 k.ehs_zero))
+                (spectra[..., :bins, :], k.level_factor, k.group_span,
+                 k.group_weights, k.ehs_zero))
+
+
+def unread_changed(k, spectra, seed: int = 11) -> torch.Tensor:
+    """`spectra` with every bin from k.group_bin_hi up replaced by other
+    finite values (loud, of either sign, from a generator of its own):
+    the bins that S2 reads neither for its band sums nor for EHS, and
+    without the bandwidth flag not at all."""
+    out = spectra.clone()
+    tail = out[..., k.group_bin_hi:, :]
+    g = torch.Generator(device=spectra.device).manual_seed(seed)
+    tail.copy_(1e3 * torch.randn(tail.shape, generator=g,
+                                 device=spectra.device, dtype=spectra.dtype))
+    return out
 
 
 def spectral_check(name: str, got, want, dtype) -> tuple[float, float, bool,
@@ -1140,6 +1188,15 @@ def spectral_cases(dtype, pair10) -> list:
                             ("advanced", ka, (True, False)),
                             ("advanced FFT step", ka, (False, False))):
         cases.append(movs_case(k, f"branches {label}", branches, *flags))
+    # without the bandwidth flag the bins from group_bin_hi up are not
+    # needed: S2 on spectra whose such bins hold other finite values,
+    # against the plain version on the spectra as they were
+    for label, flags in (("advanced", (True, False)),
+                         ("advanced FFT step", (False, False))):
+        for name, x in (("main", spectra), ("branches", branches)):
+            cases.append(movs_case(
+                ka, f"{label}, {name} with bins >= {ka.group_bin_hi} "
+                "changed", unread_changed(ka, x), *flags, plain_spectra=x))
     return cases
 
 
@@ -2122,6 +2179,9 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                       "version")
             extra = ({"padded_bound_ms": fir_bound(dtype, c.inputs, got)[2]}
                      if name == "fir_bank" and c.inputs else {})
+            if name == "spectral_movs":
+                extra["first_count_bound_ms"] = spectral_bound_first(
+                    dtype, c.inputs, out)
             if name == "ehs_frames" and dtype == torch.float32:
                 # E1 computes float rows in double: its bound at the
                 # FP64 rate beside the float one
@@ -2832,6 +2892,11 @@ def fir_note(name: str, entry: dict) -> str:
     S2 and G1: that no single PyTorch call computes their functions.  For
     E1 on float rows, which it computes in double: its share of the bound
     at the FP64 rate."""
+    if name == "spectral_movs" and "first_count_bound_ms" in entry:
+        b = entry["first_count_bound_ms"]
+        return (f"; {b / entry['ms']:.1%} of the bound as first counted "
+                f"(all 1,025 bins read) {b:.5f} ms; library: none (no "
+                "single PyTorch call)")
     if name in (*SPECTRAL, "frame_gate"):
         return "; library: none (no single PyTorch call)"
     if name == "ehs_frames" and "double_rate_bound_ms" in entry:

@@ -151,6 +151,8 @@ __device__ __forceinline__ float log10_t(float x) { return log10f(x); }
 __device__ __forceinline__ double log10_t(double x) { return log10(x); }
 __device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
 __device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ float log1p_t(float x) { return log1pf(x); }
+__device__ __forceinline__ double log1p_t(double x) { return log1p(x); }
 __device__ __forceinline__ float abs_t(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_t(double x) { return fabs(x); }
 __device__ __forceinline__ float trunc_t(float x) { return truncf(x); }
@@ -767,8 +769,8 @@ band_movs_kernel(MovsArgs<T, S> p, long long tile_blocks) {
   }
 }
 
-// M1's math floor: the card's throughput of each library call M1 makes, in
-// a loop of kChains independent chains a thread over values kept in
+// M1's math floor: the card's throughput of each library call M1 makes (and
+// of S2's sqrt and log1p, for tools/spectral_ab.py), in a loop of kChains independent chains a thread over values kept in
 // registers, with no memory traffic.  A step is the call and one add that
 // keeps the value in range (kMathMulAdd: a multiply and that add alone).
 constexpr int kMathPow = 0;      // pow(x, 0.23)
@@ -777,6 +779,8 @@ constexpr int kMathExp2 = 2;     // exp2(-x)
 constexpr int kMathLog10 = 3;    // log10(x)
 constexpr int kMathDiv = 4;      // 1.5 / x
 constexpr int kMathMulAdd = 5;   // 0.5 x
+constexpr int kMathSqrt = 6;     // sqrt(x)
+constexpr int kMathLog1p = 7;    // log1p(x)
 constexpr int kChains = 8;
 
 template <typename T, int OP>
@@ -786,6 +790,8 @@ __device__ __forceinline__ T math_step(T x) {
   if constexpr (OP == kMathExp2) return exp2_t(-x) + T(0.5);
   if constexpr (OP == kMathLog10) return log10_t(x) + T(2);
   if constexpr (OP == kMathDiv) return T(1.5) / x + T(0.5);
+  if constexpr (OP == kMathSqrt) return sqrt_t(x) + T(0.5);
+  if constexpr (OP == kMathLog1p) return log1p_t(x) + T(0.5);
   return T(0.5) * x + T(0.5);
 }
 
@@ -832,6 +838,12 @@ int launch_math_rate(int op, long long iters, int blocks, void* out,
     case kMathMulAdd:
       math_rate_kernel<T, kMathMulAdd><<<blocks, kThreads, 0, s>>>(iters,
                                                                    o);
+      break;
+    case kMathSqrt:
+      math_rate_kernel<T, kMathSqrt><<<blocks, kThreads, 0, s>>>(iters, o);
+      break;
+    case kMathLog1p:
+      math_rate_kernel<T, kMathLog1p><<<blocks, kThreads, 0, s>>>(iters, o);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

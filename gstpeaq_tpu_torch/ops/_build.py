@@ -54,7 +54,8 @@ _DC_CHAIN = (_P, _F64, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P)
 _FIR_BANK = (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _I32, _P)
 _FIR_MMA_RATE = (_I32, _I64, _I32, _P, _P)
 _PAIR_FRAMES = (_P, _P, _I32, _P, _P, _P, _P, _I64, _I64, _P)
-_SPECTRAL_MOVS = (_P, _P, _P, _P, _I32, _P, _I32, _P, _P, _P, _P, _P, _I64,
+_SPECTRAL_MOVS = (_P, _P, _P, _P, _I32, _I32, _P, _I32, _I32, _I32, _I32,
+                  _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _I64,
                   _P)
 _FRAME_GATE = (_P, _I32, _I64, _I32, _I64, _I64, _I64, _I32, _I32, _F64,
                _I32, _I32, _I32, _I64, _I32, _I32, _I32, _P, _P)

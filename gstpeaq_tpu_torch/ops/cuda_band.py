@@ -63,10 +63,11 @@ MAX_WINDOW = 16
 
 
 # the library calls csrc/band.cu's math_rate_kernel times: name -> its op
-# code (kMath*); "muladd" is the loop's own multiply and add; each thread
-# runs MATH_CHAINS independent chains (kChains)
+# code (kMath*); "muladd" is the loop's own multiply and add; "sqrt" and
+# "log1p" are S2's (tools/spectral_ab.py); each thread runs MATH_CHAINS
+# independent chains (kChains)
 MATH_OPS = {"pow": 0, "exp": 1, "exp2": 2, "log10": 3, "div": 4,
-            "muladd": 5}
+            "muladd": 5, "sqrt": 6, "log1p": 7}
 MATH_CHAINS = 8
 
 

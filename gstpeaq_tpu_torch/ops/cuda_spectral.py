@@ -15,12 +15,14 @@ ref - test in one [2, ..., F, 2048] tensor, so that one batched
 `torch.fft.rfft` (cuFFT, the port's stand-in for XLA's FFT) transforms
 both, the hop energies of ref and test that gate EHS, and the energies of
 each frame's first half of ref and of ref - test, which the totalsnr
-bookkeeping sums (models/basic.py::energy_totals).  S2 reads the
-two spectra once and writes only what the MOVs consume: the band powers,
-NMR's noise in bands, the bandwidth indices and EHS's 512-bin log-spectral
-difference; the power and delta-power spectra never reach device memory.
-Both are bound by their bytes; the sources say what their designs do
-about it.
+bookkeeping sums (models/basic.py::energy_totals).  S2 reads the bins
+of the two spectra that its call needs once (`bins_read`) and writes only
+what the MOVs consume: the band powers, NMR's noise in bands, the
+bandwidth indices and EHS's 512-bin log-spectral difference; the power
+and delta-power spectra never reach device memory.  Both are bound by
+their bytes; the sources say what their designs do about it.
+`movs_plan` is S2's host planner: plain Python, so that the CPU tests
+hold it.
 
 The arithmetic that decides a comparison (bandwidth's `> 10 zt` and
 `>= 5dB zt`, EHS's `|ratio| <= 0.5` and `rw == 0`) is rounded op for op as
@@ -44,14 +46,34 @@ from .. import constants as C
 from ..models import movs as MOVS
 from . import _build
 from . import exact
+from .cuda_fir import BLOCK_RESERVED, SM_SHARED, sm_count
 
 HOP = C.FFT_STEPSIZE                 # 1024 samples a hop block
 FRAME = C.FFT_FRAMESIZE              # 2048 samples a frame
 BINS = FRAME // 2 + 1                # 1025 rDFT bins
 EHS_BINS = 2 * C.MAXLAG              # 512 bins of the EHS difference
+ZT_END = 1024                        # bandwidth reads bins below 1024
 # csrc/spectral.cu's flags of S2
 REF_ONLY = 1
 BANDWIDTH = 2
+# csrc/spectral.cu's launches of S2 (tests/test_torch_spectral.py holds
+# them equal): the ring's block threads, its blocks an SM and the warps of
+# each block that sum the bands and scan the bandwidth; a row block's
+# threads and its blocks an SM
+MOVS_THREADS = 512
+MOVS_RESIDENT = {torch.float32: 3, torch.float64: 2}
+REDUCE_WARPS = 4
+ROW_THREADS = 256
+ROW_RESIDENT = {torch.float32: 8, torch.float64: 4}
+# the launch by rows, each the fastest of tools/spectral_ab.py --sweep on
+# an H100 (PERF.md section 6): the ring where it gives each row a block of
+# its own, and in double from BATCH_ROWS rows without the bandwidth flag
+# (the advanced batches), with RING_STAGES stages; else a row a block,
+# which prefetches its row into L2 from BATCH_ROWS rows (the batches)
+BATCH_ROWS = 8192
+RING_STAGES = 3
+# a ring stage's lines
+LINE = 128
 pair_frames_launches = 0
 spectral_movs_launches = 0
 
@@ -66,6 +88,73 @@ class Spectral(NamedTuple):
     noise_in_bands: torch.Tensor
     ehs_difference: torch.Tensor
     bandwidth: tuple | None
+
+
+def bins_read(group_bin_hi: int, bandwidth: bool) -> int:
+    """The bins of each spectrum row that S2's function reads: those below
+    group_bin_hi (the band sums; the grouping matrix is zero from there
+    up) and below 512 (EHS), and with the bandwidth flag those below 1024
+    (its floor over 921..1023); bin 1024 is never read."""
+    return max(group_bin_hi, EHS_BINS, ZT_END if bandwidth else 0)
+
+
+class MovsPlan(NamedTuple):
+    """S2's launch: `bins` bins read a row; `rowwise`, a row a block of
+    ROW_THREADS (with `prefetch`, each row prefetched into L2 first), else
+    the persistent ring; a stage of two regions (R, D) of `region` complex
+    slots each, `stages` stages a block (1 rowwise), `blocks` blocks, and
+    `shared` bytes of dynamic shared memory a block."""
+    bins: int
+    rowwise: bool
+    prefetch: bool
+    region: int
+    stages: int
+    blocks: int
+    shared: int
+
+
+def movs_plan(rows: int, group_bin_hi: int, bandwidth: bool, dtype,
+              sms: int, z: int, n_weights: int, stages: int | None = None,
+              rowwise: bool | None = None,
+              prefetch: bool | None = None) -> MovsPlan:
+    """S2's plan for `rows` spectrum rows of `dtype` on a card of `sms`
+    SMs, with `z` bands of `n_weights` weights in all.  A region holds the
+    bins read and the one slot a float row of an odd index is copied from
+    early, and a free slot for its 16-byte rounding, in whole 128-byte
+    lines.  The ring (a grid of MOVS_RESIDENT[dtype] blocks an SM, or a
+    block a row where the rows are fewer, each with RING_STAGES stages
+    held to its rows and to its share of the SM's shared memory beside the
+    tables) where it gives each row a block, and in double from
+    BATCH_ROWS rows without the bandwidth flag; else a row a block (its
+    stage alone), prefetching its row into L2 from BATCH_ROWS rows.  `stages`, `rowwise` and `prefetch` force the ring's depth, the
+    launch and the prefetch (tools/spectral_ab.py --sweep)."""
+    if rows < 0 or sms < 1:
+        raise ValueError(f"movs_plan: {rows} rows on {sms} SMs")
+    bins = bins_read(group_bin_hi, bandwidth)
+    slot = 2 * torch.empty((), dtype=dtype).element_size()
+    region = -(-(bins + 2) * slot // LINE) * LINE // slot
+    stage = 2 * region * slot
+    resident = MOVS_RESIDENT[dtype]
+    batch = rows >= BATCH_ROWS
+    if rowwise is None:
+        rowwise = rows > resident * sms and not (
+            dtype == torch.float64 and batch and not bandwidth)
+    if rowwise:
+        if prefetch is None:
+            prefetch = batch
+        return MovsPlan(bins, True, prefetch, region, 1, max(1, rows),
+                        stage)
+    blocks = max(1, min(rows, resident * sms))
+    per_block = max(1, -(-rows // blocks))
+    # a ring stage's mbarriers (its copies landed, its spectra formed); the
+    # weights, the group table and EHS's dead bins
+    stage += 16
+    tables = n_weights * slot // 2 + 12 * z + EHS_BINS
+    fit = (SM_SHARED // resident - BLOCK_RESERVED - tables) // stage
+    stages = max(1, min(RING_STAGES if stages is None else stages,
+                        per_block, fit))
+    return MovsPlan(bins, False, False, region, stages, blocks,
+                    stages * stage + tables)
 
 
 def _framed(blocks: torch.Tensor) -> torch.Tensor:
@@ -200,8 +289,8 @@ def spectral_movs(spectra: torch.Tensor, level_factor: torch.Tensor,
                             f"{spectra.device}")
         if not t.is_contiguous():
             raise ValueError(f"spectral_movs: {arg} must be contiguous")
-    if spectra.data_ptr() % (2 * spectra.element_size()):
-        spectra = spectra.clone()               # the kernel's pair loads
+    if spectra.data_ptr() % 16:
+        spectra = spectra.clone()               # the rows' bulk copies
     lead = spectra.shape[1:-2]                  # [..., F]
     like = dict(dtype=spectra.dtype, device=spectra.device)
     band = torch.empty(((1,) if ref_only else (2,)) + (*lead, z), **like)
@@ -213,12 +302,19 @@ def spectral_movs(spectra: torch.Tensor, level_factor: torch.Tensor,
         valid = torch.empty(lead, dtype=torch.bool, device=spectra.device)
     rows = spectra.numel() // (2 * BINS * 2)
     if rows:
+        plan = movs_plan(rows, group_bin_hi, bandwidth, spectra.dtype,
+                         sm_count(spectra.device.index), z,
+                         group_weights.numel())
         _build.launch("spectral_movs", spectra, spectra.data_ptr(),
                       level_factor.data_ptr(), group_span.data_ptr(),
-                      group_weights.data_ptr(), z, ehs_zero.data_ptr(),
+                      group_weights.data_ptr(), z, group_weights.numel(),
+                      ehs_zero.data_ptr(),
                       (REF_ONLY if ref_only else 0)
-                      | (BANDWIDTH if bandwidth else 0),
-                      band.data_ptr(), noise.data_ptr(),
+                      | (BANDWIDTH if bandwidth else 0), group_bin_hi,
+                      plan.bins, int(plan.rowwise), int(plan.prefetch),
+                      plan.region,
+                      plan.stages, plan.blocks,
+                      plan.shared, band.data_ptr(), noise.data_ptr(),
                       bw.data_ptr() if bandwidth else None,
                       valid.data_ptr() if bandwidth else None,
                       d.data_ptr(), rows)

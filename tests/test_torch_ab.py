@@ -18,6 +18,7 @@ from gstpeaq_tpu_torch.tools import batch_ab
 from gstpeaq_tpu_torch.tools import ehs_ab
 from gstpeaq_tpu_torch.tools import fir_ab
 from gstpeaq_tpu_torch.tools import gate_ab
+from gstpeaq_tpu_torch.tools import spectral_ab
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # a child: where it ran and with what, as the last line of its output
@@ -79,9 +80,10 @@ def fake(monkeypatch, runs) -> None:
     monkeypatch.setattr(ab, "runs", lambda tool, parent, *args, **kw: runs)
 
 
-def kernel_runs(key: str, held: bool) -> list:
-    """Four runs of a kernel's A/B child: ms, bound and a check each."""
-    one = {"ms": 0.5, "bound_ms": 0.25, key: True}
+def kernel_runs(key: str, held: bool, **reading) -> list:
+    """Four runs of a kernel's A/B child: ms, bound and a check each, and
+    `reading`'s keys."""
+    one = {"ms": 0.5, "bound_ms": 0.25, key: True, **reading}
     bad = dict(one, **{key: held})
     return [{d: {"batch": one} for d in ab.DTYPES},
             {d: {"batch": bad} for d in ab.DTYPES},
@@ -89,12 +91,20 @@ def kernel_runs(key: str, held: bool) -> list:
             {d: {"batch": one} for d in ab.DTYPES}]
 
 
+# spectral_ab's child reports S2's traffic, and the tool counts its bound
+# over the bins the call reads: 0.25 ms here at 769 bins
+SPECTRAL = {"bytes_a_bin": 1e9, "rest": 0.25e-3 * 3.35e12 - 769e9,
+            "hi": 769, "bandwidth": False}
+
+
 @pytest.mark.parametrize("held", [True, False])
 @pytest.mark.parametrize("tool,key,flag", [(ehs_ab, "ok", "FAILS"),
-                                           (gate_ab, "equal", "BITS DIFFER")])
+                                           (gate_ab, "equal", "BITS DIFFER"),
+                                           (spectral_ab, "ok", "FAILS")])
 def test_kernel_tools_compare_and_check(monkeypatch, capsys, tool, key,
                                         flag, held):
-    fake(monkeypatch, kernel_runs(key, held))
+    fake(monkeypatch, kernel_runs(key, held, **(
+        SPECTRAL if tool is spectral_ab else {})))
     assert tool.main(["--parent", "elsewhere"]) == (0 if held else 1)
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "H100, 700.00 W"
@@ -125,3 +135,52 @@ def test_batch_tool_prints_the_runs(monkeypatch, capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[-2] == "H100, 700.00 W"
     assert json.loads(out[-1]) == {"card": "H100, 700.00 W", "runs": runs}
+
+
+@pytest.mark.parametrize("argv", [[], ["--parent"]])
+def test_spectral_tool_wants_parent_or_split(argv, capsys):
+    """spectral_ab.py without --parent DIR or --split stops with argparse's
+    usage error (code 2), before any card is touched."""
+    with pytest.raises(SystemExit) as done:
+        spectral_ab.main(argv)
+    assert done.value.code == 2
+    assert "usage" in capsys.readouterr().err
+
+
+def test_spectral_tool_counts():
+    """spectral_ab.py's counts: the bound over the bins a call reads
+    (cuda_spectral.bins_read) and over all 1,025, the library calls a row,
+    and the resident blocks an SM from a build's registers and shared
+    memory."""
+    import chip_smoke as S
+    reading = dict(SPECTRAL, bandwidth=True)
+    rate = S.MEMORY_BYTES_PER_S
+    assert spectral_ab.bound_ms(reading, rate) == pytest.approx(
+        (1024e9 + reading["rest"]) / rate * 1e3)
+    assert spectral_ab.bound_ms(dict(reading, bandwidth=False), rate) == \
+        pytest.approx(0.25)
+    assert spectral_ab.bound_ms(reading, rate, 1025) == pytest.approx(
+        (1025e9 + reading["rest"]) / rate * 1e3)
+    assert spectral_ab.row_calls(769) == {
+        "sqrt": 2 * 769, "div": 769 + 512, "log1p": 512}
+    # 64 registers and 99 KB: two blocks of 512 threads; 40 registers and
+    # 25 KB static: six blocks of 256 (registers); 255: one of 256
+    assert spectral_ab.occupancy(64, 0, 99104, 512) == 2
+    assert spectral_ab.occupancy(40, 24652, 0, 256) == 6
+    assert spectral_ab.occupancy(255, 0, 0, 256) == 1
+
+
+def test_spectral_tool_variants_rewrite_one_line(tmp_path):
+    """--sweep's variants: each a copy of csrc/ whose spectral.cu has its
+    one line rewritten, the shipped source untouched."""
+    from gstpeaq_tpu_torch.ops import _build
+    shipped = (_build.CSRC / "spectral.cu").read_text()
+    for name, (old, new) in spectral_ab.VARIANTS.items():
+        assert shipped.count(old) == 1
+        copy = spectral_ab.variant_sources(name, _build.CSRC, tmp_path)
+        assert copy == tmp_path / f"spectral_{name}" / "csrc"
+        assert (copy / "spectral.cu").read_text() == shipped.replace(old,
+                                                                     new)
+        assert sorted(f.name for f in copy.iterdir()) == sorted(
+            f.name for f in _build.CSRC.iterdir())
+    assert (_build.CSRC / "spectral.cu").read_text() == shipped

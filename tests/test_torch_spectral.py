@@ -11,10 +11,16 @@ indices and gate bits equal.  The inputs, made with numpy from a seed,
 take every branch of the stage: silent frames, identical frames, a test
 that removes a bin (EHS's log regime), the DC bin under ehs_zero, rows of
 bandwidth 0 and of bandwidth above 346.  The compact group table S2 reads
-is held to the grouping matrix.
+is held to the grouping matrix.  S2's walk (csrc/spectral.cu) is
+re-enacted in numpy from the source's constants and held to the plain
+version; the bins from group_bin_hi up are shown unneeded without the
+bandwidth flag; the host planner (cuda_spectral.movs_plan) is held at
+every shape the main path gives S2, with each row's bulk copies in bounds
+and on 16-byte boundaries.
 """
 
 import pathlib
+import re
 import threading
 
 import jax
@@ -375,6 +381,30 @@ def test_spectral_entries_are_bound():
     assert f"constexpr int kRefOnly = {cuda_spectral.REF_ONLY};" in text
     assert f"constexpr int kBandwidth = {cuda_spectral.BANDWIDTH};" in text
     assert f"constexpr int kEhsBins = {cuda_spectral.EHS_BINS};" in text
+    k = source_constants()
+    assert (k["kMovsThreads"], k["kReduceWarps"], k["kZtEnd"]) == (
+        cuda_spectral.MOVS_THREADS, cuda_spectral.REDUCE_WARPS,
+        cuda_spectral.ZT_END)
+    assert (k["kResidentFloat"], k["kResidentDouble"]) == (
+        cuda_spectral.MOVS_RESIDENT[torch.float32],
+        cuda_spectral.MOVS_RESIDENT[torch.float64])
+    assert (k["kRowThreads"], k["kRowResidentFloat"],
+            k["kRowResidentDouble"]) == (
+        cuda_spectral.ROW_THREADS, cuda_spectral.ROW_RESIDENT[torch.float32],
+        cuda_spectral.ROW_RESIDENT[torch.float64])
+    assert ("constexpr int kMovsResident = sizeof(T) == 8 ? kResidentDouble "
+            ": kResidentFloat;") in text
+    assert "__launch_bounds__(kMovsThreads, kMovsResident<T>)" in text
+    assert ("    sizeof(T) == 8 ? kRowResidentDouble : kRowResidentFloat;"
+            in text)
+    assert "__launch_bounds__(kRowThreads, kRowResident<T>)" in text
+    # each launch's form and reduction threads: the ring's form threads
+    # and reduction warps fill its block, a row block's warps do both
+    assert "reduce_row<T, kReduceWarps>(" in text
+    assert "form_row<T, kFormThreads>(" in text
+    assert "reduce_row<T, kRowWarps>(" in text
+    assert k["kFormThreads"] + 32 * k["kReduceWarps"] == k["kMovsThreads"]
+    assert 32 * k["kRowWarps"] == k["kRowThreads"]
 
 
 def offset_copy(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -477,3 +507,361 @@ def test_port_takes_every_log10_and_exp_from_exact():
         "models/nn.py": 1}
     assert "return 1.0 / (1.0 + torch.exp(-x))" in (
         root / "models" / "nn.py").read_text()
+
+
+# csrc/spectral.cu's constants that S2's walk and launch follow
+SOURCE = ("kMovsThreads", "kResidentFloat", "kResidentDouble",
+          "kMaxStages", "kReduceWarps", "kMaxBandLanesFloat",
+          "kMaxBandLanesDouble", "kFormThreads",
+          "kRowThreads", "kRowWarps", "kRowResidentFloat",
+          "kRowResidentDouble", "kBwBins", "kZtEnd",
+          "kBwValid", "kEhsBins", "kBins")
+# the bandwidth's 5 dB factor (spectral.cu kFiveDbPower, src/movs.c:41)
+FIVE_DB = 3.16227766016838
+
+
+def source_constants() -> dict:
+    """SOURCE's values, each `constexpr int` of the source evaluated in
+    order on those before it (kBins = kHop + 1), the one of a type's size
+    left out."""
+    text = (_build.CSRC / "spectral.cu").read_text()
+    known = {}
+    for name, value in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                  re.M):
+        if "sizeof" not in value:               # kMovsResident<T>
+            known[name] = int(eval(value, {}, dict(known)))
+    return {name: known[name] for name in SOURCE}
+
+
+def spectra_of(k, ref, test) -> torch.Tensor:
+    """S2's input for hop blocks ref/test: [2, ..., F, 1025, 2]."""
+    frames = cuda_spectral.pair_frames_plain(ref, test, k.hann)[0]
+    return torch.view_as_real(torch.fft.rfft(frames, dim=-1)).contiguous()
+
+
+def walk_noise(pr, pt, dp):
+    """The kernel's noise spectrum, (dp / (sqrt pr + sqrt pt))^2, a zero
+    denominator taken as 1."""
+    with np.errstate(all="ignore"):
+        denom = np.sqrt(pr) + np.sqrt(pt)
+        ratio = dp / np.where(denom > 0, denom, 1)
+    return ratio * ratio
+
+
+def walk_scan(values, limit: int, hit) -> int:
+    """The bandwidth warp's top-down scan: 32 bins a step from the step
+    holding bin limit - 1 down, a ballot of `hit` over i < limit; the
+    highest hit bin + 1 at the first step with one, else 0."""
+    base = (limit - 1) & ~31
+    while base >= 0:
+        i = base + np.arange(32)
+        ok = i < limit
+        mask = np.zeros(32, bool)
+        mask[ok] = hit(values[i[ok]])
+        if mask.any():
+            return base + 32 - (31 - int(np.nonzero(mask)[0].max()))
+        base -= 32
+    return 0
+
+
+# S2's launches as the walk takes them: (form threads, reduction warps)
+# of the ring and of a row block
+LAUNCHES = {"ring": ("kFormThreads", "kReduceWarps"),
+            "row": ("kRowThreads", "kRowWarps")}
+
+
+def band_lanes(z: int, bandwidth: bool, warps: int, double: bool) -> int:
+    """The threads a band of spectral.cu's reduce_row on `warps` warps:
+    the summing threads (the warps, less the last with the bandwidth
+    flag) give each of the z bands the most lanes, a power of two up to
+    kMaxBandLanes of the type (kMaxBandLanesDouble, kMaxBandLanesFloat)."""
+    c = source_constants()
+    most = c["kMaxBandLanesDouble" if double else "kMaxBandLanesFloat"]
+    summing = 32 * (warps - 1 if bandwidth else warps)
+    lanes = 1
+    while lanes < most and 2 * lanes * z <= summing:
+        lanes *= 2
+    return lanes
+
+
+def kernel_walk(k, spectra: np.ndarray, ref_only: bool, bandwidth: bool,
+                launch: str):
+    """S2 as csrc/spectral.cu walks a row in `launch` (LAUNCHES), in
+    numpy in the spectra's dtype, on spectra [2, rows, 1025, 2]: only the
+    bins the call reads (bins_read), each formed by its form thread's pass
+    (the bins f, f + form threads, ...: pr, pt, dp rounded as the plain
+    version, the noise below group_bin_hi, d below 512); each band sum
+    over band_lanes lanes of the launch's reduction warps, lane l adding the run's bins l, l + lanes, ...
+    in order from 0, then a butterfly over the lanes (xor lanes / 2, ...,
+    1); zt a max over pt[921..1023] and the bandwidth by the top-down
+    scan.
+    Returns (band, noise, d, (bw_ref, bw_test, valid)), each over the
+    rows."""
+    c = source_constants()
+    ft = spectra.dtype.type
+    hi = k.group_bin_hi
+    bins = cuda_spectral.bins_read(hi, bandwidth)
+    level = ft(k.level_factor.item())
+    form, warps = (c[name] for name in LAUNCHES[launch])
+    # the bins of each form thread's passes, every bin read once
+    passes = (np.arange(form)[:, None]
+              + form * np.arange(-(-c["kBins"] // form)))
+    formed = np.sort(passes[passes < bins])
+    np.testing.assert_array_equal(formed, np.arange(bins))
+    x = spectra[:, :, formed]
+    re_, im_, dre, dim = x[0, ..., 0], x[0, ..., 1], x[1, ..., 0], x[1, ..., 1]
+    t_re, t_im = re_ - dre, im_ - dim
+    pr = (re_ * re_ + im_ * im_) * level
+    pt = (t_re * t_re + t_im * t_im) * level
+    n = max(hi, c["kEhsBins"])
+    dp = (dre[:, :n] * (re_[:, :n] + t_re[:, :n])
+          + dim[:, :n] * (im_[:, :n] + t_im[:, :n])) * level
+    q = walk_noise(pr[:, :hi], pt[:, :hi], dp[:, :hi])
+    e = c["kEhsBins"]
+    with np.errstate(all="ignore"):
+        ratio = dp[:, :e] / pr[:, :e]
+        d = np.where(np.abs(ratio) <= 0.5, np.log1p(-ratio),
+                     np.where(pt[:, :e] > 0, np.log(pt[:, :e] / pr[:, :e]),
+                              -np.inf)).astype(ft)
+    d[(pr[:, :e] == 0) & (pt[:, :e] == 0)] = 0
+    d[:, k.ehs_zero.numpy()] = 0
+    span, weights = k.group_span.numpy(), k.group_weights.numpy()
+    z = span.shape[1]
+    lanes = band_lanes(z, bandwidth, warps, ft is np.float64)
+    sums = np.zeros((3, pr.shape[0], z), ft)
+    for b, (first, count, off) in enumerate(span.T):
+        assert first + count <= hi
+        part = np.zeros((3, pr.shape[0], lanes), ft)
+        for lane in range(lanes):
+            for m in range(lane, count, lanes):
+                w = ft(weights[off + m])
+                for j, src in enumerate((pr, pt, q)):
+                    part[j, :, lane] = part[j, :, lane] + src[:, first + m] * w
+        flip = lanes // 2
+        while flip:
+            part = part + part[..., np.arange(lanes) ^ flip]
+            flip //= 2
+        sums[..., b] = part[..., 0]
+    sums = np.maximum(sums, ft(1e-12))
+    band = sums[0] if ref_only else sums[:2]
+    bw = None
+    if bandwidth:
+        rows = pr.shape[0]
+        out = np.zeros((3, rows), ft)
+        for r in range(rows):
+            zt = np.max(pt[r, c["kBwBins"]:c["kZtEnd"]])
+            ten, five = ft(10) * zt, ft(FIVE_DB) * zt
+            ref = walk_scan(pr[r], c["kBwBins"], lambda v: v > ten)
+            out[0, r] = ref
+            out[1, r] = walk_scan(pt[r], ref, lambda v: v >= five)
+            out[2, r] = ref > c["kBwValid"]
+        bw = (out[0], out[1], out[2].astype(bool))
+    return band, sums[2], d, bw
+
+
+def walk_against_plain(k, spectra, ref_only, bandwidth, dtype,
+                       launch="ring"):
+    """The walk in `launch` on spectra [2, ..., F, 1025, 2] against the plain
+    version: band powers, noise and d within 1e-12 (float64) / 1e-5
+    (float32), the bandwidth indices and validity equal."""
+    bar = 1e-12 if dtype == torch.float64 else 1e-5
+    want = cuda_spectral.spectral_movs_plain(
+        spectra, k.level_factor, k.group_matrix, k.group_bin_hi, k.ehs_zero,
+        ref_only, bandwidth)
+    flat = spectra.reshape(2, -1, cuda_spectral.BINS, 2).numpy()
+    band, noise, d, bw = kernel_walk(k, flat, ref_only, bandwidth, launch)
+    lead = spectra.shape[1:-2]
+    z = k.band_count
+    got_band = band.reshape(((*lead, z) if ref_only else (2, *lead, z)))
+    assert rel(got_band, want.band_power) < bar
+    assert rel(noise.reshape(*lead, z), want.noise_in_bands) < bar
+    assert rel(d.reshape(*lead, 512), want.ehs_difference) < bar
+    if bandwidth:
+        for g, w in zip(bw, want.bandwidth):
+            np.testing.assert_array_equal(g.reshape(lead), w.numpy())
+    else:
+        assert bw is None and want.bandwidth is None
+    return band, noise, d, bw
+
+
+@pytest.mark.parametrize("launch", list(LAUNCHES))
+@pytest.mark.parametrize("band_count,ref_only,bandwidth", MODES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_walk_equals_the_plain_version(band_count, ref_only,
+                                              bandwidth, dtype, launch):
+    """S2's walk in each launch, re-enacted in numpy, on branch_blocks'
+    rows (silent, identical, a removed bin, bandwidth 0 and above 346) and
+    on the same rows scaled by 1e-6 and 1e+3: within 1e-12 / 1e-5 of the
+    plain version, the bandwidth indices equal."""
+    k = FE.build_consts(EP.fft_ear_params(band_count), dtype)
+    ref, test = (tt(x) for x in branch_blocks())
+    spectra = spectra_of(k, ref, test)
+    for scale in (1.0, 1e-6, 1e3):
+        walk_against_plain(k, spectra * scale, ref_only, bandwidth, dtype,
+                           launch)
+
+
+@pytest.mark.parametrize("double", [True, False])
+@pytest.mark.parametrize("launch,band_count,bandwidth,lanes",
+                         [("ring", C.BASIC_BAND_COUNT, True, 1),
+                          ("ring", C.ADVANCED_FFT_BAND_COUNT, False, 2),
+                          ("row", C.BASIC_BAND_COUNT, True, 2),
+                          ("row", C.ADVANCED_FFT_BAND_COUNT, False, 4),
+                          ("ring", C.BASIC_BAND_COUNT, False, 1),
+                          ("row", C.ADVANCED_FFT_BAND_COUNT, True, 4)])
+def test_band_lanes_at_the_configurations(launch, band_count, bandwidth,
+                                          lanes, double):
+    """The threads a band of reduce_row: in double, in a row block (8
+    warps) 2 at the basic call's 109 bands with the bandwidth flag (its
+    warp scanning alone), 4 at the advanced sites' 55 without, in the ring
+    (4 warps) 1 and 2, kMaxBandLanesDouble reached; in float one thread a
+    band; each band's lanes inside one warp; the ring's basic bands in two
+    turns of its three summing warps."""
+    c = source_constants()
+    warps = c[LAUNCHES[launch][1]]
+    got = band_lanes(band_count, bandwidth, warps, double)
+    assert got == (lanes if double else 1)
+    assert c["kMaxBandLanesFloat"] == 1
+    summing = 32 * (warps - 1 if bandwidth else warps)
+    assert 32 % got == 0
+    turns = -(-got * band_count // summing)
+    assert turns == (2 if (launch, band_count, bandwidth) == (
+        "ring", C.BASIC_BAND_COUNT, True) else 1)
+    assert max(band_lanes(C.BASIC_BAND_COUNT, True, c["kRowWarps"], True),
+               band_lanes(C.ADVANCED_FFT_BAND_COUNT, False, c["kRowWarps"],
+                          True)) == c["kMaxBandLanesDouble"]
+
+
+@pytest.mark.parametrize("ref_only", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bins_from_group_bin_hi_are_not_needed(ref_only, dtype):
+    """At both flag sets without the bandwidth (the advanced call, the
+    advanced FFT chunk step), spectra whose bins from group_bin_hi up hold
+    other finite values give the plain outputs bit for bit, and so does
+    the walk, which reads bins below bins_read (= group_bin_hi) alone."""
+    k = FE.build_consts(EP.fft_ear_params(C.ADVANCED_FFT_BAND_COUNT), dtype)
+    hi = k.group_bin_hi
+    assert cuda_spectral.bins_read(hi, False) == hi
+    assert (k.group_matrix[hi:] == 0).all()
+    ref, test = (tt(x) for x in branch_blocks())
+    spectra = spectra_of(k, ref, test)
+    changed = spectra.clone()
+    rng = np.random.default_rng(14)
+    changed[..., hi:, :] = tt(1e3 * rng.standard_normal(
+        changed[..., hi:, :].shape)).to(dtype)
+    assert not torch.equal(changed, spectra)
+    args = (k.level_factor, k.group_matrix, hi, k.ehs_zero, ref_only, False)
+    want = cuda_spectral.spectral_movs_plain(spectra, *args)
+    got = cuda_spectral.spectral_movs_plain(changed, *args)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert got.bandwidth is None
+    a = walk_against_plain(k, spectra, ref_only, False, dtype)
+    b = walk_against_plain(k, changed, ref_only, False, dtype)
+    for g, w in zip(a[:3], b[:3]):
+        np.testing.assert_array_equal(g, w)
+
+
+# every S2 shape of chip_smoke.py, (rows, flags): per pair basic and
+# advanced [2, 1, 2, 468]; bench's basic [64, 2, 512] and advanced
+# [32, 2, 512] batches; the basic and advanced FFT chunk steps at 64 and
+# 1,024 frames, one stream and 16
+PLAN_SHAPES = [(936, True), (936, False), (65536, True), (32768, False),
+               (128, True), (128, False), (2048, True), (2048, False),
+               (32768, True)]
+
+
+@pytest.mark.parametrize("rows,bandwidth", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_movs_plan_at_the_main_path_shapes(rows, bandwidth, dtype):
+    """movs_plan on an H100 (132 SMs) at each S2 shape: the ring where it
+    gives each row a block of its own (the one-stream chunk-64 step) and
+    in double from BATCH_ROWS rows without the bandwidth flag (the
+    advanced batch and chunk-1,024 step), MOVS_RESIDENT[dtype] blocks an
+    SM (3 float, 2 double) where the rows fill them, every block with a
+    row, RING_STAGES (3) stages held to the rows of a block; else a row
+    a block, its stage its shared memory, ROW_RESIDENT[dtype] of them an
+    SM, prefetching its row into L2 from BATCH_ROWS rows with the
+    bandwidth flag (the basic batch and chunk-1,024 step); a forced depth
+    held to the rows and the memory; the regions hold the bins read and a
+    lead slot in whole lines, and the resident blocks fit an SM's shared
+    memory."""
+    k = FE.build_consts(EP.fft_ear_params(C.BASIC_BAND_COUNT))
+    hi, z, n_weights = (k.group_bin_hi, k.band_count,
+                        k.group_weights.numel())
+    args = (rows, hi, bandwidth, dtype, 132, z, n_weights)
+    plan = cuda_spectral.movs_plan(*args)
+    slot = 16 if dtype == torch.float64 else 8
+    resident, row_resident = {torch.float64: (2, 4),
+                              torch.float32: (3, 8)}[dtype]
+    assert cuda_spectral.MOVS_RESIDENT[dtype] == resident
+    assert cuda_spectral.ROW_RESIDENT[dtype] == row_resident
+    assert plan.bins == (1024 if bandwidth else hi)
+    assert plan.region >= plan.bins + 2
+    assert plan.region * slot % 128 == 0
+    assert plan.region * slot < (plan.bins + 2) * slot + 128
+    stage = 2 * plan.region * slot
+    batch = rows >= cuda_spectral.BATCH_ROWS
+    assert batch == (rows >= 32768)
+    ring_rows = rows <= resident * 132 or (
+        dtype == torch.float64 and batch and not bandwidth)
+    assert plan.rowwise == (not ring_rows)
+    assert plan.prefetch == (plan.rowwise and batch)
+    for prefetch in (False, True):
+        row = cuda_spectral.movs_plan(*args, rowwise=True,
+                                      prefetch=prefetch)
+        assert (row.rowwise, row.prefetch, row.stages, row.blocks,
+                row.shared) == (True, prefetch, 1, rows, stage)
+        assert row_resident * (row.shared + 1024) <= 233472
+    ring = cuda_spectral.movs_plan(*args, rowwise=False)
+    assert not ring.prefetch
+    assert plan == (cuda_spectral.movs_plan(*args, rowwise=True)
+                    if plan.rowwise else ring)
+    assert ring.blocks == min(rows, resident * 132)
+    per_block = -(-rows // ring.blocks)
+    stage += 16                             # a ring stage's two mbarriers
+    tables = n_weights * slot // 2 + 12 * z + 512
+    fit = (233472 // resident - 1024 - tables) // stage
+    deepest = cuda_spectral.movs_plan(*args, stages=1 << 20,
+                                      rowwise=False).stages
+    assert deepest == min(per_block, fit)
+    assert ring.stages == min(3, deepest)
+    for forced in range(1, deepest + 1):
+        got = cuda_spectral.movs_plan(*args, stages=forced, rowwise=False)
+        assert got.stages == forced
+        assert got.shared == forced * stage + tables
+        assert resident * (got.shared + 1024) <= 233472
+
+
+def row_copy(g: int, bins: int, dtype) -> tuple[int, int]:
+    """spectral.cu's row_lead and row_bytes: a spectrum row g's copy as
+    (first bin, bytes)."""
+    if dtype == torch.float64:
+        return 0, 16 * bins
+    lead = g & 1
+    return -lead, 8 * ((bins + lead + 1) & ~1)
+
+
+@pytest.mark.parametrize("bins", [512, 769, 1024, 1025])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_row_copies_are_aligned_and_in_bounds(bins, dtype):
+    """Each row's bulk copy in the ring, and its L2 prefetch in a row
+    block (both spectra: rows g and rows + g of the [2 x rows] of 1,025
+    bins), starts on a 16-byte boundary, moves a multiple of 16 bytes,
+    covers the bins read, stays inside the tensor and fits its region of
+    the stage from its lead slot on."""
+    text = (_build.CSRC / "spectral.cu").read_text()
+    assert "return sizeof(T) == 4 ? static_cast<int>(g & 1) : 0;" in text
+    assert "return sizeof(T) == 8 ? 16u * bins : 8u * ((bins + lead + 1) & ~1);" \
+        in text
+    slot = 16 if dtype == torch.float64 else 8
+    region = cuda_spectral.movs_plan(1, bins, False, dtype, 1, 1, 1).region
+    for rows in (1, 2, 3, 936):
+        total = 2 * rows * 1025 * slot
+        for g in range(2 * rows):
+            first, size = row_copy(g, bins, dtype)
+            start = (g * 1025 + first) * slot
+            assert start % 16 == 0 and size % 16 == 0
+            assert 0 <= start and start + size <= total
+            assert first + size // slot >= bins
+            assert -first + size // slot <= region
