@@ -7,7 +7,8 @@ and check it.  Run from the repository root:
 Phases, each on its own lines and ending with its seconds:
   1 card      nvidia-smi's name and power limit
   2 build     nvcc builds the kernels K1-K3, D1-D3, F1, S1, S2, G1, L1, L2,
-              M1 and E1 from gstpeaq_tpu_torch/csrc, one process per source,
+              M1, E1 and W1 from gstpeaq_tpu_torch/csrc, one process per
+              source,
               and ptxas reports each kernel's registers and spills
   3 kernels   each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and edge shapes (K1 and K2: the FB
@@ -48,14 +49,22 @@ Phases, each on its own lines and ending with its seconds:
               zero (d0 = 0; exactly 0 where its plain version is), on
               branch_blocks' rows, on frames scaled 1e-30 .. 1e+30 (1e-6
               .. 1e+6 in float), in mono, in 3 channels and on one frame,
-              within 1e-10 / 2e-4 a frame; and at the
+              within 1e-10 / 2e-4 a frame; W1, the FB ear's masking sums,
+              on the pair's own E0 per pair, without and with a carried
+              tail, at F = 1 (the flush), 2 and 5, in 3 bands of 7
+              frames (an odd frame count), one value off 16 bytes, and on
+              the one-shot 600 s program's E0; and at the
               batch path's shapes (64 pairs basic, 32 advanced, 10 s
               stereo, in their buckets; M1 there also in mono and in 3
               channels) and the streams' chunk shapes (64
               FFT frames, 1,024 FB frames, and the tools' 1,024 FFT
               frames, 16,384 FB frames, each at one stream and at the
               pool's 16; S1, S2 and E1 on each FFT step's blocks, G1 on
-              every step's chunk; L1, L2 and M1 on the inputs of a real
+              every step's chunk, W1 at each FB step's E0 shape with a
+              tail (on D1's cu there and at the batch, which D2's cases
+              hold) and its one-frame flush at chunk 64; L1, L2 and M1 on
+              the
+              inputs of a real
               batch's first microbatch and of each stream path's first
               chunk step) with
               their carried states (K1 and D1 with y0, D3 with
@@ -82,8 +91,9 @@ Phases, each on its own lines and ending with its seconds:
   6 counters  one basic and one advanced peaq() of the 10 s pair per tier,
               each with the counts set to 0 just before it: the advanced
               call goes through all ten kernels, no conv1d, no plain
-              gate, no plain EHS and no irfft (cuFFT C2R) on the card
-              (every counted run of phases 6 and 10-13 is held to none);
+              gate, no plain EHS, no irfft (cuFFT C2R) and no eager
+              masking sums on the card (every counted run of phases 6 and
+              10-13 is held to none);
               then
               one peaq_batch()
               microbatch of 8 and of 32 pairs per mode and tier, which
@@ -123,11 +133,12 @@ Phases, each on its own lines and ending with its seconds:
               peak device memory, and from the profiler over one batch the
               device's busy share and the shares of the FIR bank (F1),
               the bin-domain stage (S1, S2), the gate (G1), the band
-              epilogues (L1, L2, M1, each), EHS (E1), the other hand
-              kernels and the copies to the card; every eager site in a
-              record_function range (tools/epilogue_sites.py) with the
-              device ms outside them and L1's, L2's, M1's, K1's and E1's
-              device ms, basic and advanced float64;
+              epilogues (L1, L2, M1, each), EHS (E1), the FB masking (W1),
+              the other hand kernels and the copies to the card; every
+              eager site in a record_function range
+              (tools/epilogue_sites.py) with the device ms outside them
+              and L1's, L2's, M1's, K1's, E1's and W1's device ms, basic
+              and advanced float64;
               then, at the basic
               float64 batch's shape with float32 and float64 samples, G1
               and the energy totals summed from S1's halves beside the
@@ -192,8 +203,8 @@ operations over 67 TFLOP/s (float32) or 34 TFLOP/s (float64; F1 67 on
 the FP64 tensor cores), counted from this run's main-shape inputs;
 `library_ms` is K1's grouped causal conv1d at its main shape and F1's
 cuDNN conv1d (its plain version), and null for the other kernels, S1, S2,
-G1, L1, L2, M1 and E1 among them, since no single PyTorch call computes
-their functions;
+G1, L1, L2, M1, E1 and W1 among them, since no single PyTorch call
+computes their functions;
 `launches_by_path` holds phase 6's
 float32 count per path (basic, advanced, and one microbatch of 32 of
 each batch path; 0 where a path does not launch the kernel), `launches`
@@ -361,6 +372,14 @@ KERNELS = {
     "ehs_frames": dict(
         route="cuda", source="gstpeaq_tpu_torch/csrc/ehs.cu",
         replaces="gstpeaq_tpu/models/movs.py:175"),
+    # nor is this: it replaces the port's eager backward-masking frame sums,
+    # internal noise and forward-masking drive, standing for XLA's fusion
+    # of the JAX package's back_and_forward_masking_t and for the GEMMs of
+    # its phase-split form
+    "mask_frames": dict(
+        route="cuda", source="gstpeaq_tpu_torch/csrc/fb_mask.cu",
+        replaces="gstpeaq_tpu/ops/fb_ear.py:593, "
+                 "gstpeaq_tpu/ops/fb_ear.py:698"),
 }
 # the kernels of the bin-domain stage (S1, S2)
 SPECTRAL = ("pair_frames", "spectral_movs")
@@ -381,6 +400,7 @@ COUNTERS = {
     "pattern_adapt": (cuda_band, "pattern_adapt_launches"),
     "band_movs": (cuda_band, "band_movs_launches"),
     "ehs_frames": (cuda_ehs, "ehs_frames_launches"),
+    "mask_frames": (cuda_fb, "mask_frames_launches"),
 }
 # max|kernel - plain| / max|plain| per dtype.  D3 (dc_chain): both sides
 # carry the float32 cascade's intrinsic rounding, which the ~833x DC gain of
@@ -438,38 +458,44 @@ TOOL_CHUNK = 1024
 # level adapter's three and the modulation; K2 never (its kernel takes no
 # state); S1 and S2 once in each FFT step; G1 once in every step; L1 and
 # L2 once in each step with a level adapter (basic, FB), M1 once in every
-# step (the FFT step's NMR alone); E1 once in each FFT step
+# step (the FFT step's NMR alone); E1 once in each FFT step; W1 once in
+# each FB step
 STREAM_STEP_LAUNCHES = {
     "basic": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
               "spectral_movs": 1, "frame_gate": 1, "levcorr": 1,
-              "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 1},
+              "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 1,
+              "mask_frames": 0},
     "advanced_fft": {"recurrence_banded": 1, "fused_mod_smoothers": 0,
                      "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
                      "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
                      "spectral_movs": 1, "frame_gate": 1, "levcorr": 0,
-                     "pattern_adapt": 0, "band_movs": 1, "ehs_frames": 1},
+                     "pattern_adapt": 0, "band_movs": 1, "ehs_frames": 1,
+                     "mask_frames": 0},
     "advanced_fb": {"recurrence_banded": 5, "fused_mod_smoothers": 0,
                     "spread_fft": 0, "slope_state": 1, "spread_fb": 1,
                     "dc_chain": 1, "fir_bank": 1, "pair_frames": 0,
                     "spectral_movs": 0, "frame_gate": 1, "levcorr": 1,
-                    "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 0}}
+                    "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 0,
+                    "mask_frames": 1}}
 # each mode's launches in one peaq() (phase 6; the CLI runs one): G1 gates
 # the basic path once and the advanced path's FFT and FB frames once each;
 # M1 runs once basic, and twice advanced (the FFT path's NMR, the FB path);
-# E1 once in each mode (its FFT path)
+# E1 once in each mode (its FFT path); W1 once advanced (its FB path)
 PATH_LAUNCHES = {
     "basic": {"recurrence_banded": 3, "fused_mod_smoothers": 1,
               "spread_fft": 1, "slope_state": 0, "spread_fb": 0,
               "dc_chain": 0, "fir_bank": 0, "pair_frames": 1,
               "spectral_movs": 1, "frame_gate": 1, "levcorr": 1,
-              "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 1},
+              "pattern_adapt": 1, "band_movs": 1, "ehs_frames": 1,
+              "mask_frames": 0},
     "advanced": {"recurrence_banded": 4, "fused_mod_smoothers": 1,
                  "spread_fft": 1, "slope_state": 1, "spread_fb": 1,
                  "dc_chain": 1, "fir_bank": 1, "pair_frames": 1,
                  "spectral_movs": 1, "frame_gate": 2, "levcorr": 1,
-                 "pattern_adapt": 1, "band_movs": 2, "ehs_frames": 1}}
+                 "pattern_adapt": 1, "band_movs": 2, "ehs_frames": 1,
+                 "mask_frames": 1}}
 # phase 10's bars: a float64 stream against the one-shot peaq() of the same
 # program, and the float32 / accurate streams against their own one-shot
 # (the JAX package's stream bar, tests/test_stream.py:170-184); the pool
@@ -518,6 +544,10 @@ def ops_of(name: str, inputs) -> float:
     if name == "ehs_frames":
         # per row, the real-input FFT form's work (EHS_ROW_OPS)
         return EHS_ROW_OPS * (inputs[0].numel() // cuda_ehs.ROW)
+    if name == "mask_frames":
+        # per frame: the two 6-tap sums (12 multiplies, 10 adds), e1 and the
+        # noise (2), 1 - a and the drive (2)
+        return 26 * (inputs[0].numel() // cuda_fb.FRAME_INSTANTS)
     x = inputs[1] if name in ("recurrence_banded",
                               "fused_mod_smoothers") else inputs[0]
     per_element = {"recurrence_banded": 2,      # a y + b
@@ -805,11 +835,69 @@ def fir_cases(k, hp2, t) -> list:
     return cases
 
 
+def mask_case(k, label: str, e0, tail=None,
+              bands: int = C.FB_BAND_COUNT) -> Case:
+    """W1 on E0 [..., Z, 6 F] (with a carried tail [..., Z, >= 5], or
+    none) against its plain version, with the FB ear's taps and its first
+    `bands` bands' noise and decay; its inputs for the bound."""
+    noise, ear_a = k.internal_noise[:bands], k.ear_a[:bands]
+    frames = e0.shape[-1] // cuda_fb.FRAME_INSTANTS
+    return Case("mask_frames", label + " tail" * (tail is not None),
+                lambda: cuda_fb.mask_frames(e0, k.back_mask_w, noise, ear_a,
+                                            frames, tail),
+                lambda: cuda_fb.mask_frames_plain(e0, k.back_mask_w, noise,
+                                                  ear_a, frames, tail),
+                (e0, k.back_mask_w, noise, ear_a,
+                 *(() if tail is None else (tail[..., -cuda_fb.TAIL_TAPS:],))))
+
+
+# the one-shot program of phase 7's long rows: its E0 instants a row
+ONE_SHOT_INSTANTS = LONG_ROW[-1] * cuda_fb.FRAME_INSTANTS
+
+
+def one_shot_e0(e0) -> torch.Tensor:
+    """E0 [2, 1, 2, 40, ONE_SHOT_INSTANTS] of a 10-minute program: the 10 s
+    pair's own E0 (per pair) tiled in time."""
+    return e0.repeat(1, 1, 1, 1, ONE_SHOT_INSTANTS // e0.shape[-1])
+
+
+def mask_cases(k, e0) -> list:
+    """W1 per pair on the 10 s pair's own E0 [2, 1, 2, 40, 15000] (the main
+    case), with a carried tail (the E0's own last instants), at F = 1 (a
+    stream's flush), 2 and 5 with and without a tail, in 3 bands of 7
+    frames (21 frames in all: a ragged end of float instants), on rows one
+    value off their 16-byte boundary, and at the one-shot 600 s program's
+    [2, 1, 2, 40, 900000]."""
+    tail = e0[..., -FB.E0_TAIL:].contiguous()
+    cases = [mask_case(k, "main", e0),
+             mask_case(k, f"{list(e0.shape)}", e0, tail)]
+    for f in (1, 2, 5):
+        x = e0[..., :cuda_fb.FRAME_INSTANTS * f].contiguous()
+        for tl in (None, tail):
+            cases.append(mask_case(k, f"F={f} {list(x.shape)}", x, tl))
+    x = e0[0, 0, 0, :3, :42].contiguous()
+    for tl in (None, tail[0, 0, 0, :3]):
+        cases.append(mask_case(k, f"Z=3 {list(x.shape)}", x, tl, 3))
+    skew = torch.cat([e0.new_zeros(1), e0.reshape(-1)])[1:].view(e0.shape)
+    cases.append(mask_case(k, f"{list(e0.shape)} data 1 value on", skew,
+                           tail))
+    # the one-shot E0 (1.15 GB in double) is made anew for each call, so
+    # that no case holds it through phase 3
+    args = (k.back_mask_w, k.internal_noise, k.ear_a, LONG_ROW[-1])
+    cases.append(Case("mask_frames", f"one shot 600 s "
+                      f"{[*e0.shape[:-1], ONE_SHOT_INSTANTS]}",
+                      lambda: cuda_fb.mask_frames(one_shot_e0(e0), *args),
+                      lambda: cuda_fb.mask_frames_plain(one_shot_e0(e0),
+                                                        *args)))
+    return cases
+
+
 def fb_cases(dtype, rng, pair10, t):
-    """D1-D3 and F1 cases: the main path's shapes on the 10 s pair's own
-    FB signals (hp2 and fb from the plain DC stage and the FIR bank), and
-    edges with silent instants, carried states and both slope
-    conventions; F1's (fir_cases)."""
+    """D1-D3, F1 and W1 cases: the main path's shapes on the 10 s pair's
+    own FB signals (hp2 and fb from the plain DC stage and the FIR bank,
+    E0 from D2's plain version), and edges with silent instants, carried
+    states and both slope conventions; F1's (fir_cases) and W1's
+    (mask_cases)."""
     k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
     c1 = 24.0 + 230.0 / k.fc
     x = fb_rows(pair10, k)
@@ -832,6 +920,9 @@ def fb_cases(dtype, rng, pair10, t):
                       lambda: cuda_fb.spread_fb_plain(re, im, cu,
                                                       k.lower_matrix),
                       (re, im, cu)))
+    # W1 on the pair's own E0 in the per-pair layout [2, 1, CH, 40, I]
+    cases += mask_cases(k, cuda_fb.spread_fb_plain(
+        re, im, cu, k.lower_matrix).unsqueeze(1))
     for n in (37, 1):
         er = rng.standard_normal((2, 40, n)) * 100.0
         ei = rng.standard_normal((2, 40, n)) * 100.0
@@ -1829,7 +1920,8 @@ def batch_cases(dtype, rng, pair10):
     the row count: K1, K2 and K3 on random inputs at the basic batch, K1
     and K2 also at the advanced batch's FB frames and K3 on its reference
     alone; D3 on batch_fb_pair's rows, F1 on their plain DC stage's
-    output, D1 and D2 on the FIR bank's outputs of it."""
+    output, D1 and D2 on the FIR bank's outputs of it, W1 on D1's cu
+    there."""
     shapes = batch_shapes()
 
     def t(x):
@@ -1910,6 +2002,9 @@ def batch_cases(dtype, rng, pair10):
                       lambda: cuda_fb.spread_fb_plain(re, im, cu,
                                                       k.lower_matrix),
                       (re, im, cu)))
+    # W1 at the batch's E0 shape on D1's cu, which D2's case holds, so that
+    # phase 3 keeps no E0 of its own (its sums do not depend on the values)
+    cases.append(mask_case(k, f"batch {list(cu.shape)}", cu))
     # G1 on the references of the basic batch and of the advanced batch's
     # FFT and FB paths, in float32 samples (as the batch ships them; the
     # batch cases) and float64 (checked only)
@@ -1978,7 +2073,9 @@ def chunk_shapes(name: str, chunk: int = STREAM_CHUNK) -> dict:
                           "advanced_fb": sh["fb_frames"]},
             # E1's d [N, CH, F, 512]
             "ehs_frames": dict.fromkeys(
-                ("basic", "advanced_fft"), (1, 2, chunk, cuda_ehs.ROW))}[name]
+                ("basic", "advanced_fft"), (1, 2, chunk, cuda_ehs.ROW)),
+            # W1's E0
+            "mask_frames": fb}[name]
 
 
 def stream_cases(dtype, pair10) -> list:
@@ -1989,7 +2086,9 @@ def stream_cases(dtype, pair10) -> list:
     bands); the FB chunk on the 10 s pair's own rows (batch_fb_pair's,
     cut or tiled to two chunks): D3 on the second chunk with the state the
     first leaves, F1 on its output with the first's samples as history,
-    D1 on F1's outputs with y0 = the first chunk's last cu, D2 on them.
+    D1 on F1's outputs with y0 = the first chunk's last cu, D2 on them,
+    W1 at E0's shape on that cu with the first chunk's last 10 instants of
+    cu as its tail (and at STREAM_CHUNK the one-frame flush).
     At the tools' chunk D2's plain version runs one stream at a time, which
     bounds its [..., Z, 8, I] temporaries."""
     srng = np.random.default_rng(10)
@@ -2090,9 +2189,10 @@ def stream_cases(dtype, pair10) -> list:
         re, im = FB.filter_bank(k, hp2, hist)
         del hp1
         check(re.shape == shapes["fb_instants"], f"FB chunk {re.shape}")
-        y0 = cuda_fb.slope_state_plain(re1, im1, c1,
-                                       k.slope_a)[..., -1].contiguous()
-        del re1, im1
+        cu1 = cuda_fb.slope_state_plain(re1, im1, c1, k.slope_a)
+        y0 = cu1[..., -1].contiguous()
+        tail = cu1[..., -FB.E0_TAIL:].contiguous()
+        del re1, im1, cu1
         cu = cuda_fb.slope_state_plain(re, im, c1, k.slope_a, y0)
         cases.append(Case("slope_state", f"{label} {list(re.shape)} y0",
                           lambda re=re, im=im, y0=y0:
@@ -2108,6 +2208,15 @@ def stream_cases(dtype, pair10) -> list:
                           whole=chunk == STREAM_CHUNK:
                           spread_fb_plain(re, im, cu, whole),
                           (re, im, cu)))
+        # W1 at the chunk's E0 shape on D1's cu, which D2's case holds (as
+        # at the batch), carrying the first chunk's last 10 instants, and at
+        # chunk 64 the one-frame flush after it
+        cases.append(mask_case(k, f"{label} {list(cu.shape)}", cu, tail))
+        if chunk == STREAM_CHUNK:
+            flush = cu[..., :cuda_fb.FRAME_INSTANTS].contiguous()
+            cases.append(mask_case(
+                k, f"{label} flush {list(flush.shape)}", flush,
+                cu[..., -FB.E0_TAIL:].contiguous()))
     return cases
 
 
@@ -2169,8 +2278,8 @@ def phase_kernels(rng, pair10) -> tuple[dict, dict, dict]:
                     line += f", elementwise rel {elem:.3e}"
                     ok = ok and elem < 1e-4
                 del want
-            if name in ("fir_bank", "frame_gate", "ehs_frames", *SPECTRAL,
-                        *BAND):
+            if name in ("fir_bank", "frame_gate", "ehs_frames", "mask_frames",
+                        *SPECTRAL, *BAND):
                 same = torch.equal(got, stacked(c.kernel()))
                 line += f", two launches bit-identical: {same}"
                 ok = ok and same
@@ -2584,6 +2693,23 @@ def count_plain_ehs() -> None:
     torch.fft.irfft = counted_irfft
 
 
+# cuda_fb.mask_frames_plain (W1's plain version, the eager masking sums)
+# calls on a CUDA tensor since reset_counts(): count_plain_mask() wraps it,
+# so that a main path's run shows that its masking went through W1
+PLAIN_MASK_CALLS = [0]
+
+
+def count_plain_mask() -> None:
+    plain = cuda_fb.mask_frames_plain
+
+    def counted(e0, *args, **kwargs):
+        if e0.is_cuda:
+            PLAIN_MASK_CALLS[0] += 1
+        return plain(e0, *args, **kwargs)
+
+    cuda_fb.mask_frames_plain = counted
+
+
 def reset_counts() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
@@ -2591,13 +2717,14 @@ def reset_counts() -> None:
     PLAIN_GATE_CALLS[0] = 0
     PLAIN_EHS_CALLS[0] = 0
     C2R_CALLS[0] = 0
+    PLAIN_MASK_CALLS[0] = 0
 
 
 def read_counts() -> dict:
     """Each kernel's launches since reset_counts(); fails if a conv1d ran
-    (the FIR bank's plain version: a main path runs F1), the plain gate
-    or EHS's plain version ran on the card (a main path runs G1 and E1),
-    or a C2R transform (torch.fft.irfft) did."""
+    (the FIR bank's plain version: a main path runs F1), the plain gate,
+    EHS's plain version or the eager masking sums ran on the card (a main
+    path runs G1, E1 and W1), or a C2R transform (torch.fft.irfft) did."""
     check(CONV1D_CALLS[0] == 0, f"{CONV1D_CALLS[0]} conv1d call(s) on a "
           "main path")
     check(PLAIN_GATE_CALLS[0] == 0, f"{PLAIN_GATE_CALLS[0]} plain gate "
@@ -2606,6 +2733,8 @@ def read_counts() -> dict:
           "call(s) on the card on a main path")
     check(C2R_CALLS[0] == 0, f"{C2R_CALLS[0]} irfft call(s) on the card "
           "on a main path")
+    check(PLAIN_MASK_CALLS[0] == 0, f"{PLAIN_MASK_CALLS[0]} eager masking "
+          "sum call(s) on the card on a main path")
     return {name: getattr(module, attr)
             for name, (module, attr) in COUNTERS.items()}
 
@@ -2614,8 +2743,9 @@ def phase_counters(pair10, pairs) -> dict:
     """Each mode's peaq() of the 10 s pair in each tier, with every count
     set to 0 just before it and read just after.  Each tier makes the same
     launches: 3/1/1/0/0/0/0/1/1/1 (basic) and 4/1/1/1/1/1/1/1/1/2
-    (advanced) of K1, K2, K3, D1, D2, D3, F1, S1, S2, G1, and no conv1d
-    and no plain gate on the card (read_counts).
+    (advanced) of K1, K2, K3, D1, D2, D3, F1, S1, S2, G1 (PATH_LAUNCHES
+    for every kernel), and no conv1d, no plain gate, no plain EHS and no
+    eager masking sums on the card (read_counts).
     Then one peaq_batch() of the first 8 and of the first
     32 of `pairs` (one microbatch each) per mode and tier, counted the
     same way: a microbatch launches each kernel as often as one pair does.
@@ -2709,8 +2839,9 @@ def site_cases(dtype, pair10) -> list:
     FFT bands in time once and runs three times over the 40 FB bands of
     2,500 frames (forward masking and the level adapter's two smoothers),
     K2 runs over the FB bands, K3 spreads the reference alone, S2 groups
-    it alone, without the bandwidth, on the 10 s pair's spectra, and G1
-    gates the FB frames of the 10 s pair's reference (float32 samples)."""
+    it alone, without the bandwidth, on the 10 s pair's spectra, G1
+    gates the FB frames of the 10 s pair's reference (float32 samples),
+    and W1 forms the one-shot 10-minute program's masking sums."""
     srng = np.random.default_rng(6)
 
     def t(x):
@@ -2751,6 +2882,10 @@ def site_cases(dtype, pair10) -> list:
     sig = gate_signal(pair10, 1, 10 * C.SAMPLING_RATE)
     cases.append(gate_case(f"advanced FB {list(sig.shape)}", sig,
                            FB_PAIR_FRAMES, "FB", dtype))
+    k = FB.build_consts(EP.fb_ear_params(), dtype, "cuda")
+    e0 = one_shot_e0(t(srng.uniform(0.1, 10.0, (2, 1, 2, C.FB_BAND_COUNT,
+                                                 FB_MAIN[-1]))))
+    cases.append(mask_case(k, f"one shot 600 s {list(e0.shape)}", e0))
     return cases
 
 
@@ -2889,7 +3024,7 @@ def ehs_report() -> None:
 def fir_note(name: str, entry: dict) -> str:
     """For F1: its plain version is also its library call (the cuDNN
     conv1d, TF32 off), and its share of the uniform conv's bound.  For S1,
-    S2 and G1: that no single PyTorch call computes their functions.  For
+    S2, G1 and W1: that no single PyTorch call computes their functions.  For
     E1 on float rows, which it computes in double: its share of the bound
     at the FP64 rate."""
     if name == "spectral_movs" and "first_count_bound_ms" in entry:
@@ -2897,7 +3032,7 @@ def fir_note(name: str, entry: dict) -> str:
         return (f"; {b / entry['ms']:.1%} of the bound as first counted "
                 f"(all 1,025 bins read) {b:.5f} ms; library: none (no "
                 "single PyTorch call)")
-    if name in (*SPECTRAL, "frame_gate"):
+    if name in (*SPECTRAL, "frame_gate", "mask_frames"):
         return "; library: none (no single PyTorch call)"
     if name == "ehs_frames" and "double_rate_bound_ms" in entry:
         b = entry["double_rate_bound_ms"]
@@ -3172,9 +3307,9 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
     """One peaq_batch() of `pairs` under torch.profiler: device ms (the
     device rows), the FIR bank's (F1's rows), the bin-domain stage's (S1's
     and S2's rows), the gate's (G1's rows), each band epilogue kernel's
-    (L1's, L2's and M1's rows), EHS's (E1's rows), the hand kernels' (F1's,
-    S1's, S2's, G1's, L1's, L2's, M1's and E1's included) and the copies
-    to the card's."""
+    (L1's, L2's and M1's rows), EHS's (E1's rows), the FB masking's (W1's
+    rows), the hand kernels' (F1's, S1's, S2's, G1's, L1's, L2's, M1's,
+    E1's and W1's included) and the copies to the card's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -3195,6 +3330,8 @@ def batch_profile(pairs, advanced: bool, tier: str, mb: int) -> dict:
                            if "frame_gate_kernel" in e.key) / 1e3,
             "ehs_ms": sum(e.self_device_time_total for e in device
                           if "ehs_frames_kernel" in e.key) / 1e3,
+            "mask_ms": sum(e.self_device_time_total for e in device
+                           if "mask_frames_kernel" in e.key) / 1e3,
             "band_ms": {name: sum(e.self_device_time_total for e in device
                                   if re.search(rf"\b{name}_kernel", e.key))
                         / 1e3 for name in BAND},
@@ -3306,7 +3443,8 @@ def phase_batch(pairs, card: str) -> dict:
             band = prof["band_ms"]
             band_ms = sum(band.values())
             other = (prof["hand_ms"] - prof["fir_ms"] - prof["spectral_ms"]
-                     - prof["gate_ms"] - band_ms - prof["ehs_ms"])
+                     - prof["gate_ms"] - band_ms - prof["ehs_ms"]
+                     - prof["mask_ms"])
             print(f"    profiled peaq_batch(): device {dev:.1f} ms, busy "
                   f"{dev / (wall * 1e3):.1%} of the unprofiled call and, "
                   f"without the copies to the card, "
@@ -3322,7 +3460,9 @@ def phase_batch(pairs, card: str) -> dict:
                   + ", ".join(f"{name} {ms:.3f} ms ({ms / dev:.1%})"
                               for name, ms in band.items())
                   + f"), EHS (E1) {prof['ehs_ms']:.3f} ms "
-                  f"({prof['ehs_ms'] / dev:.1%}), the other hand "
+                  f"({prof['ehs_ms'] / dev:.1%}), the FB masking (W1) "
+                  f"{prof['mask_ms']:.3f} ms ({prof['mask_ms'] / dev:.1%}), "
+                  f"the other hand "
                   f"kernels {other:.1f} ms ({other / dev:.1%}), the "
                   f"profiler's rows of "
                   f"copies to the card {prof['h2d_ms']:.1f} ms "
@@ -3342,8 +3482,8 @@ def epilogue_sites(pairs) -> None:
     sites, the accumulators, the gates, the cognitive model, the FB ear's
     casts and masking) with the device ms of the PyTorch kernels inside
     it, the device ms outside every range and hand kernel with the
-    top-level operations that launched it, and L1's, L2's, M1's, K1's and
-    E1's device ms by kernel name beside the batch's."""
+    top-level operations that launched it, and L1's, L2's, M1's, K1's,
+    E1's and W1's device ms by kernel name beside the batch's."""
     for config, got in ES.profile_sites(
             (("basic", "float64", MICROBATCH["basic"]),
              ("advanced", "float64", MICROBATCH["advanced"])),
@@ -3352,6 +3492,8 @@ def epilogue_sites(pairs) -> None:
         hand = got["hand_kernels_ms"]
         check(dev > 0, "the profiler saw no device time")
         check(hand.get("ehs_frames", 0.0) > 0, f"{config}: no E1 time")
+        check(config.startswith("basic")
+              or hand.get("mask_frames", 0.0) > 0, f"{config}: no W1 time")
         band = sum(hand.get(name, 0.0) for name in BAND)
         print(f"  sites, {config}: device {dev:.3f} ms, "
               f"{got['device_ops']} device ops; ranges (eager kernels "
@@ -3366,7 +3508,7 @@ def epilogue_sites(pairs) -> None:
               + f"); L1 + L2 + M1 {band:.3f} ms ({band / dev:.1%}: "
               + ", ".join(f"{name} {hand.get(name, 0.0):.3f} ms"
                           for name in (*BAND, "recurrence_banded",
-                                       "ehs_frames"))
+                                       "ehs_frames", "mask_frames"))
               + ")", flush=True)
 
 
@@ -4464,6 +4606,7 @@ def main() -> None:
     count_conv1d()
     count_plain_gate()
     count_plain_ehs()
+    count_plain_mask()
     timed(phase_build)
     rng = np.random.default_rng(1)
     pair10 = ten_second_pair()

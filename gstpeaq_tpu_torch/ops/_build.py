@@ -65,6 +65,7 @@ _BAND_MOVS = (_P, _P, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P, _P,
               _P)
 _BAND_MATH_RATE = (_I32, _I64, _I32, _P, _P)
 _EHS_FRAMES = (_P, _P, _I64, _I32, _I32, _I32, _P, _P)
+_MASK_FRAMES = (_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I64, _P)
 SIGNATURES = {
     "peaq_recurrence_banded_f32": _RECURRENCE,
     "peaq_recurrence_banded_f64": _RECURRENCE,
@@ -97,6 +98,8 @@ SIGNATURES = {
     "peaq_band_math_rate_f64": _BAND_MATH_RATE,
     "peaq_ehs_frames_f32": _EHS_FRAMES,
     "peaq_ehs_frames_f64": _EHS_FRAMES,
+    "peaq_mask_frames_f32": _MASK_FRAMES,
+    "peaq_mask_frames_f64": _MASK_FRAMES,
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -1,5 +1,5 @@
-"""FB-ear slope filter and frequency spreading: CUDA kernels D1 and D2 and
-their plain PyTorch versions.
+"""FB-ear slope filter, frequency spreading and masking sums: CUDA kernels
+D1, D2 and W1 and their plain PyTorch versions.
 
 D1 `slope_state` and D2 `spread_fb` (csrc/fb_spread.cu) replace the Pallas
 TPU kernels of gstpeaq_tpu/ops/pallas_fb.py: D1 stands for
@@ -24,10 +24,19 @@ wrapper takes CL (FBEarConsts.cl) alone, and on the CPU the plain version
 reads the table cuda_spread_fft.lower_table forms from it, so both paths
 compute one function of one input.
 
+W1 `mask_frames` (csrc/fb_mask.cu) is not a TPU kernel: it replaces the
+port's eager backward-masking frame sums, internal noise and forward-masking
+drive (src/fbearmodel.c:371-395), which the JAX package leaves to XLA
+(gstpeaq_tpu/ops/fb_ear.py::back_and_forward_masking_t).  It reads each
+instant of E0 once and writes the unsmeared excitation and K1's drive.  A
+block of MASK_THREADS threads takes a span of consecutive frames of the
+flat rows x frames axis, MASK_FRAMES of its dtype a thread (mask_grid).
+
 Each wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; there is no fallback.  Each
 counts its launches in a module-level int (`slope_state_launches`,
-`spread_fb_launches`), one per call.
+`spread_fb_launches`, `mask_frames_launches`), one per call; W1 launches
+nothing where there is no frame.
 """
 
 from __future__ import annotations
@@ -48,8 +57,19 @@ BANDS = C.FB_BAND_COUNT   # a compile-time constant of spread_fb_kernel
 # destination bands per step of spread_fb_plain's upper part: bounds its
 # [..., Z, block, I] weight tensor; the result does not depend on it
 PLAIN_BLOCK = 8
+# instants of one FB frame; of a carried e0 tail, the instants the masking
+# reads (the previous frame's 1..5, Wa[0] being 0)
+FRAME_INSTANTS = C.FB_FRAMESIZE // C.FB_SUBSAMPLING
+TAIL_TAPS = FRAME_INSTANTS - 1
+# csrc/fb_mask.cu's kThreads, kFrames and kLead (tests/test_torch_mask.py
+# holds them equal): threads a block, frames a thread by dtype, staged
+# values before a span
+MASK_THREADS = 256
+MASK_FRAMES = {torch.float32: 2, torch.float64: 1}
+MASK_LEAD = 8
 slope_state_launches = 0
 spread_fb_launches = 0
+mask_frames_launches = 0
 
 
 def slope_state_plain(fb_re: torch.Tensor, fb_im: torch.Tensor,
@@ -164,3 +184,89 @@ def spread_fb(fb_re: torch.Tensor, fb_im: torch.Tensor, cu: torch.Tensor,
                   fb_re.numel() // (BANDS * n), n)
     spread_fb_launches += 1
     return e0
+
+
+def mask_frames_plain(e0: torch.Tensor, back_mask_w: torch.Tensor,
+                      internal_noise: torch.Tensor, ear_a: torch.Tensor,
+                      n_frames: int, tail: torch.Tensor | None = None):
+    """Backward masking (the 11-tap FIR sampled at each frame's last
+    instant, src/fbearmodel.c:371-383) as two 6-tap frame sums, the
+    internal noise, and the forward masking's drive (1 - a) E
+    (src/fbearmodel.c:388-395):
+        e1[f] = sum_r Wb[r] e0[6 f + r] + sum_r Wa[r] e0[6 (f - 1) + r]
+    with the frame before the first read from `tail`'s instants 1..5 of
+    its last frame (or 0 without one).
+
+    e0: [..., Z, 6 F]; back_mask_w: [2, 6] (Wa, Wb); internal_noise and
+    ear_a: [Z]; tail: [..., Z, >= 5], the instants before e0, or None.
+    Returns (unsmeared, drive), each [..., Z, F]."""
+    e0f = e0.reshape(*e0.shape[:-1], n_frames, FRAME_INSTANTS)
+    wa, wb = back_mask_w[0], back_mask_w[1]
+    sb = torch.sum(e0f * wb, dim=-1)
+    sa = torch.sum(e0f * wa, dim=-1)
+    if tail is None:
+        prev = torch.zeros_like(sa[..., :1])
+    else:
+        # the previous frame's instants 1..5 (wa[0] = 0)
+        prev = torch.sum(tail[..., -TAIL_TAPS:] * wa[1:], dim=-1,
+                         keepdim=True)
+    e1 = sb + torch.cat([prev, sa[..., :-1]], -1)
+    unsmeared = e1 + internal_noise[:, None]
+    return unsmeared, (1.0 - ear_a)[:, None] * unsmeared
+
+
+def mask_span(dtype) -> int:
+    """W1's frames a block in `dtype`."""
+    return MASK_THREADS * MASK_FRAMES[dtype]
+
+
+def mask_grid(frames: int, dtype) -> int:
+    """W1's blocks for `frames` frames over all rows in `dtype`: a span of
+    mask_span(dtype) a block, the last fewer."""
+    return -(-frames // mask_span(dtype))
+
+
+def mask_frames(e0: torch.Tensor, back_mask_w: torch.Tensor,
+                internal_noise: torch.Tensor, ear_a: torch.Tensor,
+                n_frames: int, tail: torch.Tensor | None = None):
+    """W1: mask_frames_plain.  e0: contiguous [..., Z, 6 F]; tail: [..., Z,
+    >= 5] in e0's dtype, or None.  Returns (unsmeared, drive), each
+    contiguous [..., Z, F] in e0's dtype; no launch where there is no
+    frame."""
+    global mask_frames_launches
+    if e0.device.type == "cpu":
+        return mask_frames_plain(e0, back_mask_w, internal_noise, ear_a,
+                                 n_frames, tail)
+    z = e0.shape[-2] if e0.dim() >= 2 else 0
+    if (e0.dim() < 2 or e0.shape[-1] != FRAME_INSTANTS * n_frames
+            or back_mask_w.shape != (2, FRAME_INSTANTS)
+            or internal_noise.shape != (z,) or ear_a.shape != (z,)
+            or (tail is not None and (tail.shape[:-1] != e0.shape[:-1]
+                                      or tail.shape[-1] < TAIL_TAPS))):
+        raise ValueError(
+            f"mask_frames: e0 {tuple(e0.shape)} of {n_frames} frames, "
+            f"back_mask_w {tuple(back_mask_w.shape)}, internal_noise "
+            f"{tuple(internal_noise.shape)}, ear_a {tuple(ear_a.shape)}, "
+            f"tail {None if tail is None else tuple(tail.shape)} do not "
+            "match")
+    operands = {"e0": e0, "back_mask_w": back_mask_w,
+                "internal_noise": internal_noise, "ear_a": ear_a}
+    if tail is not None:
+        tail = operands["tail"] = tail[..., -TAIL_TAPS:].contiguous()
+    _build.require("mask_frames", e0, **operands)
+    shape = (*e0.shape[:-1], n_frames)
+    uns = e0.new_empty(shape)
+    drive = e0.new_empty(shape)
+    frames = uns.numel()
+    if frames == 0:
+        return uns, drive
+    if e0.data_ptr() % 16:
+        # the kernel stages e0 in 16-byte loads
+        e0 = e0.clone()
+    _build.launch("mask_frames", e0, e0.data_ptr(), back_mask_w.data_ptr(),
+                  internal_noise.data_ptr(), ear_a.data_ptr(),
+                  None if tail is None else tail.data_ptr(), uns.data_ptr(),
+                  drive.data_ptr(), frames, n_frames, z,
+                  mask_grid(frames, e0.dtype))
+    mask_frames_launches += 1
+    return uns, drive

@@ -9,8 +9,9 @@ A signal [..., T] (T = 192 F) runs through
   slope filter   the level-dependent upper slope's smoothed state cu:
                  kernel D1;
   spreading      E0 = |lower(fb + upper(fb, cu))|^2: kernel D2;
-  masking        backward masking as two 6-tap frame sums, forward masking
-                 a banded recurrence over frames: kernel K1.
+  masking        backward masking as two 6-tap frame sums, the internal
+                 noise and the forward masking's drive: kernel W1; forward
+                 masking a banded recurrence over frames: kernel K1.
 The band domain is the JAX package's transposed layout [..., 40, I] (bands
 second to last, instants last), and the outputs (excitation, unsmeared)
 are [..., 40, F], the MOV tail's layout.
@@ -61,8 +62,7 @@ FIR_PAD = cuda_fir.FIR_PAD
 # 128 for its TPU convs; gstpeaq_tpu/ops/fb_ear.py:72-78), of which the
 # bank reads the last FIR_PAD, lags past 1,455 having zero weight
 HIST_LEN = 1536
-# instants of one FB frame, and of the e0 tail the backward masking carries
-INSTANTS = C.FB_FRAMESIZE // SUB
+# instants of the e0 tail the backward masking carries
 E0_TAIL = 10
 
 
@@ -207,27 +207,21 @@ def back_and_forward_masking(k: FBEarConsts, e0: torch.Tensor,
                              n_frames: int, state=None,
                              return_state: bool = False):
     """Backward masking (11-tap FIR sampled at each frame's last instant,
-    src/fbearmodel.c:371-383) as two 6-tap frame sums, the internal noise,
-    and forward masking over frames (src/fbearmodel.c:388-395): kernel K1.
+    src/fbearmodel.c:371-383) as two 6-tap frame sums, the internal noise
+    and the forward masking's drive: kernel W1; forward masking over
+    frames (src/fbearmodel.c:388-395): kernel K1.
     e0: [..., 40, I] with I = 6 F; state: (e0_tail [..., 40, 10], the
     instants before e0, and exc [..., 40], the excitation before the first
     frame), or None for zeros.  Returns (excitation, unsmeared), each
     [..., 40, F], and with return_state the new state."""
-    e0f = e0.reshape(*e0.shape[:-1], n_frames, INSTANTS)
-    wa, wb = k.back_mask_w[0], k.back_mask_w[1]
-    sb = torch.sum(e0f * wb, dim=-1)
-    sa = torch.sum(e0f * wa, dim=-1)
     if state is None:
         e0_tail, exc0 = None, None
-        prev = torch.zeros_like(sa[..., :1])
     else:
-        # the previous frame's instants 1..5 (wa[0] = 0)
         e0_tail, exc0 = (s.to(e0.dtype) for s in state)
-        prev = torch.sum(e0_tail[..., -5:] * wa[1:], dim=-1, keepdim=True)
-    e1 = sb + torch.cat([prev, sa[..., :-1]], -1)
-    unsmeared = e1 + k.internal_noise[:, None]
-    excitation = iir.linear_recurrence_banded(
-        k.ear_a, (1.0 - k.ear_a)[:, None] * unsmeared, axis=-1, y0=exc0)
+    unsmeared, drive = cuda_fb.mask_frames(
+        e0, k.back_mask_w, k.internal_noise, k.ear_a, n_frames, e0_tail)
+    excitation = iir.linear_recurrence_banded(k.ear_a, drive, axis=-1,
+                                              y0=exc0)
     if not return_state:
         return excitation, unsmeared
     if e0.shape[-1] < E0_TAIL:      # a flush of one frame: 6 instants

@@ -20,8 +20,8 @@ S2 and K3) and `time_smear` (around K1), EHS's `movs.ehs_from_difference`
 (or `cuda_ehs.ehs_frames`, E1, and `movs.ehs_valid` where E1 runs), the
 accumulators of `accum`, `loudness_gates` and `energy_totals`, the
 cognitive model's forward, and the FB ear's `process_signal` (its casts,
-around D3, F1, D1, D2) and `back_and_forward_masking` (its sums and
-drive, around K1).
+around D3, F1, D1, D2) and `back_and_forward_masking` (its state's
+slices, around W1 and K1).
 Then, per configuration (basic float64 and float32 at microbatch 64,
 advanced float64 and float32 at 32, bench.py's 64 stereo 10 s pairs, one
 staged dispatch under the profiler): the batch's device ms (the device
@@ -86,7 +86,7 @@ SITES = (("models.level_adapt", "adapt_stage2"),
 HAND = re.compile(r"\b(recurrence_banded|fused_mod_smoothers|spread_fft|"
                   r"slope_state|spread_fb|dc_chain|fir_bank|pair_frames|"
                   r"spectral_movs|frame_gate|levcorr|pattern_adapt|"
-                  r"band_movs|ehs_frames)(_\w+)?_kernel")
+                  r"band_movs|ehs_frames|mask_frames)(_\w+)?_kernel")
 
 
 @contextlib.contextmanager
