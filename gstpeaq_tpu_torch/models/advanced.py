@@ -16,6 +16,9 @@ data-boundary gating (kernel G1 on each), as in the reference
             RmsNoiseLoudAsymA and AvgLinDistA.
 
 The five MOVs go through the advanced cognitive network to DI and ODG.
+Each path's ear runs in its span (peaq.fft_ear, peaq.fb_ear of
+utils/trace.py), its recurrences and band epilogues in peaq.band, and the
+gates, accumulators and network in peaq.movs.
 Pairs of one batch share each path's frame count (its bucket); each pair's
 frames past its own count of that path are masked out (basic.py).
 `AdvancedPipeline.unified_input` takes both paths' audio as one array.
@@ -43,6 +46,7 @@ from . import movs as MOVS
 from . import nn as NN
 from .basic import (channel_mean, energy_totals, frame_major,
                     loudness_gates, valid_mask)
+from ..utils.trace import span
 
 
 class AdvancedOutputs(NamedTuple):
@@ -99,7 +103,8 @@ class AdvancedPipeline(nn.Module):
         flush frame may carry its audio, and valid_fft / valid_fb (each
         pair's own frame counts) mask them out; every consumer is gated
         and every recurrence causal, so they reach no unmasked frame."""
-        sig_pair = framing.dequantize(sig_pair)
+        with span("fft_ear"):
+            sig_pair = framing.dequantize(sig_pair)
         t_fft = (n_fft + 1) * C.FFT_STEPSIZE
         return self(sig_pair[0, ..., :t_fft], sig_pair[1, ..., :t_fft],
                     sig_pair[..., :n_fb * C.FB_FRAMESIZE], valid_fft,
@@ -120,68 +125,77 @@ class AdvancedPipeline(nn.Module):
         ch_mean = channel_mean                     # [B, CH] -> [B]
 
         # ------------------ FFT path: SegmentalNMR + EHS ------------------
-        ref_fft = framing.dequantize(ref_fft)
-        test_fft = framing.dequantize(test_fft)
-        n_fft = ref_fft.shape[-1] // C.FFT_STEPSIZE - 1
-        above_fft = cuda_gate.frame_gate(ref_fft, n_fft, C.FFT_FRAMESIZE,
-                                         C.FFT_STEPSIZE, sdtype)
-        fft_valid = valid_mask(n_fft, valid_fft, ref_fft.device)
-        if fft_valid is not None:
-            above_fft = above_fft & fft_valid
-        _, _, committed_fft = accum.activity(above_fft.T)   # [F, B]
-        rblocks = framing.blocks_hop(ref_fft, n_fft)   # [B, CH, F+1, 1024]
-        tblocks = framing.blocks_hop(test_fft, n_fft)
-        ear = FE.stateless_pair_movs(kf, rblocks, tblocks,
-                                     spread_ref_only=True, bandwidth=False)
-        ref_exc = FE.time_smear(
-            kf, ear.unsmeared.transpose(-1, -2).contiguous(), axis=-1)
-        nmr_mean = cuda_band.band_movs(kf, "fft", ref_exc,
-                                       noise=ear.noise_in_bands).nmr[0]
-        ehs_val = cuda_ehs.ehs_frames(ear.ehs_difference, self.ehs_window,
-                                      settings.ehs_subtract_dc_before_window)
-        ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
-        cmf = committed_fft[..., None]
-        one = torch.ones_like(fm(nmr_mean))
-        seg_nmr = ch_mean(accum.avg(10.0 * exact.log10(fm(nmr_mean)), one,
-                                    cmf))
-        ehs_mov = ch_mean(accum.avg(fm(ehs_val), one,
-                                    cmf & ehs_valid.T[..., None]))
+        with span("fft_ear"):
+            ref_fft = framing.dequantize(ref_fft)
+            test_fft = framing.dequantize(test_fft)
+            n_fft = ref_fft.shape[-1] // C.FFT_STEPSIZE - 1
+            above_fft = cuda_gate.frame_gate(ref_fft, n_fft, C.FFT_FRAMESIZE,
+                                             C.FFT_STEPSIZE, sdtype)
+            fft_valid = valid_mask(n_fft, valid_fft, ref_fft.device)
+            if fft_valid is not None:
+                above_fft = above_fft & fft_valid
+            _, _, committed_fft = accum.activity(above_fft.T)   # [F, B]
+            rblocks = framing.blocks_hop(ref_fft, n_fft)  # [B, CH, F+1, 1024]
+            tblocks = framing.blocks_hop(test_fft, n_fft)
+            ear = FE.stateless_pair_movs(kf, rblocks, tblocks,
+                                         spread_ref_only=True,
+                                         bandwidth=False)
+            ehs_val = cuda_ehs.ehs_frames(
+                ear.ehs_difference, self.ehs_window,
+                settings.ehs_subtract_dc_before_window)
+        with span("band"):
+            ref_exc = FE.time_smear(
+                kf, ear.unsmeared.transpose(-1, -2).contiguous(), axis=-1)
+            nmr_mean = cuda_band.band_movs(kf, "fft", ref_exc,
+                                           noise=ear.noise_in_bands).nmr[0]
 
         # ------------- FB path: ModDiff / NoiseLoudAsym / LinDist ----------
-        fb_pair = framing.dequantize(fb_pair)
-        n_fb = fb_pair.shape[-1] // C.FB_FRAMESIZE
-        above_fb = cuda_gate.frame_gate(fb_pair[0], n_fb, C.FB_FRAMESIZE,
-                                        C.FB_FRAMESIZE, sdtype)
-        fb_valid = valid_mask(n_fb, valid_fb, fb_pair.device)
-        if fb_valid is not None:
-            above_fb = above_fb & fb_valid
-        _, _, committed_fb = accum.activity(above_fb.T)     # [F, B]
-        exc2, uns2 = FB.process_signal(kb, fb_pair, n_fb)  # [2,B,CH,40,F]
-        lev_corr, pc, mod2, avg_loud2 = LA.level_adapt_fused_mod_factors(
-            kb.adapt_a, self.avg_matrix, exc2, uns2, C.FB_FRAMESIZE)
-        band = cuda_band.band_movs(
-            kb, "fb", exc2, lev_corr, pc, mod2, avg_loud2[0],
-            swap=settings.swap_mod_patts_for_noise_loudness_movs)
-        md_gate, nl_gate = loudness_gates(band.loudness, 125, 13)
-        md1, _, temp_wt, nl_asym, missing, lin_dist = (
-            fm(x) for x in band.terms)
+        with span("fb_ear"):
+            fb_pair = framing.dequantize(fb_pair)
+            n_fb = fb_pair.shape[-1] // C.FB_FRAMESIZE
+            above_fb = cuda_gate.frame_gate(fb_pair[0], n_fb, C.FB_FRAMESIZE,
+                                            C.FB_FRAMESIZE, sdtype)
+            fb_valid = valid_mask(n_fb, valid_fb, fb_pair.device)
+            if fb_valid is not None:
+                above_fb = above_fb & fb_valid
+            _, _, committed_fb = accum.activity(above_fb.T)     # [F, B]
+            exc2, uns2 = FB.process_signal(kb, fb_pair, n_fb)  # [2,B,CH,40,F]
+        with span("band"):
+            lev_corr, pc, mod2, avg_loud2 = LA.level_adapt_fused_mod_factors(
+                kb.adapt_a, self.avg_matrix, exc2, uns2, C.FB_FRAMESIZE)
+            band = cuda_band.band_movs(
+                kb, "fb", exc2, lev_corr, pc, mod2, avg_loud2[0],
+                swap=settings.swap_mod_patts_for_noise_loudness_movs)
 
-        cmb = committed_fb[..., None]
-        nl_mask = cmb & nl_gate.T[..., None]
-        mov = {
-            "RmsModDiffA": ch_mean(
-                accum.rms(md1, temp_wt, cmb & md_gate[:, None, None])),
-            "RmsNoiseLoudAsymA": ch_mean(
-                accum.rms_asym(nl_asym, missing, nl_mask)),
-            "SegmentalNMRB": seg_nmr,
-            "EHSB": ehs_mov,
-            "AvgLinDistA": ch_mean(
-                accum.avg(lin_dist, torch.ones_like(md1), nl_mask)),
-        }
-        mov_vec = torch.stack([mov[name] for name in C.MOV_ADVANCED_NAMES],
-                              -1)
-        di = self.cognitive(mov_vec, settings.clamp_movs)
-        signal_energy, noise_energy = energy_totals(ear.halves, fft_valid)
-        return AdvancedOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
-                               total_signal_energy=signal_energy,
-                               total_noise_energy=noise_energy)
+        with span("movs"):
+            ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
+            cmf = committed_fft[..., None]
+            one = torch.ones_like(fm(nmr_mean))
+            seg_nmr = ch_mean(accum.avg(10.0 * exact.log10(fm(nmr_mean)),
+                                        one, cmf))
+            ehs_mov = ch_mean(accum.avg(fm(ehs_val), one,
+                                        cmf & ehs_valid.T[..., None]))
+            md_gate, nl_gate = loudness_gates(band.loudness, 125, 13)
+            md1, _, temp_wt, nl_asym, missing, lin_dist = (
+                fm(x) for x in band.terms)
+
+            cmb = committed_fb[..., None]
+            nl_mask = cmb & nl_gate.T[..., None]
+            mov = {
+                "RmsModDiffA": ch_mean(
+                    accum.rms(md1, temp_wt, cmb & md_gate[:, None, None])),
+                "RmsNoiseLoudAsymA": ch_mean(
+                    accum.rms_asym(nl_asym, missing, nl_mask)),
+                "SegmentalNMRB": seg_nmr,
+                "EHSB": ehs_mov,
+                "AvgLinDistA": ch_mean(
+                    accum.avg(lin_dist, torch.ones_like(md1), nl_mask)),
+            }
+            mov_vec = torch.stack(
+                [mov[name] for name in C.MOV_ADVANCED_NAMES], -1)
+            di = self.cognitive(mov_vec, settings.clamp_movs)
+            signal_energy, noise_energy = energy_totals(ear.halves,
+                                                        fft_valid)
+            return AdvancedOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
+                                   total_signal_energy=signal_energy,
+                                   total_noise_energy=noise_energy)

@@ -5,15 +5,18 @@ pairs.
 pairs; one pair is B = 1) to ODG, DI and the MOVs per pair in three stages:
 
   A  the stateless ear model over all frames and channels (frames: S1,
-     rDFT, the bin-domain stage: S2, spreading: K3);
+     rDFT, the bin-domain stage: S2, spreading: K3), and EHS from S2's
+     log-spectral difference (E1, ops/cuda_ehs.py);
   B  the recurrences over frames: time smearing (K1), the level adapter's
      stage-1 and the modulation smoothers (K2), the level adapter's
      num/den and pattern-correction smoothers (K1 twice) with its level
-     correction (L1) and pattern adaptation (L2) between them;
-  C  per-frame MOV terms (M1: ModDiff, noise loudness, the gates'
-     loudness, NMR's band half, detection probability; ops/cuda_band.py),
-     EHS from S2's log-spectral difference (E1, ops/cuda_ehs.py), masked
-     accumulation and the cognitive model.
+     correction (L1) and pattern adaptation (L2) between them, then the
+     per-frame MOV terms (M1: ModDiff, noise loudness, the gates'
+     loudness, NMR's band half, detection probability; ops/cuda_band.py);
+  C  masked accumulation and the cognitive model.
+
+The stages run in the spans peaq.fft_ear (A, with the gate), peaq.band (B)
+and peaq.movs (C) of utils/trace.py.
 
 The orchestration follows src/gstpeaq.c:849-921: the frame >= 24 gates, the
 loudness-reached +3 delay, the data-boundary masks (the gate: kernel G1,
@@ -42,6 +45,7 @@ from . import accum
 from . import level_adapt as LA
 from . import movs as MOVS
 from . import nn as NN
+from ..utils.trace import span
 
 
 class BasicOutputs(NamedTuple):
@@ -139,70 +143,78 @@ class BasicPipeline(nn.Module):
         k = self.consts
         settings = self.settings
         sdtype = k.hann.dtype                      # the spectrum dtype
-        ref_sig = framing.dequantize(ref_sig)
-        test_sig = framing.dequantize(test_sig)
-        n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
-        above = cuda_gate.frame_gate(ref_sig, n_frames, C.FFT_FRAMESIZE,
-                                     C.FFT_STEPSIZE, sdtype)
-        frame_valid = valid_mask(n_frames, valid_frames, ref_sig.device)
-        if frame_valid is not None:
-            # frames past a pair's own flush frame can still overlap its
-            # audio (50% overlap): leave them out as the reference does
-            above = above & frame_valid
-        _, active, committed = accum.activity(above.T)       # [F, B]
-        ref_blocks = framing.blocks_hop(ref_sig, n_frames)   # [B,CH,F+1,1024]
-        test_blocks = framing.blocks_hop(test_sig, n_frames)
+        with span("fft_ear"):
+            ref_sig = framing.dequantize(ref_sig)
+            test_sig = framing.dequantize(test_sig)
+            n_frames = ref_sig.shape[-1] // C.FFT_STEPSIZE - 1
+            above = cuda_gate.frame_gate(ref_sig, n_frames, C.FFT_FRAMESIZE,
+                                         C.FFT_STEPSIZE, sdtype)
+            frame_valid = valid_mask(n_frames, valid_frames, ref_sig.device)
+            if frame_valid is not None:
+                # frames past a pair's own flush frame can still overlap
+                # its audio (50% overlap): leave them out as the reference
+                # does
+                above = above & frame_valid
+            _, active, committed = accum.activity(above.T)       # [F, B]
+            ref_blocks = framing.blocks_hop(ref_sig, n_frames)
+            test_blocks = framing.blocks_hop(test_sig, n_frames)
 
-        # ---- stage A: stateless ear model on both signals ----
-        ear = FE.stateless_pair_movs(k, ref_blocks, test_blocks)
+            # ---- stage A: stateless ear model on both signals ----
+            ear = FE.stateless_pair_movs(k, ref_blocks, test_blocks)
+            ehs = cuda_ehs.ehs_frames(
+                ear.ehs_difference, self.ehs_window,
+                settings.ehs_subtract_dc_before_window)
 
-        # ---- stage B: recurrences over frames, in [2, B, CH, Z, F] ----
-        uns_t = ear.unsmeared.transpose(-1, -2).contiguous()
-        exc = FE.time_smear(k, uns_t, axis=-1)             # [2, B, CH, Z, F]
-        lev_corr, pc, mod2, avg_loud2 = LA.level_adapt_fused_mod_factors(
-            k.adapt_a, self.avg_matrix, exc, uns_t, C.FFT_STEPSIZE)
+        with span("band"):
+            # ---- stage B: recurrences over frames, in [2, B, CH, Z, F],
+            # then the per-frame MOV terms (M1) ----
+            uns_t = ear.unsmeared.transpose(-1, -2).contiguous()
+            exc = FE.time_smear(k, uns_t, axis=-1)         # [2, B, CH, Z, F]
+            lev_corr, pc, mod2, avg_loud2 = LA.level_adapt_fused_mod_factors(
+                k.adapt_a, self.avg_matrix, exc, uns_t, C.FFT_STEPSIZE)
+            band = cuda_band.band_movs(
+                k, "basic", exc, lev_corr, pc, mod2, avg_loud2[0],
+                ear.noise_in_bands,
+                use_floor=settings.use_floor_for_steps_above_threshold)
 
-        # ---- stage C: per-frame MOV terms (M1), then [B, CH, F] ->
-        # [F, B, CH] ----
-        band = cuda_band.band_movs(
-            k, "basic", exc, lev_corr, pc, mod2, avg_loud2[0],
-            ear.noise_in_bands,
-            use_floor=settings.use_floor_for_steps_above_threshold)
-        md_gate, nl_gate = loudness_gates(band.loudness, 24, 3)
-        fm = frame_major
-        md1, md2, temp_wt, nl = (fm(x) for x in band.terms)
-        bw_ref, bw_test, bw_valid = (fm(x) for x in ear.bandwidth)
-        nmr_mean, disturbed = (fm(x) for x in band.nmr)
-        p_bin, steps_bin = (x.T for x in band.detect)
-        ehs_val = fm(cuda_ehs.ehs_frames(
-            ear.ehs_difference, self.ehs_window,
-            settings.ehs_subtract_dc_before_window))
-        ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
+        with span("movs"):
+            # ---- stage C: [B, CH, F] -> [F, B, CH], accumulate to [B] ----
+            md_gate, nl_gate = loudness_gates(band.loudness, 24, 3)
+            fm = frame_major
+            md1, md2, temp_wt, nl = (fm(x) for x in band.terms)
+            bw_ref, bw_test, bw_valid = (fm(x) for x in ear.bandwidth)
+            nmr_mean, disturbed = (fm(x) for x in band.nmr)
+            p_bin, steps_bin = (x.T for x in band.detect)
+            ehs_val = fm(ehs)
+            ehs_valid = MOVS.ehs_valid(ear.threshold[0], ear.threshold[1])
 
-        # ---- accumulate, [F, B, CH] -> [B] ----
-        cm = committed[..., None]
-        gm = md_gate[:, None, None]
-        one = torch.ones_like(md1)
-        ch_mean = channel_mean
-        mov = {
-            "BandwidthRefB": ch_mean(accum.avg(bw_ref, one, cm & bw_valid)),
-            "BandwidthTestB": ch_mean(accum.avg(bw_test, one, cm & bw_valid)),
-            "TotalNMRB": ch_mean(accum.avg_log(nmr_mean, one, cm)),
-            "WinModDiff1B": ch_mean(accum.avg_window(
-                md1, active[..., None] & gm, cm)),
-            "ADBB": accum.adb(steps_bin, committed & (p_bin > 0.5)),
-            "EHSB": ch_mean(accum.avg(ehs_val, one,
-                                      cm & ehs_valid.T[..., None])),
-            "AvgModDiff1B": ch_mean(accum.avg(md1, temp_wt, cm & gm)),
-            "AvgModDiff2B": ch_mean(accum.avg(md2, temp_wt, cm & gm)),
-            "RmsNoiseLoudB": ch_mean(accum.rms(nl, one,
-                                               cm & nl_gate.T[..., None])),
-            "MFPDB": accum.filtered_max(p_bin, active, committed),
-            "RelDistFramesB": ch_mean(accum.avg(disturbed, one, cm)),
-        }
-        mov_vec = torch.stack([mov[name] for name in C.MOV_BASIC_NAMES], -1)
-        di = self.cognitive(mov_vec, settings.clamp_movs)
-        signal_energy, noise_energy = energy_totals(ear.halves, frame_valid)
-        return BasicOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
-                            total_signal_energy=signal_energy,
-                            total_noise_energy=noise_energy)
+            cm = committed[..., None]
+            gm = md_gate[:, None, None]
+            one = torch.ones_like(md1)
+            ch_mean = channel_mean
+            mov = {
+                "BandwidthRefB": ch_mean(accum.avg(bw_ref, one,
+                                                   cm & bw_valid)),
+                "BandwidthTestB": ch_mean(accum.avg(bw_test, one,
+                                                    cm & bw_valid)),
+                "TotalNMRB": ch_mean(accum.avg_log(nmr_mean, one, cm)),
+                "WinModDiff1B": ch_mean(accum.avg_window(
+                    md1, active[..., None] & gm, cm)),
+                "ADBB": accum.adb(steps_bin, committed & (p_bin > 0.5)),
+                "EHSB": ch_mean(accum.avg(ehs_val, one,
+                                          cm & ehs_valid.T[..., None])),
+                "AvgModDiff1B": ch_mean(accum.avg(md1, temp_wt, cm & gm)),
+                "AvgModDiff2B": ch_mean(accum.avg(md2, temp_wt, cm & gm)),
+                "RmsNoiseLoudB": ch_mean(accum.rms(
+                    nl, one, cm & nl_gate.T[..., None])),
+                "MFPDB": accum.filtered_max(p_bin, active, committed),
+                "RelDistFramesB": ch_mean(accum.avg(disturbed, one, cm)),
+            }
+            mov_vec = torch.stack([mov[name] for name in C.MOV_BASIC_NAMES],
+                                  -1)
+            di = self.cognitive(mov_vec, settings.clamp_movs)
+            signal_energy, noise_energy = energy_totals(ear.halves,
+                                                        frame_valid)
+            return BasicOutputs(odg=NN.odg(di), di=di, movs=mov_vec,
+                                total_signal_energy=signal_energy,
+                                total_noise_energy=noise_energy)

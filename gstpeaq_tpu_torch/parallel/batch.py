@@ -23,6 +23,7 @@ import torch
 
 from .. import constants as C
 from ..ops import framing
+from ..utils.trace import span
 
 
 def bucket_frames(n_frames: int, granularity: int = 64) -> int:
@@ -145,17 +146,19 @@ def dispatch(pipe, buckets, sig: torch.Tensor,
     """Score one chunk, on the pipeline's device: sig [2, B, CH, T] and
     valid [paths, B] from prepare_chunk (valid None: every pair fills its
     bucket).  Returns the pipeline's outputs without waiting for them."""
-    valid = (None,) * len(buckets) if valid is None else tuple(valid)
-    if len(buckets) == 1:
-        return pipe(sig[0], sig[1], valid[0])
-    return pipe.unified_input(sig, *buckets, *valid)
+    with span("batch.dispatch"):
+        valid = (None,) * len(buckets) if valid is None else tuple(valid)
+        if len(buckets) == 1:
+            return pipe(sig[0], sig[1], valid[0])
+        return pipe.unified_input(sig, *buckets, *valid)
 
 
 def results(out) -> torch.Tensor:
     """A pipeline's outputs as one float64 tensor [B, 2 + M]: ODG, DI, then
     the MOVs (one copy to the host per chunk)."""
-    return torch.cat([out.odg[:, None], out.di[:, None], out.movs],
-                     -1).to(torch.float64)
+    with span("batch.results"):
+        return torch.cat([out.odg[:, None], out.di[:, None], out.movs],
+                         -1).to(torch.float64)
 
 
 def batch_pipeline(advanced: bool, playback_level: float,
